@@ -1,0 +1,41 @@
+"""Carry the JAX package's params across to the port.
+
+`from_jax_params(tree, device)` takes a params tree as `jax.device_get`
+hands it back (nested dicts of numpy arrays) and returns the port's tree
+with the same key paths. JAX's bf16 arrays arrive as `ml_dtypes.bfloat16`,
+which `torch.from_numpy` rejects; their bytes are reinterpreted as uint16
+and viewed as `torch.bfloat16` (exact). The dtype is detected by name, so
+this module needs no `ml_dtypes` import. Integer leaves (FourierFT
+`entries`) and f32 leaves (`c`) carry over as they are.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def array_to_torch(a, device, dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"unexpected bfloat16 itemsize {a.dtype.itemsize}")
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_params(tree: Dict, device, dtype: Optional[torch.dtype] = None
+                    ) -> Dict:
+    """Nested dict of arrays -> nested dict of torch tensors on `device`.
+    `dtype`, when given, casts the floating leaves (integer leaves keep
+    theirs)."""
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
+    return array_to_torch(tree, device, dtype)

@@ -1,0 +1,253 @@
+"""Kernel-op registry and backend policy.
+
+Every adapter hot-spot computation is a `KernelOp` keyed by
+``(op, method, backend)``, as in the JAX package:
+
+    op      — "deltaw" (dense ΔW materialization), "paged_attention"
+              (the factored and bank applies come with later slices)
+    method  — the owning `AdapterMethod.name` (model-side ops are owned by a
+              shim with the same `name`/`kernel_ops()` surface,
+              kernels/paged_attention.OWNER)
+    backend — "cuda" (a hand-written Hopper kernel) or "einsum" (the plain
+              PyTorch version)
+
+Methods declare their implementations through `AdapterMethod.kernel_ops()`;
+declarations are collected lazily on first dispatch (`ensure_method`).
+
+Resolution keys on the device of the tensors the op will see, not on a
+platform string. `PEFTConfig.kernel_backend` keeps the JAX names:
+
+    auto, pallas — the CUDA kernel for CUDA tensors, the plain version for
+                   CPU tensors (the kernel does not run there);
+    einsum       — the plain version everywhere (an explicit choice);
+    interpret    — rejected: Pallas interpret mode has no meaning here.
+
+Unlike the TPU registry, a CUDA-resident site that the kernel cannot take
+(its config predicate fails) RAISES instead of degrading silently to the
+plain version.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+OPS = ("deltaw", "paged_attention")
+BACKENDS = ("cuda", "einsum")
+
+# candidate chain per requested policy; first supported op wins
+CANDIDATES: Dict[str, Tuple[str, ...]] = {
+    "auto": ("cuda", "einsum"),
+    "pallas": ("cuda", "einsum"),
+    "einsum": ("einsum",),
+}
+
+
+class KernelUnavailableError(KeyError):
+    """No registered backend for (op, method) satisfies the constraints."""
+
+
+@dataclass(frozen=True)
+class KernelOp:
+    """One backend implementation of one op for one adapter method.
+
+    fn signatures:
+        deltaw:          fn(trainable, aux, d1, d2, peft) -> (stack?, d1, d2)
+                         f32 (the dispatch site casts)
+        paged_attention: fn(q, k_pages, v_pages, block_table, kv_len)
+
+    Constraints: `devices` (device types the op runs on; None = any) and
+    `requires` (predicate on the PEFTConfig). There is no dimension bound:
+    the ΔW kernel reduces its phases exactly in 64-bit arithmetic."""
+    op: str
+    method: str
+    backend: str
+    fn: Callable
+    devices: Optional[Tuple[str, ...]] = None
+    requires: Optional[Callable] = None
+    note: str = ""
+
+    def supports(self, d1: int, d2: int, peft=None,
+                 device: str = "cpu") -> Tuple[bool, str]:
+        """-> (ok, reason-if-not). `peft=None` skips config predicates."""
+        if self.devices is not None and device not in self.devices:
+            return False, f"device {device!r} not in {self.devices}"
+        if self.requires is not None and peft is not None \
+                and not self.requires(peft):
+            return False, "config constraint (requires)"
+        return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_OPS: Dict[Tuple[str, str, str], KernelOp] = {}
+_ENSURED: set = set()
+
+
+def register_kernel_op(op: KernelOp) -> KernelOp:
+    if op.op not in OPS:
+        raise ValueError(f"unknown kernel op {op.op!r}; one of {OPS}")
+    if op.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {op.backend!r}; one of {BACKENDS}")
+    key = (op.op, op.method, op.backend)
+    if key in _OPS:
+        raise ValueError(f"kernel op {key} already registered")
+    _OPS[key] = op
+    return op
+
+
+def _method_obj(method):
+    """Accept an AdapterMethod instance or its registry name (resolved
+    lazily — api.py must not import core.adapter at module level)."""
+    if isinstance(method, str):
+        from repro_torch.core import adapter as adapter_api
+        return adapter_api.resolve(method)
+    return method
+
+
+def ensure_method(method) -> None:
+    """Collect `method.kernel_ops()` into the registry, once per method."""
+    m = _method_obj(method)
+    if m.name in _ENSURED:
+        return
+    ops = tuple(m.kernel_ops())
+    for op in ops:
+        if (op.op, op.method, op.backend) in _OPS:
+            raise ValueError(f"kernel op {(op.op, op.method, op.backend)} "
+                             "already registered")
+    for op in ops:
+        register_kernel_op(op)
+    _ENSURED.add(m.name)
+
+
+def ops_for(method) -> Tuple[str, ...]:
+    """Op names the method has any backend registered for."""
+    m = _method_obj(method)
+    ensure_method(m)
+    return tuple(o for o in OPS
+                 if any((o, m.name, b) in _OPS for b in BACKENDS))
+
+
+def backends_for(op: str, method) -> Tuple[str, ...]:
+    m = _method_obj(method)
+    ensure_method(m)
+    return tuple(b for b in BACKENDS if (op, m.name, b) in _OPS)
+
+
+def requested_backend(peft) -> str:
+    return _validated(getattr(peft, "kernel_backend", None) or "auto")
+
+
+def _validated(requested: str) -> str:
+    if requested == "interpret":
+        raise ValueError(
+            "kernel_backend='interpret' selects Pallas interpret mode, which "
+            "has no meaning in the PyTorch port: use 'auto'/'pallas' (the "
+            "CUDA kernel on the card) or 'einsum' (the plain version)")
+    if requested not in CANDIDATES:
+        raise ValueError(f"unknown kernel backend {requested!r}; one of "
+                         f"{sorted(CANDIDATES) + ['interpret']}")
+    return requested
+
+
+def _device_type(device: Union[str, torch.device]) -> str:
+    return torch.device(device).type
+
+
+def resolve_op(op: str, method, peft=None, d1: int = 0, d2: int = 0, *,
+               device: Union[str, torch.device], backend: Optional[str] = None,
+               missing_ok: bool = False) -> Optional[KernelOp]:
+    """First registered op along the requested policy's candidate chain
+    whose constraints pass for tensors on `device`. `backend` overrides
+    `peft.kernel_backend`. A CUDA kernel that exists but cannot take a
+    CUDA-resident site raises (no silent degrade on the card)."""
+    m = _method_obj(method)
+    ensure_method(m)
+    requested = _validated(backend) if backend else requested_backend(peft)
+    dev = _device_type(device)
+    for b in CANDIDATES[requested]:
+        cand = _OPS.get((op, m.name, b))
+        if cand is None:
+            continue
+        ok, why = cand.supports(d1, d2, peft, dev)
+        if ok:
+            return cand
+        if b == "cuda" and dev == "cuda":
+            raise KernelUnavailableError(
+                f"the CUDA kernel for ({op!r}, {m.name!r}) cannot take this "
+                f"{d1}x{d2} site on {dev}: {why}")
+    if missing_ok:
+        return None
+    raise KernelUnavailableError(
+        f"no kernel op for ({op!r}, {m.name!r}) under backend={requested!r} "
+        f"on {dev}; registered backends: {backends_for(op, m)}")
+
+
+# ---------------------------------------------------------------------------
+# Policy: per-model resolution snapshot
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Resolution:
+    site: str
+    d1: int
+    d2: int
+    op: str
+    backend: str          # "" when nothing resolved (validate() rejects)
+
+
+@dataclass(frozen=True)
+class KernelPolicy:
+    """Backend choice for every targeted (site, op) pair of one model on
+    one device."""
+    method: str
+    requested: str
+    device: str
+    resolutions: Tuple[Resolution, ...] = ()
+
+    @classmethod
+    def build(cls, method, sites: Sequence, peft,
+              device: Union[str, torch.device]) -> "KernelPolicy":
+        m = _method_obj(method)
+        ensure_method(m)
+        requested = requested_backend(peft)
+        dev = _device_type(device)
+        res = []
+        if getattr(m, "has_site_params", True):
+            targets = getattr(peft, "target_modules", ())
+            for s in sites:
+                if s.name.split("/")[-1] not in targets:
+                    continue
+                for op in ops_for(m):
+                    chosen = resolve_op(op, m, peft, s.d_in, s.d_out,
+                                        device=dev, missing_ok=True)
+                    res.append(Resolution(s.name, s.d_in, s.d_out, op,
+                                          chosen.backend if chosen else ""))
+        return cls(m.name, requested, dev, tuple(res))
+
+    def backend_for(self, site: str, op: str) -> Optional[str]:
+        for r in self.resolutions:
+            if r.site == site and r.op == op:
+                return r.backend or None
+        return None
+
+    def validate(self) -> "KernelPolicy":
+        dead = [f"{r.op}@{r.site}" for r in self.resolutions if not r.backend]
+        if dead:
+            raise KernelUnavailableError(
+                f"method {self.method!r}: no backend resolved for {dead} "
+                f"under kernel_backend={self.requested!r} on {self.device}")
+        return self
+
+    def explain(self) -> str:
+        """Human-readable per-site resolution report."""
+        head = (f"kernel policy: method={self.method} "
+                f"requested={self.requested} device={self.device}")
+        if not self.resolutions:
+            return head + "\n  (no registered kernel ops for this method)"
+        return "\n".join([head] + [
+            f"  {r.site} ({r.d1}x{r.d2}) {r.op} -> "
+            f"{r.backend or 'UNRESOLVED'}" for r in self.resolutions])

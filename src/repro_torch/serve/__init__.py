@@ -1,0 +1,9 @@
+"""Serving: merged-adapter engine (`engine`), paged KV bookkeeping
+(`paging`) and the continuous-batching scheduler (`scheduler`)."""
+from repro_torch.serve.engine import Engine, Request, merge_for_serving  # noqa: F401
+from repro_torch.serve.paging import (  # noqa: F401
+    OutOfPagesError, PageAllocator, PagedKVCache, PageError, PrefixCache,
+)
+from repro_torch.serve.scheduler import (  # noqa: F401
+    ContinuousScheduler, RequestQueue, ServingMetrics, SlotManager,
+)
