@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, PEFTConfig
+from repro_torch.configs.base import (ModelConfig, MoEConfig, PEFTConfig,
+                                      TrainConfig)
 from repro_torch.configs import qwen2_5_32b, qwen3_4b, yi_6b, yi_9b
 
 ARCHS = {
@@ -71,4 +72,5 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, width: int = 64,
     return cfg.replace(**kw)
 
 
-__all__ = ["ModelConfig", "PEFTConfig", "ARCHS", "ARCH_IDS", "get", "reduced"]
+__all__ = ["ModelConfig", "PEFTConfig", "TrainConfig", "ARCHS", "ARCH_IDS",
+           "get", "reduced"]

@@ -1,7 +1,7 @@
-"""Config dataclasses for models and PEFT.
+"""Config dataclasses for models, PEFT and training.
 
-A copy of the JAX package's `configs/base.py` (ModelConfig, PEFTConfig and
-the family extras they reference), kept here so that the port imports
+A copy of the JAX package's `configs/base.py` (ModelConfig, PEFTConfig,
+TrainConfig and the family extras they reference), kept here so that the port imports
 nothing of the JAX package. One difference in meaning, not in fields:
 `PEFTConfig.kernel_backend` names the same four policies, and
 `repro_torch.kernels.api` maps them onto the port's backends — `auto` and
@@ -136,3 +136,27 @@ class PEFTConfig:
 # legacy tri-state -> registry backend policy
 _USE_PALLAS_TO_BACKEND = {"auto": "auto", "never": "einsum",
                           "interpret": "interpret"}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-3
+    head_learning_rate: float = 1e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "linear"      # linear | cosine | constant
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatch: int = 0           # 0 = no accumulation
+    remat: str = "full"           # full | dots | none
+    anomaly_threshold: float = 1e4
+    seed: int = 0
+    # gradient all-reduce compression: none | int8_ef (int8_ef comes with
+    # the distributed slice, ROADMAP queue 9)
+    grad_compression: str = "none"
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

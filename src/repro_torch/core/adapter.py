@@ -147,6 +147,10 @@ def resolve(name: str) -> AdapterMethod:
                        "later slice, ROADMAP queue 1)") from None
 
 
+def registered_methods() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
 # ---------------------------------------------------------------------------
 # FourierFT (the paper): spectral coefficients on frozen Fourier entries
 # ---------------------------------------------------------------------------
@@ -161,6 +165,8 @@ def _fourier_deltaw_einsum(tr, aux, d1, d2, peft):
 
 
 def _fourier_deltaw_cuda(tr, aux, d1, d2, peft):
+    # the autograd Function: K1 forward, K2 (the dc kernel) backward, so a
+    # merge on the card carries the coefficients' gradient
     from repro_torch.kernels import ops as kops
     return kops.fourier_deltaw_forward(tr["c"], aux["entries"], d1, d2,
                                        peft.alpha)

@@ -1,5 +1,5 @@
-"""PEFT attachment layer: adapter initialization and parameter accounting
-(paper Table 1). Adapter params live in a tree parallel to the base params:
+"""PEFT attachment layer: adapter initialization, the trainable subtree and
+parameter accounting (paper Table 1). Adapter params live in a tree parallel to the base params:
 params = {"base": ..., "peft": {site.name: {...}}}."""
 from __future__ import annotations
 
@@ -23,6 +23,14 @@ def init_adapters(gen: torch.Generator, sites: Sequence[AdapterSite],
     return {site.name: method.init_site(gen, site, peft, device)
             for site in sites
             if site.name.split("/")[-1] in peft.target_modules}
+
+
+def trainable_adapter_tree(adapters: Dict, peft: PEFTConfig) -> Dict:
+    """{site: {leaf: tensor}} restricted to the method's trainable leaves
+    (FourierFT: `c`; the entries stay frozen)."""
+    trainable = set(adapter_api.resolve(peft.method).trainable_leaves(peft))
+    return {site: {k: v for k, v in d.items() if k in trainable}
+            for site, d in adapters.items()}
 
 
 def _targeted(sites: Sequence[AdapterSite],

@@ -33,9 +33,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "fourier_deltaw": {
+        # cos, sin, d, stream
+        "fourier_twiddles_launch": (_P, _P, _I, _P),
         # c, u, v, cos1, sin1, cos2, sin2, out, L, n, d1, d2, scale, stream
         "fourier_deltaw_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _F, _P),
+        # g, u, v, cos1, sin1, cos2, sin2, partial, out, L, n, d1, d2,
+        # scale, stream
+        "fourier_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _F, _P),
     },
     "paged_attention": {
         # q, k_pages, v_pages, block_table, kv_len, out,

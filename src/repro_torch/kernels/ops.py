@@ -1,15 +1,21 @@
-"""The padding harness around the ΔW kernel, and the standalone
-registry-dispatched `fourier_deltaw` entry.
+"""The differentiable padding harness around the ΔW kernels, and the
+standalone registry-dispatched `fourier_deltaw` entry.
 
-`fourier_deltaw_forward` is the forward half of the JAX package's
-`make_deltaw_harness`: n is padded to the kernel's chunk (`NC`) with zero
-entries whose coefficients are 0 — those columns drop out of the sums
-exactly — and a stacked (L, n) input is ONE launch over the kernel's layer
-grid dimension, not L launches. The kernel writes ΔW at exactly (d1, d2)
-(its ragged tile edges are masked at the store), so nothing is sliced.
+`FourierDeltaW` is the JAX package's `make_deltaw_harness` as a
+`torch.autograd.Function`: its forward is the ΔW kernel (K1), its backward
+the dc kernel (K2), each one launch for a stacked (L, n) site.
 
-The backward half — a `torch.autograd.Function` whose backward is the dc
-kernel (the TPU's `dc_pallas`, K2) — comes with the training slice.
+- Forward: n is padded to the kernels' chunk (`NC`) with zero entries whose
+  coefficients are 0 — those columns drop out of the sums exactly. The
+  kernel writes ΔW at exactly (d1, d2) (its ragged tile edges are masked at
+  the store), so nothing is sliced. Only the padded entries are saved.
+- Backward: the cotangent is cast to contiguous f32 and handed to the dc
+  kernel unpadded (it masks its own edges); the padded entries' dc is
+  dropped, and the gradient takes c's shape ((n,) or (L, n)) and dtype.
+  Only c receives a gradient.
+
+On CPU tensors both halves run the kernels' plain versions; on CUDA tensors
+they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -19,21 +25,39 @@ import torch.nn.functional as F
 from repro_torch.kernels import fourier_deltaw as fdk
 
 
+class FourierDeltaW(torch.autograd.Function):
+    """ΔW for c (n,) -> (d1, d2), or stacked c (L, n) -> (L, d1, d2), f32;
+    differentiable with respect to c."""
+
+    @staticmethod
+    def forward(ctx, c, entries, d1: int, d2: int, alpha: float):
+        n = c.shape[-1]
+        c2 = c.reshape(-1, n).to(torch.float32)
+        npad = -(-n // fdk.NC) * fdk.NC
+        e = entries.to(device=c.device, dtype=torch.int32)
+        if npad != n:
+            c2 = F.pad(c2, (0, npad - n))
+            e = F.pad(e, (0, npad - n))
+        u, v = e[0].contiguous(), e[1].contiguous()
+        out = fdk.deltaw(c2.contiguous(), u, v, d1, d2, alpha)
+        ctx.save_for_backward(u, v)
+        ctx.meta = (c.shape, c.dtype, n, d1, d2, alpha)
+        return out.reshape(c.shape[:-1] + (d1, d2))
+
+    @staticmethod
+    def backward(ctx, g):
+        u, v = ctx.saved_tensors
+        shape, dtype, n, d1, d2, alpha = ctx.meta
+        g3 = g.reshape(-1, d1, d2).to(torch.float32).contiguous()
+        dc = fdk.dc(g3, u, v, d1, d2, alpha)[:, :n]
+        return dc.reshape(shape).to(dtype), None, None, None, None
+
+
 def fourier_deltaw_forward(c: torch.Tensor, entries: torch.Tensor, d1: int,
                            d2: int, alpha: float) -> torch.Tensor:
     """ΔW for c (n,) -> (d1, d2), or stacked c (L, n) -> (L, d1, d2), f32,
-    through `fourier_deltaw.deltaw` (the kernel on CUDA tensors)."""
-    single = c.ndim == 1
-    c2 = c.reshape(-1, c.shape[-1]).to(torch.float32)
-    n = c2.shape[1]
-    npad = -(-n // fdk.NC) * fdk.NC
-    e = entries.to(device=c.device, dtype=torch.int32)
-    if npad != n:
-        c2 = F.pad(c2, (0, npad - n))
-        e = F.pad(e, (0, npad - n))
-    out = fdk.deltaw(c2.contiguous(), e[0].contiguous(), e[1].contiguous(),
-                     d1, d2, alpha)
-    return out[0] if single else out
+    through `FourierDeltaW` (the kernels on CUDA tensors)."""
+    return FourierDeltaW.apply(c, entries, d1, d2, alpha)
 
 
 def fourier_deltaw(c: torch.Tensor, entries: torch.Tensor, d1: int, d2: int,

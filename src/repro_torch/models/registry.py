@@ -3,6 +3,9 @@ dense transformer (the JAX package's `models/registry.py`, dense family).
 
     model.init(seed, device)                -> {"base": ..., "peft": ...}
     model.forward(params, batch)            -> logits
+    model.loss(params, batch)               -> scalar (mean token CE, f32)
+    model.join(trainable, frozen)           -> params (the train step's split undone)
+    model.loss_from_parts(trainable, frozen_base, frozen_adapters, batch)
     model.prefill(params, cache, batch)     -> (next_tokens, cache)
     model.decode_step(params, cache, batch) -> (next_tokens, cache)
     model.init_cache(batch, max_len, ...)   -> cache tree
@@ -43,8 +46,12 @@ def adapter_sites(cfg: ModelConfig) -> Tuple[AdapterSite, ...]:
 class Model:
     cfg: ModelConfig
     peft: PEFTConfig
+    remat: str = "none"           # none | dots | full (training forward)
 
     def __post_init__(self):
+        if self.remat not in transformer.REMAT_MODES:
+            raise ValueError(f"unknown remat {self.remat!r}; one of "
+                             f"{transformer.REMAT_MODES}")
         if self.cfg.family != "dense":
             raise NotImplementedError(
                 f"family {self.cfg.family!r} ({self.cfg.name}) is not ported "
@@ -70,7 +77,36 @@ class Model:
 
     # ---- forward / decode ---------------------------------------------------
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
-        return self._call(transformer.forward, params, batch)
+        return transformer.forward(params["base"], params["peft"], batch,
+                                   self.cfg, self.peft, self.sites,
+                                   remat=self.remat)
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        return transformer.loss_fn(params["base"], params["peft"], batch,
+                                   self.cfg, self.peft, self.sites,
+                                   remat=self.remat)
+
+    def join(self, trainable: Dict, frozen: Dict) -> Dict:
+        """The params tree from the train step's (trainable, frozen) split:
+        trainable adapter leaves join the frozen ones per site, and a
+        trained head replaces `lm_head`."""
+        base = frozen["base"]
+        if "head" in trainable:
+            base = dict(base)
+            base["lm_head"] = trainable["head"]
+        peft = trainable.get("peft", {})
+        adapters = {site: {**frozen["peft"].get(site, {}),
+                           **peft.get(site, {})}
+                    for site in {**frozen["peft"], **peft}}
+        return {"base": base, "peft": adapters}
+
+    def loss_from_parts(self, trainable: Dict, frozen_base: Dict,
+                        frozen_adapters: Dict, batch: Dict) -> torch.Tensor:
+        """The split-tree loss the train step differentiates (gradients
+        w.r.t. `trainable` only)."""
+        return self.loss(self.join(trainable, {"base": frozen_base,
+                                               "peft": frozen_adapters}),
+                         batch)
 
     def prefill(self, params: Dict, cache: Dict, batch: Dict):
         return self._call(transformer.prefill, params, cache, batch)
@@ -112,5 +148,6 @@ class Model:
         return peft_mod.count_trainable(self.sites, self.peft)
 
 
-def build(cfg: ModelConfig, peft: Optional[PEFTConfig] = None) -> Model:
-    return Model(cfg, peft or PEFTConfig())
+def build(cfg: ModelConfig, peft: Optional[PEFTConfig] = None,
+          remat: str = "none") -> Model:
+    return Model(cfg, peft or PEFTConfig(), remat=remat)

@@ -8,23 +8,33 @@
   donates them to the same effect), so a decode step allocates no second
   cache.
 - PEFT covers the merged strategy (`apply_peft_to_layers` folds every
-  targeted ΔW into W before the layer loop). After `merge_for_serving` the
-  served model has method `none`, so decode does no adapter work. The
-  factored strategy and the adapter bank come with later slices.
+  targeted ΔW into W before the layer loop). Training differentiates
+  through that fold: on the card the ΔW kernel's autograd Function gives
+  the coefficients their gradient through the dc kernel. After
+  `merge_for_serving` the served model has method `none`, so decode does no
+  adapter work. The factored strategy and the adapter bank come with later
+  slices.
+- `remat` (training forward): "none"; "full" (`torch.utils.checkpoint` per
+  layer, saving nothing inside it); "dots" (selective checkpointing that
+  saves the projections' matmul outputs, the counterpart of JAX's
+  `dots_with_no_batch_dims_saveable`).
 - Paged decode dispatches the registry's `paged_attention` op: on the card
   that is the hand-written kernel (kernels/paged_attention.py).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt_util
 
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.models.common import (apply_rope, cross_entropy, dense_init,
+                                       rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -59,8 +69,13 @@ def linear(lp: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _layer(eff: Dict, li: int) -> Dict:
-    return {k: v[li] for k, v in eff.items()}
+def _layers(eff: Dict) -> List[Dict]:
+    """Per-layer views of the stacked layer tree. Each stack is unbound
+    once, so a backward pass stacks the layers' gradients into one tensor
+    (indexing layer by layer would zero-fill a whole stack per layer)."""
+    cols = {k: v.unbind(0) for k, v in eff.items()}
+    depth = len(next(iter(cols.values())))
+    return [{k: c[li] for k, c in cols.items()} for li in range(depth)]
 
 
 # ---------------------------------------------------------------------------
@@ -208,20 +223,59 @@ def _positions(B: int, S: int, device, offset=0) -> torch.Tensor:
 # Forward and prefill
 # ---------------------------------------------------------------------------
 
+REMAT_MODES = ("none", "dots", "full")
+
+# the ops "dots" saves: the projections' matmuls (no batch dims), as JAX's
+# dots_with_no_batch_dims_saveable; attention's batched products recompute
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt_util.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt_util.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    if mode == "none":
+        return fn
+    if mode == "dots":
+        context_fn = functools.partial(
+            ckpt_util.create_selective_checkpoint_contexts, _save_dots)
+        return lambda *a: ckpt_util.checkpoint(
+            fn, *a, use_reentrant=False, context_fn=context_fn)
+    if mode == "full":
+        return lambda *a: ckpt_util.checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"unknown remat {mode!r}; one of {REMAT_MODES}")
+
+
 def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
-            peft: PEFTConfig, sites) -> torch.Tensor:
-    """Causal forward over batch["tokens"] (B, S). Returns logits (B, S, V)."""
+            peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
+    """Causal forward over batch["tokens"] (B, S). Returns logits (B, S, V).
+    The merge runs once, outside the per-layer checkpoints (as in JAX, where
+    it precedes the scanned body)."""
     x = _embed(params, batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
     eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
-    for li in range(cfg.num_layers):
-        lp = _layer(eff, li)
+
+    def body(lp, x):
         x, _ = _attn_block(lp, x, cfg, positions)
-        x = _mlp_block(lp, x, cfg)
+        return _mlp_block(lp, x, cfg)
+
+    body = _remat(body, remat)
+    for lp in _layers(eff):
+        x = body(lp, x)
     return _logits(params, x, cfg)
+
+
+def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
+            peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
+    """Mean token cross-entropy of the causal forward against
+    batch["labels"] (B, S), f32."""
+    logits = forward(params, adapters, batch, cfg, peft, sites, remat=remat)
+    return cross_entropy(logits, batch["labels"])
 
 
 def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
@@ -237,8 +291,7 @@ def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         positions = _positions(B, S, x.device)
     eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
     ck_all, cv_all = cache["k"], cache["v"]
-    for li in range(cfg.num_layers):
-        lp = _layer(eff, li)
+    for li, lp in enumerate(_layers(eff)):
         x, (k, v) = _attn_block(lp, x, cfg, positions)
         ck_all[li, :, :S] = k.to(ck_all.dtype)
         cv_all[li, :, :S] = v.to(cv_all.dtype)
@@ -346,8 +399,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     w_page = torch.where(valid, bt[0].to(torch.int64)[safe // ps],
                          torch.full_like(j, int(batch["scratch_page"])))
     w_off = torch.where(valid, safe % ps, j % ps)
-    for li in range(cfg.num_layers):
-        lp = _layer(eff, li)
+    for li, lp in enumerate(_layers(eff)):
         q, k, v = _qkv(lp, x, cfg, positions)
         pk, pv = cache["pk"][li], cache["pv"][li]
         if wt is not None:
@@ -398,8 +450,7 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
             d1=cache["pk"].shape[2], d2=cfg.head_dim, device=x.device)
         paged = (batch["block_table"], op.fn)
     kk, vk = ("pk", "pv") if paged is not None else ("k", "v")
-    for li in range(cfg.num_layers):
-        lp = _layer(eff, li)
+    for li, lp in enumerate(_layers(eff)):
         x, _ = _attn_block(lp, x, cfg, positions,
                            cache_kv=(cache[kk][li], cache[vk][li]),
                            cache_pos=pos, paged=paged)

@@ -23,11 +23,13 @@ from repro_torch.devices import resolve_device, tree_to
 from repro_torch.models.registry import Model, add_time_dim, build
 
 
+@torch.no_grad()
 def merge_for_serving(model: Model, params: Dict) -> Tuple[Model, Dict]:
     """Fold every mergeable layer-stack ΔW into the base. Leftover adapters
     (non-`layers/` sites, or methods with `mergeable=False`) stay under
     their true method — the rebuilt model keeps the original PEFTConfig
-    whenever anything is left over."""
+    whenever anything is left over. Runs without autograd: merged weights
+    built from trained coefficients (which require grad) hold no graph."""
     peft = model.peft
     method = model.method
     if not method.has_site_params or not params.get("peft"):
@@ -93,6 +95,7 @@ class Engine:
             self.device, per_slot=per_slot, paged=paged,
             page_size=page_size, n_pages=n_pages)
 
+    @torch.no_grad()
     def generate(self, prompts: Sequence, max_new: int = 16,
                  adapter_ids: Optional[Sequence[Optional[str]]] = None
                  ) -> List[torch.Tensor]:

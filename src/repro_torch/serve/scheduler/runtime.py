@@ -358,11 +358,13 @@ class ContinuousScheduler:
                     yield self._finish(slot, t)
 
     # ---- main loop --------------------------------------------------------
+    @torch.no_grad()
     def tick(self) -> List[Event]:
         """ONE scheduler round — admit every admissible arrived request,
         then (if anything is decoding) one decode step — returning the
         round's events. Returns [] when there is nothing to do right now
-        (the round idle-skips the clock to the next arrival)."""
+        (the round idle-skips the clock to the next arrival). Every prefill
+        and decode runs here, without autograd."""
         evs: List[Event] = list(self._admit_ready())
         if self.slots.any_active():
             evs.extend(self._decode_once())

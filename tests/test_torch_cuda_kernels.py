@@ -46,6 +46,66 @@ def test_deltaw_kernel_matches_plain(cuda_device, d1, d2, n, L):
                                atol=2e-4)
 
 
+@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
+                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+def test_dc_kernel_matches_plain(cuda_device, d1, d2, n, L):
+    """K2 against its plain version at atol 2e-3 / rtol 1e-4 (the JAX
+    suite's dc tolerance), bit-identical on a second launch (fixed-order
+    reduction), and the Function's backward launches it once."""
+    E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.normal(size=(L, d1, d2)).astype(
+        np.float32)).to(cuda_device)
+    npad = -(-n // fdk.NC) * fdk.NC
+    e = torch.zeros((2, npad), dtype=torch.int32, device=cuda_device)
+    e[:, :n] = E
+    u, v = e[0].contiguous(), e[1].contiguous()
+    before = fdk.dc_launches
+    out = fdk.dc(g, u, v, d1, d2, 300.0)
+    assert fdk.dc_launches == before + 1
+    plain = fdk.dc_reference(g, u, v, d1, d2, 300.0)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               atol=2e-3, rtol=1e-4)
+    assert torch.equal(fdk.dc(g, u, v, d1, d2, 300.0), out)
+    c = torch.from_numpy(rng.normal(size=(L, n)).astype(
+        np.float32)).to(cuda_device).requires_grad_(True)
+    before = fdk.dc_launches
+    torch.sum(ops.FourierDeltaW.apply(c, E, d1, d2, 300.0) * g).backward()
+    assert fdk.dc_launches == before + 1
+    np.testing.assert_allclose(c.grad.cpu().numpy(),
+                               plain[:, :n].cpu().numpy(), atol=2e-3,
+                               rtol=1e-4)
+
+
+def test_train_steps_run_both_kernels(cuda_device):
+    """A reduced yi-6b (head_dim 128) trained on the card: every step
+    launches K1 and K2 once per site and microbatch, and the losses track
+    the plain (einsum) run's."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import step as ts
+    cfg = configs.reduced(configs.get("yi-6b"), width=512).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-2, total_steps=3, warmup_steps=1,
+                       microbatch=2)
+    data = SyntheticLM(vocab=64, batch=4, seq=16)
+    losses = {}
+    for backend in ("auto", "einsum"):
+        model = build(cfg, PEFTConfig(n=64, kernel_backend=backend))
+        state, frozen = ts.init_state(model, tcfg, 0, cuda_device)
+        step = ts.make_train_step(model, tcfg)
+        fdk.launches = fdk.dc_launches = 0
+        losses[backend] = []
+        for i in range(3):
+            state, m = step(state, frozen, {
+                k: v.to(cuda_device) for k, v in data.batch_at(i).items()})
+            losses[backend].append(float(m["loss"]))
+        expected = 3 * 2 * 2 if backend == "auto" else 0
+        assert fdk.launches == fdk.dc_launches == expected
+        assert int(state["anomalies"]) == 0
+    np.testing.assert_allclose(losses["auto"], losses["einsum"], atol=1e-4)
+
+
 def _pages(seed, device, dtype, B=4, H=32, K=4, dh=128, ps=16, n_pages=40,
            pps=8):
     rng = np.random.default_rng(seed)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.configs.base import PEFTConfig
+from repro_torch.configs.base import PEFTConfig, TrainConfig
 from repro_torch.models import build
 from repro_torch.serve import ContinuousScheduler, Engine, PagedKVCache
 
@@ -59,8 +59,14 @@ def test_entry_points_raise_without_cuda():
     sched = ContinuousScheduler(engine)
     assert sched.cache["pk"].device.type == "cpu"
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as train_step
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "yi-6b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "yi-6b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.init_state(model, TrainConfig(), 0)
 
 
 def test_unported_paths_are_rejected():
