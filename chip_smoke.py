@@ -51,7 +51,37 @@ no result line:
               w.r.t. c at the first batch, in f32, matches the einsum
               path's, within the tolerances stated there; cold and warm ms
               per step and tokens/s.
-9. kernels  — one JSON line with each kernel's launches, error and times.
+9. K4       — the DCT ΔW kernel against its plain version at the same
+              shapes, atol 2e-5 / rtol 1e-5 (the JAX suite's site_delta
+              tolerance), f32 with TF32 off; kernel, plain and one
+              `torch.matmul` of the prebuilt (C1 ⊙ c)·C2ᵀ factors (the
+              library call) times; the bound is `fft_bound`'s (a fast 2-D
+              DCT costs what a real FFT does), the direct sum's FP32 floor
+              (2·d1·d2·n·L) is `direct_sum_bound_ms`.
+10. K5      — the DCT dc kernel (K4's VJP) at the same shapes, atol 1e-4 /
+              rtol 1e-3 (the JAX suite's gradient tolerance), bit-identical
+              on a second launch; kernel, plain and `torch.matmul(g, C2)`
+              on prebuilt bases (then the C1-weighted row sum) times.
+11. dct gradient — phase 6 for the `dct` method: c.grad through the
+              registry's CUDA op (K4 forward, K5 backward) equals the einsum
+              path's autograd gradient within K5's tolerance, K5 launched
+              once per site.
+12. dct     — the path of the `dct` method on phase 7's model (yi-6b full
+              width, SLICE_LAYERS layers, bf16, n = 1000, alpha = 300 on
+              wq/wv): TRAIN_STEPS steps through `make_train_step` (phase 8's
+              batches and schedule; losses finite, no anomaly, c moved, K4
+              and K5 each launched steps x microbatches x 2 sites), then the
+              trained params merged with K4 and served through
+              ContinuousScheduler on the launcher's trace (K3): every
+              request completes, K4 launched once per site, K3 decode steps
+              x layers, and the einsum merge of the same params gives
+              merged weights within one bf16 ulp. First tokens: the same
+              coefficients merged into the model in f32 by K4 and by the
+              einsum path give the same first token for every prompt; the
+              bf16 runs' first tokens are reported with each prompt's top-2
+              logit margin (bf16 logits can tie exactly, and a one-ulp
+              difference then decides the argmax).
+13. kernels — one JSON line with each kernel's launches, error and times.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -85,12 +115,38 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 
 def fft_ops(d1: int, d2: int, L: int) -> float:
-    """Operations of the FFT formulation of K1's and K2's functions: a
-    real-data 2-D FFT of d1 x d2 points per layer, 2.5·N·log2 N for
+    """Operations of the FFT formulation of K1's, K2's, K4's and K5's
+    functions: a real-data 2-D FFT (or DCT, which a real FFT of the same
+    size computes) of d1 x d2 points per layer, 2.5·N·log2 N for
     N = d1·d2 (half the 5·N·log2 N of a complex transform). No known
-    method needs fewer; the direct sum needs 4·d1·d2·n."""
+    method needs fewer; the direct sum needs 4·d1·d2·n (2·d1·d2·n for
+    the cosine-only DCT)."""
     size = float(d1 * d2)
     return 2.5 * size * math.log2(size) * L
+
+
+def padded_entries(entries, n: int, nc: int):
+    """(2, n) entries zero-padded to a multiple of the kernels' chunk `nc`
+    -> (u, v) contiguous int32 on the entries' device."""
+    import torch
+    npad = -(-n // nc) * nc
+    e = torch.zeros((2, npad), dtype=torch.int32, device=entries.device)
+    e[:, :n] = entries
+    return e[0].contiguous(), e[1].contiguous()
+
+
+def merged_within_one_ulp(w, a, b):
+    """Both merges add bf16(ΔW) to the same bf16 W: the f32 ΔWs agree to
+    far below bf16's resolution, but casting them to bf16 can still differ
+    in the last bit, and the sum then rounds once more. Allowed: one bf16
+    ulp (2^-7 relative) of the merged value plus one of ΔW. Returns
+    (ok, number of values that differ)."""
+    import torch
+    w, a, b = w.float(), a.float(), b.float()
+    ulp = (torch.maximum(a.abs(), b.abs())
+           + torch.maximum((a - w).abs(), (b - w).abs())) * 2.0 ** -7
+    diff = (a - b).abs()
+    return not bool((diff > ulp).any()), int((diff > 0).sum())
 
 
 def main() -> int:
@@ -105,13 +161,16 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.configs.base import PEFTConfig
     from repro_torch.core.fourierft import fourier_bases, sample_entries
+    from repro_torch.core.adapter import dct_bases
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import demo_prompts, demo_trace
     from repro_torch.models import build
     from repro_torch.serve import ContinuousScheduler, Engine
+    from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -158,12 +217,9 @@ def main() -> int:
           "err": 0.0, "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
     for d1, d2, n, L, main_path in shapes:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
-        npad = -(-n // fdk.NC) * fdk.NC
-        c = torch.zeros((L, npad), dtype=torch.float32, device=dev)
+        u, v = padded_entries(entries, n, fdk.NC)
+        c = torch.zeros((L, u.shape[0]), dtype=torch.float32, device=dev)
         c[:, :n] = torch.randn((L, n), generator=gen, device=dev)
-        e = torch.zeros((2, npad), dtype=torch.int32, device=dev)
-        e[:, :n] = entries
-        u, v = e[0].contiguous(), e[1].contiguous()
         out = fdk.deltaw(c, u, v, d1, d2, 300.0)
         ref = fdk.deltaw_reference(c, u, v, d1, d2, 300.0)
         torch.cuda.synchronize()
@@ -176,7 +232,8 @@ def main() -> int:
             lambda: fdk.deltaw_reference(c, u, v, d1, d2, 300.0), 5)
         # one torch.matmul of the pre-built rank-2n factors (per layer
         # A = [c·cosθ, -c·sinθ]·scale, B = [cosφ, sinφ])
-        cos_t, sin_t, cos_p, sin_p = fourier_bases(e, d1, d2)
+        cos_t, sin_t, cos_p, sin_p = fourier_bases(torch.stack([u, v]), d1,
+                                                   d2)
         a = torch.cat([cos_t[None] * c[:, None, :],
                        -sin_t[None] * c[:, None, :]], dim=2) \
             * (300.0 / (d1 * d2))
@@ -212,10 +269,7 @@ def main() -> int:
           "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
     for d1, d2, n, L, main_path in shapes:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
-        npad = -(-n // fdk.NC) * fdk.NC
-        e = torch.zeros((2, npad), dtype=torch.int32, device=dev)
-        e[:, :n] = entries
-        u, v = e[0].contiguous(), e[1].contiguous()
+        u, v = padded_entries(entries, n, fdk.NC)
         g = torch.randn((L, d1, d2), generator=gen, device=dev)
         out = fdk.dc(g, u, v, d1, d2, 300.0)
         ref = fdk.dc_reference(g, u, v, d1, d2, 300.0)
@@ -348,7 +402,7 @@ def main() -> int:
     slots, max_len = 8, pps * ps
     prompts = demo_prompts(cfg, slots)
 
-    def run(backend: str):
+    def run(backend: str, peft, params):
         m = build(cfg, peft.replace(kernel_backend=backend))
         t0 = time.perf_counter()
         engine = Engine(m, params, batch_slots=slots, max_len=max_len,
@@ -363,7 +417,7 @@ def main() -> int:
 
     fdk.launches = 0
     pak.launches = 0
-    engine, sched, reqs, merge_s = run("auto")
+    engine, sched, reqs, merge_s = run("auto", peft, params)
     k1_serve, k3_launches = fdk.launches, pak.launches
     steps = sched.metrics.steps
     for i, r in enumerate(reqs):
@@ -386,23 +440,18 @@ def main() -> int:
           f"steps (p90 {s['ttft_steps_p90']:.0f}), prime "
           f"{s['prime_s_mean'] * 1e3:.2f} ms mean | K1 launches "
           f"{k1_serve}, K3 launches {k3_launches}")
-    engine_e, sched_e, reqs_e, merge_e = run("einsum")
+    engine_e, sched_e, reqs_e, merge_e = run("einsum", peft, params)
     for key in ("wq", "wv"):
-        # both merges add bf16(ΔW) to the same bf16 W: the f32 ΔWs agree to
-        # ~1e-8 (phase 3), but casting them to bf16 can still differ in
-        # the last bit, and the sum then rounds once more. Allowed: one
-        # bf16 ulp (2^-7 relative) of the merged value plus one of ΔW.
-        w = params["base"]["layers"][key].float()
-        a = engine.params["base"]["layers"][key].float()
-        b = engine_e.params["base"]["layers"][key].float()
-        ulp = (torch.maximum(a.abs(), b.abs())
-               + torch.maximum((a - w).abs(), (b - w).abs())) * 2.0 ** -7
-        diff = (a - b).abs()
-        if bool((diff > ulp).any()):
+        # the f32 ΔWs agree to ~1e-8 (phase 3); see merged_within_one_ulp
+        w = params["base"]["layers"][key]
+        ok, ndiff = merged_within_one_ulp(
+            w, engine.params["base"]["layers"][key],
+            engine_e.params["base"]["layers"][key])
+        if not ok:
             return fail(f"merged {key}: kernel and plain merges differ by "
                         "more than one bf16 ulp")
-        print(f"[serve] merged {key}: {int((diff > 0).sum())} of "
-              f"{diff.numel()} bf16 values differ (each within one ulp)")
+        print(f"[serve] merged {key}: {ndiff} of {w.numel()} bf16 values "
+              "differ (each within one ulp)")
     first = [r.out[0] for r in reqs] == [r.out[0] for r in reqs_e]
     later = sum(x != y for r, re_ in zip(reqs, reqs_e)
                 for x, y in zip(r.out[1:], re_.out[1:]))
@@ -416,7 +465,7 @@ def main() -> int:
     # the first run above also paid one-time set-up (library handles,
     # pinned buffers); a second kernel run, after the plain one, is the
     # warm figure to compare with it
-    engine_w, sched_w, reqs_w, merge_w = run("auto")
+    engine_w, sched_w, reqs_w, merge_w = run("auto", peft, params)
     s_w = sched_w.metrics.summary()
     print(f"[serve] kernels, warm: merge {merge_w:.3f} s, "
           f"{s_w['tokens_per_s']:.1f} tok/s, prime "
@@ -541,7 +590,250 @@ def main() -> int:
         return fail("train: the f32 first-batch gradient through K2 differs "
                     "from the einsum path's beyond the stated tolerances")
 
-    # ---- 9. kernels line -------------------------------------------------------
+    # ---- 9. K4 -----------------------------------------------------------------
+    def dct_inputs(d1, d2, n, L):
+        entries = sample_entries(d1, d2, n, seed=7).to(dev)
+        u, v = padded_entries(entries, n, ddk.NC)
+        c = torch.zeros((L, u.shape[0]), dtype=torch.float32, device=dev)
+        c[:, :n] = torch.randn((L, n), generator=gen, device=dev)
+        c1, c2 = dct_bases(torch.stack([u, v]), d1, d2)
+        return u, v, c, c1, c2
+
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+          "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
+    for d1, d2, n, L, main_path in shapes:
+        u, v, c, c1, c2 = dct_inputs(d1, d2, n, L)
+        out = ddk.deltaw(c, u, v, d1, d2, 300.0)
+        ref = ddk.deltaw_reference(c, u, v, d1, d2, 300.0)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = float(diff.max())
+        if not torch.isfinite(out).all() or bool(
+                (diff > 2e-5 + 1e-5 * ref.abs()).any()):
+            return fail(f"K4 {d1}x{d2} n={n} L={L}: max |kernel - plain| "
+                        f"{err:.3e} beyond atol 2e-5, rtol 1e-5")
+        ms = timed_ms(lambda: ddk.deltaw(c, u, v, d1, d2, 300.0), 5)
+        plain_ms = timed_ms(
+            lambda: ddk.deltaw_reference(c, u, v, d1, d2, 300.0), 5)
+        # the library call: one torch.matmul of the prebuilt rank-n factors
+        a = c1[None] * c[:, None, :] * (300.0 / (d1 * d2))
+        b = c2.T.contiguous()
+        lib_err = float((torch.matmul(a, b) - ref).abs().max())
+        lib_ms = timed_ms(lambda: torch.matmul(a, b), 5)
+        flops, direct = fft_ops(d1, d2, L), 2.0 * d1 * d2 * n * L
+        nbytes = 4.0 * (L * n + 2 * n + L * d1 * d2)
+        b_ms, b_by = bound(flops, nbytes, "float32")
+        print(f"[K4] {d1}x{d2} n={n} L={L}: max_abs_err {err:.3e} | kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, matmul {lib_ms:.3f} ms "
+              f"(|matmul - plain| {lib_err:.1e}), bound {b_ms:.4f} ms "
+              f"({b_by}), direct-sum FP32 floor "
+              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms")
+        k4["err"] = max(k4["err"], err)
+        if main_path:
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("flops", flops),
+                             ("direct_flops", direct), ("bytes", nbytes)):
+                k4[key] += val
+        del a, b, out, ref, c1, c2
+    k4["bound_ms"], k4["bound_by"] = bound(k4["flops"], k4["bytes"],
+                                           "float32")
+
+    # ---- 10. K5 ----------------------------------------------------------------
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+          "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
+    for d1, d2, n, L, main_path in shapes:
+        u, v, _, c1, c2 = dct_inputs(d1, d2, n, L)
+        g = torch.randn((L, d1, d2), generator=gen, device=dev)
+        out = ddk.dc(g, u, v, d1, d2, 300.0)
+        ref = ddk.dc_reference(g, u, v, d1, d2, 300.0)
+        again = ddk.dc(g, u, v, d1, d2, 300.0)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = float(diff.max())
+        if not torch.isfinite(out).all() or bool(
+                (diff > 1e-4 + 1e-3 * ref.abs()).any()):
+            return fail(f"K5 {d1}x{d2} n={n} L={L}: max |kernel - plain| "
+                        f"{err:.3e} beyond atol 1e-4, rtol 1e-3")
+        if not torch.equal(out, again):
+            return fail(f"K5 {d1}x{d2}: two launches gave different bits")
+        ms = timed_ms(lambda: ddk.dc(g, u, v, d1, d2, 300.0), 5)
+        plain_ms = timed_ms(
+            lambda: ddk.dc_reference(g, u, v, d1, d2, 300.0), 5)
+        # the library call: torch.matmul(g, C2) on the prebuilt bases, then
+        # the C1-weighted sum over rows
+        scale = 300.0 / (d1 * d2)
+        lib_ms = timed_ms(
+            lambda: (torch.matmul(g, c2) * c1).sum(dim=-2) * scale, 5)
+        flops, direct = fft_ops(d1, d2, L), 2.0 * d1 * d2 * n * L
+        nbytes = 4.0 * (L * d1 * d2 + 2 * n + L * n)
+        b_ms, b_by = bound(flops, nbytes, "float32")
+        print(f"[K5] {d1}x{d2} n={n} L={L}: max_abs_err {err:.3e} | kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, matmul(g, C2) "
+              f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), direct-sum "
+              f"FP32 floor {direct / H100_PEAK['float32'] * 1e3:.3f} ms | "
+              "bit-identical on a second launch")
+        k5["err"] = max(k5["err"], err)
+        if main_path:
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("flops", flops),
+                             ("direct_flops", direct), ("bytes", nbytes)):
+                k5[key] += val
+        del g, out, ref, again, c1, c2
+    k5["bound_ms"], k5["bound_by"] = bound(k5["flops"], k5["bytes"],
+                                           "float32")
+
+    # ---- 11. dct gradient -------------------------------------------------------
+    dct = adapter_api.resolve("dct")
+    dpeft = PEFTConfig(method="dct", n=1000, alpha=300.0)
+    before = ddk.dc_launches
+    for site_name, d1, d2 in (("layers/wq", 4096, 4096),
+                              ("layers/wv", 4096, 512)):
+        site = adapter_api.AdapterSite(site_name, d1, d2, 2)
+        ad = dct.init_site(gen, site, dpeft, dev)
+        g = torch.randn((2, d1, d2), generator=gen, device=dev)
+        grads = {}
+        for backend in ("auto", "einsum"):
+            c = ad["c"].detach().clone().requires_grad_(True)
+            dw = dct.site_delta({"c": c, "entries": ad["entries"]}, site,
+                                dpeft.replace(kernel_backend=backend))
+            torch.sum(dw * g).backward()
+            grads[backend] = c.grad
+        if grads["auto"] is None:
+            return fail(f"dct gradient {site_name}: c.grad is None on the "
+                        "card")
+        diff = (grads["auto"] - grads["einsum"]).abs()
+        if bool((diff > 1e-4 + 1e-3 * grads["einsum"].abs()).any()):
+            return fail(f"dct gradient {site_name}: K5's c.grad differs from "
+                        f"the einsum autograd gradient by "
+                        f"{float(diff.max()):.3e}")
+        print(f"[dct gradient] {site_name} {d1}x{d2} L=2: c.grad through the "
+              f"Function equals the einsum path's within "
+              f"{float(diff.max()):.3e} (atol 1e-4, rtol 1e-3)")
+    if ddk.dc_launches - before != 2:
+        return fail(f"K5 launched {ddk.dc_launches - before} times for two "
+                    "sites' backward, expected 2")
+    print("[dct gradient] K5 launched once per site (2)")
+
+    # ---- 12. dct: train, merge, serve --------------------------------------------
+    print(f"[dct] yi-6b full width, {cfg.num_layers} layers, {cfg.dtype}; "
+          f"dct n {dpeft.n} alpha {dpeft.alpha:g} on wq/wv; {TRAIN_STEPS} "
+          f"steps of phase 8's batches (microbatch {MICROBATCH}), then the "
+          "launcher's 8-request trace")
+    ddk.launches = ddk.dc_launches = 0
+    dmodel = build(cfg, dpeft)
+    state, frozen = train_step.init_state(dmodel, tcfg, 0, dev)
+    c0 = {k: ad["c"].clone() for k, ad in state["trainable"]["peft"].items()}
+    step = train_step.make_train_step(dmodel, tcfg)
+    losses, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, frozen, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    k4_train, k5_train = ddk.launches, ddk.dc_launches
+    if not all(math.isfinite(x) for x in losses):
+        return fail(f"dct train: non-finite loss {losses}")
+    if int(state["anomalies"]) != 0:
+        return fail(f"dct train: {int(state['anomalies'])} anomalous steps")
+    if all(torch.equal(c0[k], ad["c"])
+           for k, ad in state["trainable"]["peft"].items()):
+        return fail("dct train: the coefficients never moved")
+    if k4_train != expected or k5_train != expected:
+        return fail(f"dct train: K4 launched {k4_train}, K5 {k5_train} "
+                    f"times; expected {TRAIN_STEPS} steps x {MICROBATCH} "
+                    f"microbatches x 2 sites = {expected} each")
+    dwarm = 1e3 * sum(secs[1:]) / len(secs[1:])
+    print(f"[dct] train: losses {[round(x, 4) for x in losses]} | K4 "
+          f"launches {k4_train}, K5 launches {k5_train} | cold step "
+          f"{secs[0] * 1e3:.1f} ms, warm {dwarm:.1f} ms/step "
+          f"({B * S / dwarm * 1e3:.0f} tokens/s)")
+    dparams = train_step.join_params(dmodel, state["trainable"], frozen)
+    del state, frozen, c0
+    ddk.launches = 0
+    pak.launches = 0
+    engine, sched, reqs, merge_s = run("auto", dpeft, dparams)
+    k4_serve, k3_dct = ddk.launches, pak.launches
+    steps = sched.metrics.steps
+    for i, r in enumerate(reqs):
+        if r.out is None or len(r.out) != r.max_new:
+            return fail(f"dct request {i} emitted {r.out!r}, budget "
+                        f"{r.max_new}")
+    if k4_serve != 2:
+        return fail(f"the dct merge launched K4 {k4_serve} times, expected "
+                    "one per site (2)")
+    if k3_dct != steps * cfg.num_layers:
+        return fail(f"dct serve: K3 launched {k3_dct} times, expected "
+                    f"{steps} decode steps x {cfg.num_layers}")
+    s = sched.metrics.summary()
+    engine_e, sched_e, reqs_e, merge_e = run("einsum", dpeft, dparams)
+    for key in ("wq", "wv"):
+        w = dparams["base"]["layers"][key]
+        ok, ndiff = merged_within_one_ulp(
+            w, engine.params["base"]["layers"][key],
+            engine_e.params["base"]["layers"][key])
+        if not ok:
+            return fail(f"dct merged {key}: kernel and plain merges differ "
+                        "by more than one bf16 ulp")
+        print(f"[dct] merged {key}: {ndiff} of {w.numel()} bf16 values "
+              "differ (each within one ulp)")
+    later = sum(x != y for r, re_ in zip(reqs, reqs_e)
+                for x, y in zip(r.out[1:], re_.out[1:]))
+    print(f"[dct] serve: merge {merge_s:.3f} s (plain {merge_e:.3f} s), "
+          f"{len(reqs)} requests, {s['total_tokens']:.0f} tokens in {steps} "
+          f"decode steps, {s['tokens_per_s']:.1f} tok/s | K4 launches "
+          f"{k4_serve}, K3 launches {k3_dct} | {later} later token "
+          f"mismatches of {sum(len(r.out) - 1 for r in reqs)} against the "
+          "einsum merge's run")
+
+    @torch.no_grad()
+    def first_logits(engine):
+        """f32 logits after each prompt's last token: request i's first
+        token is their argmax (greedy), (len(prompts), vocab)."""
+        return torch.stack([engine.model.forward(
+            engine.params, {"tokens": p[None].to(dev)})[0, -1].float()
+            for p in prompts])
+
+    # bf16: the two merges differ in one-ulp roundings of a few hundred
+    # weights (above); how far that moves the first-position logits, and
+    # how close each request's top two tokens are
+    lk, le = first_logits(engine), first_logits(engine_e)
+    top2 = le.topk(2, dim=-1).values
+    flips = [i for i, (r, re_) in enumerate(zip(reqs, reqs_e))
+             if r.out[0] != re_.out[0]]
+    print(f"[dct] bf16 first tokens: {len(reqs) - len(flips)} of "
+          f"{len(reqs)} equal (differ: requests {flips}); max |logits "
+          f"kernel - einsum| at the first position "
+          f"{float((lk - le).abs().max()):.3e}; einsum top-2 margins "
+          f"{[round(float(m), 4) for m in top2[:, 0] - top2[:, 1]]}")
+    del engine, sched, engine_e, sched_e, lk, le
+    # f32: the same trained coefficients merged into the f32 model, where
+    # the two merges differ only by K4's own rounding (~1e-9, phase 9):
+    # every request's first token must be the same
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                   dparams)
+    del dparams
+    first32 = {}
+    for backend in ("auto", "einsum"):
+        eng = Engine(build(cfg32, dpeft.replace(kernel_backend=backend)),
+                     p32, batch_slots=slots, max_len=max_len, device=dev)
+        first32[backend] = first_logits(eng)
+        del eng
+    d32 = float((first32["auto"] - first32["einsum"]).abs().max())
+    same = torch.equal(first32["auto"].argmax(-1),
+                       first32["einsum"].argmax(-1))
+    top2 = first32["einsum"].topk(2, dim=-1).values
+    print(f"[dct] f32 merge: first tokens {'equal' if same else 'DIFFER'} "
+          f"for all {len(prompts)} prompts; max |logits kernel - einsum| "
+          f"{d32:.3e}; smallest einsum top-2 margin "
+          f"{float((top2[:, 0] - top2[:, 1]).min()):.3e}")
+    if not same:
+        return fail("dct: f32 first tokens differ between the kernel and "
+                    "plain merges")
+    del p32, first32
+
+    # ---- 13. kernels line ------------------------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
         {"name": "fourier_deltaw", "route": "cuda",
@@ -573,7 +865,31 @@ def main() -> int:
          "ms": kb["ms"], "plain_ms": kb["plain_ms"],
          "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
          "library_ms": kb["library_ms"],
-         "library_call": "torch.nn.functional.scaled_dot_product_attention"},
+         "library_call": "torch.nn.functional.scaled_dot_product_attention",
+         "launches_by_path": {"serve": k3_launches, "dct_serve": k3_dct}},
+        {"name": "dct_deltaw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dct_deltaw.cu",
+         "replaces": "src/repro/kernels/dct_deltaw.py:73",
+         "launches": k4_train,
+         "launches_by_path": {"train": k4_train, "serve": k4_serve},
+         "max_abs_err": k4["err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": k4["library_ms"],
+         "library_call": "torch.matmul of prebuilt (C1*c), C2^T",
+         "direct_sum_bound_ms": k4["direct_flops"] / H100_PEAK["float32"]
+         * 1e3},
+        {"name": "dct_dc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dct_deltaw.cu",
+         "replaces": "src/repro/kernels/dct_deltaw.py:114",
+         "launches": k5_train, "max_abs_err": k5["err"],
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": k5["library_ms"],
+         "library_call": "torch.matmul(g, C2) on prebuilt bases, "
+                         "C1-weighted row sum",
+         "direct_sum_bound_ms": k5["direct_flops"] / H100_PEAK["float32"]
+         * 1e3},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

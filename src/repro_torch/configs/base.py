@@ -89,7 +89,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class PEFTConfig:
-    method: str = "fourierft"     # fourierft | none (this slice)
+    method: str = "fourierft"     # fourierft | dct | none (ported so far)
     # --- FourierFT ---
     n: int = 1000
     alpha: float = 300.0

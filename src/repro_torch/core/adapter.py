@@ -15,12 +15,14 @@ axis 0:
 the device the adapter lives on, so the merge runs the CUDA ΔW kernel on
 the card without this module branching on it.
 
-This slice registers FourierFT (Fourier basis) and `none`. The factored and
-bank applies, the other methods (dct, circulant, lora, bitfit, full) and the
-Table-6 random / orthogonal bases come with later slices (ROADMAP queue 1).
+Registered: FourierFT (Fourier basis), `dct` (the LoCA-style cosine basis
+on FourierFT's entries) and `none`. The factored and bank applies, the
+other methods (circulant, lora, bitfit, full) and the Table-6 random /
+orthogonal bases come with later slices (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -203,10 +205,89 @@ class FourierFT(AdapterMethod):
         return peft.n * site.stack
 
 
+# ---------------------------------------------------------------------------
+# DCT (LoCA-style, arXiv:2502.06820): real cosine basis on frozen entries —
+# ΔW[j,k] = α/(d1·d2) Σ_l c_l cos(π(2j+1)u_l/2d1) cos(π(2k+1)v_l/2d2),
+# rank-n factored as ΔW = (C1 ⊙ c) @ C2ᵀ; the same wire format as FourierFT
+# (one coefficient vector per layer + 2n integer entries per site shape).
+# ---------------------------------------------------------------------------
+
+def dct_bases(entries: torch.Tensor, d1: int, d2: int):
+    """C1 (d1, n) and C2 (d2, n) f32 for the entries (2, n):
+    C1[j,l] = cos(π·((2j+1)·u_l mod 4d1)/(2d1)), C2 likewise with k, v, d2.
+
+    cos(π(2j+1)u/2d) has period 4d in the integer product (2j+1)·u, which is
+    reduced exactly in int64 before the float conversion, as the CUDA
+    kernels reduce it, so cos sees arguments in [0, 2π) at any dimension.
+    (The JAX package forms (2j+1)·u in float32, inexact once it passes 2^24:
+    ROADMAP queue 3.)"""
+    dev = entries.device
+    u = entries[0].to(torch.int64)
+    v = entries[1].to(torch.int64)
+    j = torch.arange(d1, dtype=torch.int64, device=dev)[:, None]
+    k = torch.arange(d2, dtype=torch.int64, device=dev)[:, None]
+    p1 = ((2 * j + 1) * u[None, :]) % (4 * d1)
+    p2 = ((2 * k + 1) * v[None, :]) % (4 * d2)
+    return (torch.cos(p1.to(torch.float32) * (math.pi / (2 * d1))),
+            torch.cos(p2.to(torch.float32) * (math.pi / (2 * d2))))
+
+
+def dct_delta(c: torch.Tensor, entries: torch.Tensor, d1: int, d2: int,
+              alpha: float) -> torch.Tensor:
+    """ΔW for one layer (c: (n,)) or a stack (c: (L, n) -> (L, d1, d2)), in
+    f32 with one `torch.matmul` (callers on the card keep TF32 off)."""
+    c1, c2 = dct_bases(entries.to(c.device), d1, d2)
+    c = c.to(torch.float32)
+    if c.ndim == 1:
+        dw = (c1 * c) @ c2.T
+    else:
+        dw = (c1[None] * c[:, None, :]) @ c2.T
+    return dw * (alpha / (d1 * d2))
+
+
+def _dct_deltaw_einsum(tr, aux, d1, d2, peft):
+    return dct_delta(tr["c"], aux["entries"], d1, d2, peft.alpha)
+
+
+def _dct_deltaw_cuda(tr, aux, d1, d2, peft):
+    # the autograd Function: K4 forward, K5 (the dc kernel) backward
+    from repro_torch.kernels import ops as kops
+    return kops.dct_deltaw_forward(tr["c"], aux["entries"], d1, d2,
+                                   peft.alpha)
+
+
+class DCTAdapter(AdapterMethod):
+    name = "dct"
+
+    def init_site(self, gen, site, peft, device):
+        entries = fourierft.sample_entries(
+            site.d_in, site.d_out, peft.n, entry_seed_for(peft, site),
+            freq_bias=peft.freq_bias, fc=peft.fc, bandwidth=peft.bandwidth)
+        c = torch.randn((site.stack, peft.n), generator=gen, device=device,
+                        dtype=torch.float32).to(torch_dtype(peft.param_dtype))
+        return {"c": c, "entries": entries.to(device)}
+
+    def trainable_leaves(self, peft):
+        return ("c",)
+
+    def kernel_ops(self):
+        return (
+            KernelOp("deltaw", self.name, "einsum", _dct_deltaw_einsum),
+            KernelOp("deltaw", self.name, "cuda", _dct_deltaw_cuda,
+                     devices=("cuda",),
+                     note="cosine-only integer-phase FP32 tiles "
+                          "(csrc/dct_deltaw.cu)"),
+        )
+
+    def count_trainable(self, site, peft):
+        return peft.n * site.stack
+
+
 class NoAdapter(AdapterMethod):
     name = "none"
     has_site_params = False
 
 
 register(FourierFT())
+register(DCTAdapter())
 register(NoAdapter())

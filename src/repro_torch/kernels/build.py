@@ -43,6 +43,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "fourier_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _F, _P),
     },
+    "dct_deltaw": {
+        # c, u, v, cos1, cos2, out, L, n, d1, d2, scale, stream
+        "dct_deltaw_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # g, u, v, cos1, cos2, partial, out, L, n, d1, d2, scale, stream
+        "dct_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _P),
+    },
     "paged_attention": {
         # q, k_pages, v_pages, block_table, kv_len, out,
         # B, W, H, K, dh, ps, pps, is_bf16, stream

@@ -50,38 +50,54 @@ def dc_reference(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return dc * (alpha / (d1 * d2))
 
 
-def _check_entries(u, v, n, device):
+def check_entries(u, v, n, device, nc=NC):
+    """Raise unless u, v are contiguous int32 (n,) on `device` and n is a
+    multiple of the kernel's chunk `nc` (shared with `dct_deltaw`)."""
     for name, e in (("u", u), ("v", v)):
         if e.shape != (n,) or e.dtype != torch.int32 or not e.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 ({n},), got "
                              f"{tuple(e.shape)} {e.dtype}")
         if e.device != device:
             raise ValueError(f"{name} on {e.device}, the data on {device}")
-    if n % NC:
-        raise ValueError(f"n={n} is not a multiple of {NC} (pad with zero "
+    if n % nc:
+        raise ValueError(f"n={n} is not a multiple of {nc} (pad with zero "
                          "entries and c = 0, as kernels.ops does)")
 
 
-def _check(c, u, v, d1, d2):
+def check_coefficients(c, u, v, d1, d2, nc=NC):
+    """Raise unless c is contiguous f32 (L, n) with entries `check_entries`
+    accepts and the grid is not empty."""
     if c.ndim != 2 or c.dtype != torch.float32 or not c.is_contiguous():
         raise ValueError(f"c must be contiguous f32 (L, n), got "
                          f"{tuple(c.shape)} {c.dtype}")
-    _check_entries(u, v, c.shape[1], c.device)
+    check_entries(u, v, c.shape[1], c.device, nc)
     if d1 < 1 or d2 < 1:
         raise ValueError(f"bad grid {d1}x{d2}")
+
+
+def check_cotangent(g, u, v, d1, d2, nc=NC):
+    """Raise unless g is contiguous f32 (L, d1, d2) with entries
+    `check_entries` accepts."""
+    if g.ndim != 3 or g.shape[1:] != (d1, d2) or g.dtype != torch.float32 \
+            or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous f32 (L, {d1}, {d2}), got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    check_entries(u, v, u.shape[0], g.device, nc)
 
 
 _TWIDDLES = {}          # (d, device) -> (cos, sin) tables on the card
 
 
-def _twiddles(lib, d: int, dev: torch.device):
-    """The (cos, sin) table of length d on `dev`, built by the twiddle
-    kernel at its first use and kept: every later call of either kernel
-    with this d reuses it. The build waits for its stream once, so a table
-    is complete before any stream reads it."""
+def twiddles(d: int, dev: torch.device):
+    """The (cos, sin) table cos(2πp/d), sin(2πp/d), p < d, on `dev`, built
+    by the twiddle kernel at its first use and kept: every later call of a
+    kernel with this d reuses it (K1 and K2 at length d; the DCT kernels at
+    length 4d, `dct_deltaw`). The build waits for its stream once, so a
+    table is complete before any stream reads it."""
     from repro_torch.kernels import build
     key = (d, dev)
     if key not in _TWIDDLES:
+        lib = build.library("fourier_deltaw")
         cos = torch.empty((d,), dtype=torch.float32, device=dev)
         sin = torch.empty((d,), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
@@ -99,7 +115,7 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
     """ΔW (L, d1, d2) f32 for stacked coefficients c (L, n): the plain
     version on the CPU, the CUDA kernel (one launch for the stack) on the
     card."""
-    _check(c, u, v, d1, d2)
+    check_coefficients(c, u, v, d1, d2)
     if c.device.type == "cpu":
         return deltaw_reference(c, u, v, d1, d2, alpha)
     if c.device.type != "cuda":
@@ -110,7 +126,7 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
     L, n = c.shape
     dev = c.device
     out = torch.empty((L, d1, d2), dtype=torch.float32, device=dev)
-    (cos1, sin1), (cos2, sin2) = _twiddles(lib, d1, dev), _twiddles(lib, d2, dev)
+    (cos1, sin1), (cos2, sin2) = twiddles(d1, dev), twiddles(d2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fourier_deltaw_launch(
@@ -127,11 +143,7 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
     """dc (L, n) f32 for the stacked cotangent g (L, d1, d2): the plain
     version on the CPU, the CUDA kernel (one launch for the stack: partial
     sums per 128-row block, then a fixed-order reduction) on the card."""
-    if g.ndim != 3 or g.shape[1:] != (d1, d2) or g.dtype != torch.float32 \
-            or not g.is_contiguous():
-        raise ValueError(f"g must be contiguous f32 (L, {d1}, {d2}), got "
-                         f"{tuple(g.shape)} {g.dtype}")
-    _check_entries(u, v, u.shape[0], g.device)
+    check_cotangent(g, u, v, d1, d2)
     if g.device.type == "cpu":
         return dc_reference(g, u, v, d1, d2, alpha)
     if g.device.type != "cuda":
@@ -144,7 +156,7 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
     out = torch.empty((L, n), dtype=torch.float32, device=dev)
     partial = torch.empty((-(-d1 // 128), L, n), dtype=torch.float32,
                           device=dev)
-    (cos1, sin1), (cos2, sin2) = _twiddles(lib, d1, dev), _twiddles(lib, d2, dev)
+    (cos1, sin1), (cos2, sin2) = twiddles(d1, dev), twiddles(d2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fourier_dc_launch(

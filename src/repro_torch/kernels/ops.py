@@ -1,9 +1,11 @@
 """The differentiable padding harness around the ΔW kernels, and the
 standalone registry-dispatched `fourier_deltaw` entry.
 
-`FourierDeltaW` is the JAX package's `make_deltaw_harness` as a
-`torch.autograd.Function`: its forward is the ΔW kernel (K1), its backward
-the dc kernel (K2), each one launch for a stacked (L, n) site.
+`make_deltaw_function(kernels)` is the JAX package's `make_deltaw_harness`
+as a `torch.autograd.Function` factory, instantiated for both kernel pairs:
+`FourierDeltaW` (forward K1, backward K2, `fourier_deltaw`) and `DCTDeltaW`
+(forward K4, backward K5, `dct_deltaw`). Each is one launch per stacked
+(L, n) site and direction.
 
 - Forward: n is padded to the kernels' chunk (`NC`) with zero entries whose
   coefficients are 0 — those columns drop out of the sums exactly. The
@@ -22,42 +24,61 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import dct_deltaw as ddk
 from repro_torch.kernels import fourier_deltaw as fdk
 
 
-class FourierDeltaW(torch.autograd.Function):
-    """ΔW for c (n,) -> (d1, d2), or stacked c (L, n) -> (L, d1, d2), f32;
-    differentiable with respect to c."""
+def make_deltaw_function(kernels, name: str):
+    """An autograd Function `name` for c (n,) -> (d1, d2), or stacked
+    c (L, n) -> (L, d1, d2), f32, differentiable with respect to c. The
+    `kernels` module provides `NC`, `deltaw(c, u, v, d1, d2, alpha)` and
+    `dc(g, u, v, d1, d2, alpha)` with the stacked contract of
+    `fourier_deltaw`."""
 
-    @staticmethod
-    def forward(ctx, c, entries, d1: int, d2: int, alpha: float):
-        n = c.shape[-1]
-        c2 = c.reshape(-1, n).to(torch.float32)
-        npad = -(-n // fdk.NC) * fdk.NC
-        e = entries.to(device=c.device, dtype=torch.int32)
-        if npad != n:
-            c2 = F.pad(c2, (0, npad - n))
-            e = F.pad(e, (0, npad - n))
-        u, v = e[0].contiguous(), e[1].contiguous()
-        out = fdk.deltaw(c2.contiguous(), u, v, d1, d2, alpha)
-        ctx.save_for_backward(u, v)
-        ctx.meta = (c.shape, c.dtype, n, d1, d2, alpha)
-        return out.reshape(c.shape[:-1] + (d1, d2))
+    class DeltaW(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, c, entries, d1: int, d2: int, alpha: float):
+            n = c.shape[-1]
+            c2 = c.reshape(-1, n).to(torch.float32)
+            npad = -(-n // kernels.NC) * kernels.NC
+            e = entries.to(device=c.device, dtype=torch.int32)
+            if npad != n:
+                c2 = F.pad(c2, (0, npad - n))
+                e = F.pad(e, (0, npad - n))
+            u, v = e[0].contiguous(), e[1].contiguous()
+            out = kernels.deltaw(c2.contiguous(), u, v, d1, d2, alpha)
+            ctx.save_for_backward(u, v)
+            ctx.meta = (c.shape, c.dtype, n, d1, d2, alpha)
+            return out.reshape(c.shape[:-1] + (d1, d2))
 
-    @staticmethod
-    def backward(ctx, g):
-        u, v = ctx.saved_tensors
-        shape, dtype, n, d1, d2, alpha = ctx.meta
-        g3 = g.reshape(-1, d1, d2).to(torch.float32).contiguous()
-        dc = fdk.dc(g3, u, v, d1, d2, alpha)[:, :n]
-        return dc.reshape(shape).to(dtype), None, None, None, None
+        @staticmethod
+        def backward(ctx, g):
+            u, v = ctx.saved_tensors
+            shape, dtype, n, d1, d2, alpha = ctx.meta
+            g3 = g.reshape(-1, d1, d2).to(torch.float32).contiguous()
+            dc = kernels.dc(g3, u, v, d1, d2, alpha)[:, :n]
+            return dc.reshape(shape).to(dtype), None, None, None, None
+
+    DeltaW.__name__ = DeltaW.__qualname__ = name
+    return DeltaW
+
+
+FourierDeltaW = make_deltaw_function(fdk, "FourierDeltaW")
+DCTDeltaW = make_deltaw_function(ddk, "DCTDeltaW")
 
 
 def fourier_deltaw_forward(c: torch.Tensor, entries: torch.Tensor, d1: int,
                            d2: int, alpha: float) -> torch.Tensor:
-    """ΔW for c (n,) -> (d1, d2), or stacked c (L, n) -> (L, d1, d2), f32,
-    through `FourierDeltaW` (the kernels on CUDA tensors)."""
+    """FourierFT ΔW for c (n,) -> (d1, d2), or stacked c (L, n) ->
+    (L, d1, d2), f32, through `FourierDeltaW` (K1/K2 on CUDA tensors)."""
     return FourierDeltaW.apply(c, entries, d1, d2, alpha)
+
+
+def dct_deltaw_forward(c: torch.Tensor, entries: torch.Tensor, d1: int,
+                       d2: int, alpha: float) -> torch.Tensor:
+    """DCT ΔW for c (n,) -> (d1, d2), or stacked c (L, n) -> (L, d1, d2),
+    f32, through `DCTDeltaW` (K4/K5 on CUDA tensors)."""
+    return DCTDeltaW.apply(c, entries, d1, d2, alpha)
 
 
 def fourier_deltaw(c: torch.Tensor, entries: torch.Tensor, d1: int, d2: int,

@@ -1,16 +1,21 @@
 """Serving launcher: `python -m repro_torch.launch.serve --arch <id> [...]`.
 
-Builds a dense decoder with FourierFT on q/v from a seed, merges every ΔW
-into the base (on the card through the hand-written ΔW kernel), and decodes
-demo prompts through the slot engine. With `--continuous` it replays a
-staggered-arrival, mixed-`max_new` trace through the continuous-batching
-scheduler over the paged KV cache (decode attention through the
-hand-written paged-attention kernel on the card) and prints per-request
-outputs plus serving metrics. Prompts and trace are the JAX launcher's.
+Builds a dense decoder with an adapter on q/v (`--method`, FourierFT by
+default) from a seed, optionally restores trained coefficients from a
+`launch.train` checkpoint (`--adapters <ckpt dir>`), merges every ΔW into
+the base (on the card through the method's hand-written ΔW kernel), and
+decodes demo prompts through the slot engine. With `--continuous` it
+replays a staggered-arrival, mixed-`max_new` trace through the
+continuous-batching scheduler over the paged KV cache (decode attention
+through the hand-written paged-attention kernel on the card) and prints
+per-request outputs plus serving metrics. Prompts and trace are the JAX
+launcher's.
 
     python -m repro_torch.launch.serve --arch yi-6b --continuous
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --device cpu
+    python -m repro_torch.launch.serve --arch yi-6b --method dct \
+        --adapters /tmp/dct --continuous
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
@@ -23,10 +28,13 @@ from typing import List, Tuple
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import ModelConfig, PEFTConfig
+from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import resolve_device
 from repro_torch.models import build
 from repro_torch.serve import ContinuousScheduler, Engine, Request
+from repro_torch.train.step import join_params, split_params
 
 
 def demo_prompts(cfg: ModelConfig, slots: int) -> List[torch.Tensor]:
@@ -49,8 +57,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--method", default="fourierft",
+                    choices=adapter_api.registered_methods())
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--alpha", type=float, default=300.0)
+    ap.add_argument("--adapters", default=None,
+                    help="checkpoint dir from repro_torch.launch.train "
+                         "(--method/--n/--alpha must match its run)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--continuous", action="store_true",
@@ -73,9 +86,14 @@ def main(argv=None):
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))
-    model = build(cfg, PEFTConfig(method="fourierft", n=args.n,
+    model = build(cfg, PEFTConfig(method=args.method, n=args.n,
                                   alpha=args.alpha))
     params = model.init(args.seed, device)
+    if args.adapters:
+        state, at = ckpt.restore(args.adapters, device=device)
+        _, frozen = split_params(model, params)
+        params = join_params(model, state["trainable"], frozen)
+        print(f"loaded adapters from step {at}")
     slots = 2
     engine = Engine(model, params, batch_slots=slots, max_len=args.max_len,
                     device=device)

@@ -1,15 +1,18 @@
 """Training launcher: `python -m repro_torch.launch.train --arch <id> [...]`.
 
-Fine-tunes FourierFT coefficients on a dense decoder through the merged
-train step and the fault-tolerant loop: on the card every step's forward
-materializes ΔW with the hand-written ΔW kernel and its backward takes the
-coefficients' gradient with the hand-written dc kernel. Data is the
+Fine-tunes adapter coefficients (`--method`: FourierFT, or the cosine-basis
+`dct`) on a dense decoder through the merged train step and the
+fault-tolerant loop: on the card every step's forward materializes ΔW with
+the method's hand-written ΔW kernel (K1 or K4) and its backward takes the
+coefficients' gradient with its hand-written dc kernel (K2 or K5). Data is the
 step-keyed synthetic Markov task; `--ckpt-dir` checkpoints every
 `--ckpt-every` steps and a rerun of the same command resumes.
 
     python -m repro_torch.launch.train --arch yi-6b --steps 20
     python -m repro_torch.launch.train --arch yi-6b --reduced --steps 3 \
         --device cpu
+    python -m repro_torch.launch.train --arch yi-6b --method dct \
+        --steps 20 --ckpt-dir /tmp/dct
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`. The mesh, FSDP, gradient-compression and
@@ -96,11 +99,13 @@ def main(argv=None):
                 f"steps {ms:.1f} ms mean, "
                 f"{args.batch * args.seq / (ms / 1e3):.1f} tokens/s")
         if device.type == "cuda":
+            from repro_torch.kernels import dct_deltaw as ddk
             from repro_torch.kernels import fourier_deltaw as fdk
             line += (f", peak device memory "
                      f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
                      f"GiB on {torch.cuda.get_device_name(device)}; kernel "
-                     f"launches: deltaw {fdk.launches}, dc {fdk.dc_launches}")
+                     f"launches: K1 {fdk.launches}, K2 {fdk.dc_launches}, "
+                     f"K4 {ddk.launches}, K5 {ddk.dc_launches}")
         print(line)
 
 

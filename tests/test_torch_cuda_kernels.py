@@ -15,6 +15,8 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import PEFTConfig
 from repro_torch.core import fourierft
+from repro_torch.core.adapter import dct_delta
+from repro_torch.kernels import dct_deltaw as ddk
 from repro_torch.kernels import fourier_deltaw as fdk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -75,6 +77,56 @@ def test_dc_kernel_matches_plain(cuda_device, d1, d2, n, L):
     np.testing.assert_allclose(c.grad.cpu().numpy(),
                                plain[:, :n].cpu().numpy(), atol=2e-3,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
+                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+def test_dct_deltaw_kernel_matches_plain(cuda_device, d1, d2, n, L):
+    """K4 against its plain version at atol 2e-5 / rtol 1e-5 (the JAX
+    suite's site_delta tolerance), through the padding harness."""
+    E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
+    c = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(L, n)).astype(np.float32)).to(cuda_device)
+    before = ddk.launches
+    out = ops.dct_deltaw_forward(c, E, d1, d2, 300.0)
+    assert ddk.launches == before + 1
+    plain = dct_delta(c, E, d1, d2, 300.0)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
+                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+def test_dct_dc_kernel_matches_plain(cuda_device, d1, d2, n, L):
+    """K5 against its plain version at atol 1e-4 / rtol 1e-3 (the JAX
+    suite's gradient tolerance), bit-identical on a second launch, and
+    `DCTDeltaW`'s backward launches it once with c.grad equal to autograd
+    through the plain version."""
+    E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.normal(size=(L, d1, d2)).astype(
+        np.float32)).to(cuda_device)
+    npad = -(-n // ddk.NC) * ddk.NC
+    e = torch.zeros((2, npad), dtype=torch.int32, device=cuda_device)
+    e[:, :n] = E
+    u, v = e[0].contiguous(), e[1].contiguous()
+    before = ddk.dc_launches
+    out = ddk.dc(g, u, v, d1, d2, 300.0)
+    assert ddk.dc_launches == before + 1
+    plain = ddk.dc_reference(g, u, v, d1, d2, 300.0)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
+    assert torch.equal(ddk.dc(g, u, v, d1, d2, 300.0), out)
+    c0 = torch.from_numpy(rng.normal(size=(L, n)).astype(
+        np.float32)).to(cuda_device)
+    c = c0.clone().requires_grad_(True)
+    before = ddk.dc_launches
+    torch.sum(ops.DCTDeltaW.apply(c, E, d1, d2, 300.0) * g).backward()
+    assert ddk.dc_launches == before + 1
+    c_ref = c0.clone().requires_grad_(True)
+    torch.sum(dct_delta(c_ref, E, d1, d2, 300.0) * g).backward()
+    np.testing.assert_allclose(c.grad.cpu().numpy(), c_ref.grad.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
 
 
 def test_train_steps_run_both_kernels(cuda_device):

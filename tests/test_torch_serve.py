@@ -9,7 +9,9 @@ trace — mixed `max_new`, two prompts sharing a page-aligned prefix, one
 prompt that IS a cached prefix (copy-on-write) — with token streams
 identical to JAX's serial `Engine.generate` and to the port's own. The
 JAX side runs its default CPU backend (the einsum
-references its own suite holds against the interpret kernels)."""
+references its own suite holds against the interpret kernels). The merged
+weights and the token streams are checked for both ΔW methods, FourierFT
+and the cosine-basis `dct`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,12 +42,12 @@ def _cfgs(arch="yi-6b"):
             configs.reduced(configs.get(arch)).replace(**kw))
 
 
-def _pair(arch="yi-6b", seed=0):
+def _pair(arch="yi-6b", seed=0, method="fourierft"):
     """(jax model, jax params, port model, port params) — same weights."""
     jcfg, tcfg = _cfgs(arch)
-    jmodel = jax_build(jcfg, JaxPEFT(n=N, alpha=ALPHA))
+    jmodel = jax_build(jcfg, JaxPEFT(method=method, n=N, alpha=ALPHA))
     jparams = jmodel.init(jax.random.PRNGKey(seed))
-    tmodel = build(tcfg, PEFTConfig(n=N, alpha=ALPHA))
+    tmodel = build(tcfg, PEFTConfig(method=method, n=N, alpha=ALPHA))
     tparams = from_jax_params(jax.device_get(jparams), "cpu")
     return jmodel, jparams, tmodel, tparams
 
@@ -53,6 +55,12 @@ def _pair(arch="yi-6b", seed=0):
 @pytest.fixture(scope="module")
 def pair():
     return _pair()
+
+
+@pytest.fixture(scope="module", params=["fourierft", "dct"])
+def method_pair(request):
+    """`pair` for each ΔW method the port serves."""
+    return _pair(method=request.param)
 
 
 def _prompts():
@@ -107,8 +115,8 @@ def test_bf16_leaves_cross_exactly():
                                   np.asarray(a.astype(jnp.float32)))
 
 
-def test_merged_weights_match_jax(pair):
-    jmodel, jparams, tmodel, tparams = pair
+def test_merged_weights_match_jax(method_pair):
+    jmodel, jparams, tmodel, tparams = method_pair
     jm, jp = jax_merge(jmodel, jparams)
     tm, tp = merge_for_serving(tmodel, tparams)
     assert tm.peft.method == jm.peft.method == "none"
@@ -183,8 +191,8 @@ def test_per_slot_dense_decode_equals_lockstep(pair):
     np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), atol=1e-6)
 
 
-def test_engine_generate_matches_jax(pair):
-    jmodel, jparams, tmodel, tparams = pair
+def test_engine_generate_matches_jax(method_pair):
+    jmodel, jparams, tmodel, tparams = method_pair
     prompts = _prompts()[:3]
     jeng = JaxEngine(jmodel, jparams, batch_slots=3, max_len=MAX_LEN)
     teng = Engine(tmodel, tparams, batch_slots=3, max_len=MAX_LEN,
@@ -204,8 +212,13 @@ def _cut_at_eos(stream, eos_id):
     return stream
 
 
-@pytest.mark.parametrize("eos_id", [None, 6])
-def test_continuous_paged_streams_match_jax(pair, eos_id):
+# an EOS token each method's streams emit mid-trace, so that some stream
+# ends before its budget
+EOS_IDS = {"fourierft": 6, "dct": 63}
+
+
+@pytest.mark.parametrize("eos", [False, True])
+def test_continuous_paged_streams_match_jax(method_pair, eos):
     """Port continuous (paged) == JAX serial `Engine.generate` == port
     serial, each serial stream cut at its first EOS.
 
@@ -213,7 +226,8 @@ def test_continuous_paged_streams_match_jax(pair, eos_id):
     that scheduler's streams for the prompts sharing a prefix vary from run
     to run (ROADMAP queue 3), while its serial streams are deterministic and
     are what the JAX suite holds its own scheduler against."""
-    jmodel, jparams, tmodel, tparams = pair
+    jmodel, jparams, tmodel, tparams = method_pair
+    eos_id = EOS_IDS[tmodel.peft.method] if eos else None
     prompts = _prompts()
     jeng = JaxEngine(jmodel, jparams, batch_slots=3, max_len=MAX_LEN)
     teng = Engine(tmodel, tparams, batch_slots=3, max_len=MAX_LEN,

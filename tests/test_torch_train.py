@@ -9,7 +9,9 @@ accumulation, the three remat modes and the anomaly guard; checkpoints
 (resume after SIGTERM equals an uninterrupted run, and train states and
 bf16 leaves cross between the packages' managers); adapter exports in both
 directions; the synthetic data; the launcher; and a served model built from
-trained coefficients holds no autograd graph."""
+trained coefficients holds no autograd graph. The cases that cross the
+packages (loss and gradients, three steps, checkpoints, adapters) run for
+both ΔW methods, FourierFT and the cosine-basis `dct`."""
 import os
 import signal
 
@@ -52,13 +54,16 @@ def _cfgs():
             configs.reduced(configs.get("yi-6b")).replace(**kw))
 
 
-def _pair(train_head=False, remat="none"):
+METHODS = ["fourierft", "dct"]
+
+
+def _pair(train_head=False, remat="none", method="fourierft"):
     jcfg, tcfg = _cfgs()
-    jmodel = jax_build(jcfg, JaxPEFT(n=N, alpha=ALPHA,
+    jmodel = jax_build(jcfg, JaxPEFT(method=method, n=N, alpha=ALPHA,
                                      train_head=train_head))
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tmodel = build(tcfg, PEFTConfig(n=N, alpha=ALPHA, train_head=train_head),
-                   remat=remat)
+    tmodel = build(tcfg, PEFTConfig(method=method, n=N, alpha=ALPHA,
+                                    train_head=train_head), remat=remat)
     return jmodel, jparams, tmodel, from_jax_params(jax.device_get(jparams),
                                                     "cpu")
 
@@ -87,9 +92,10 @@ def _torch_grads(model, params, batch):
     return ts._value_and_grad(ts._loss_for(model), trainable, frozen, batch)
 
 
+@pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("train_head", [False, True])
-def test_loss_and_trainable_gradients_match_jax(train_head):
-    jmodel, jparams, tmodel, tparams = _pair(train_head)
+def test_loss_and_trainable_gradients_match_jax(train_head, method):
+    jmodel, jparams, tmodel, tparams = _pair(train_head, method=method)
     batch = _batch(1)
     jtr, jfr = jax_step.split_params(jmodel, jparams)
     jloss, jgrads = jax.value_and_grad(
@@ -164,13 +170,14 @@ def test_lr_schedule_matches_jax(schedule):
     assert schedules.lr_at(t, TrainConfig(**kw)).dtype == torch.float32
 
 
-def test_three_train_steps_track_jax():
+@pytest.mark.parametrize("method", METHODS)
+def test_three_train_steps_track_jax(method):
     """Losses and c within 1e-5 after each step (c drifts by 7e-7 at most
     here): Adam divides each gradient by its own running magnitude, so the
     two packages' f32 rounding differences grow for coefficients whose
     gradient is tiny, up to the step size lr = 1e-2 times their relative
     difference."""
-    jmodel, jparams, tmodel, tparams = _pair()
+    jmodel, jparams, tmodel, tparams = _pair(method=method)
     kw = dict(learning_rate=1e-2, total_steps=3, warmup_steps=1)
     jstate, jfrozen = jax_step.init_state(jmodel, JaxTrain(**kw),
                                           jax.random.PRNGKey(0))
@@ -316,8 +323,9 @@ def test_sigterm_resume_equals_uninterrupted_run(tmp_path):
     assert ckpt.available_steps(d) == [3, 4, 5]
 
 
-def test_train_state_crosses_between_checkpoint_managers(tmp_path):
-    jmodel, _, tmodel, _ = _pair()
+@pytest.mark.parametrize("method", METHODS)
+def test_train_state_crosses_between_checkpoint_managers(tmp_path, method):
+    jmodel, _, tmodel, _ = _pair(method=method)
     jstate, _ = jax_step.init_state(jmodel, JaxTrain(),
                                     jax.random.PRNGKey(0))
     bf16 = np.random.default_rng(8).normal(size=(3, 5)).astype(np.float32)
@@ -348,8 +356,9 @@ def _site_deltas(model, adapters):
         ad, by_name[name], model.peft)) for name, ad in adapters.items()}
 
 
-def test_adapters_cross_between_packages(tmp_path):
-    jmodel, jparams, tmodel, tparams = _pair()
+@pytest.mark.parametrize("method", METHODS)
+def test_adapters_cross_between_packages(tmp_path, method):
+    jmodel, jparams, tmodel, tparams = _pair(method=method)
     jax_adapters.export_adapter(str(tmp_path), "from-jax", jparams["peft"],
                                 jmodel.peft)
     assert adapters.list_adapters(str(tmp_path)) == ("from-jax",)
