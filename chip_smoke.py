@@ -10,20 +10,26 @@ no result line:
 1. device   — the card's name and power limit (nvidia-smi).
 2. build    — nvcc builds every kernel of `src/repro_torch/kernels/csrc`
               (one process per source, started together).
-3. K1       — the FourierFT ΔW kernel against its plain version at the
+3. K1       — the FourierFT ΔW kernel (FFT-structured: one transform of
+              length d2 per pair of rows) against its plain version at the
               slices' shapes (yi-6b wq 4096x4096 and wv 4096x512, n = 1000,
-              stacked over L = 2) and one ragged shape, atol 2e-4 in f32
-              with TF32 off; kernel, plain, `torch.fft.ifft2` (the paper's
-              Algorithm 1, the library call for the same function) and
-              one-`torch.matmul` times.
+              stacked over L = 2), one ragged shape and two shapes off the
+              main path (qwen2.5-32b wq 5120x5120, radix 5; yi-6b's MLP
+              4096x11008, radix 43), atol 2e-4 in f32 with TF32 off, the
+              same bits on a second launch; kernel, plain, `torch.fft.ifft2`
+              (the paper's Algorithm 1, the library call for the same
+              function) and one-`torch.matmul` times, the kernel's time as
+              a multiple of its bound and of the library call.
 4. K2       — the dc kernel (K1's VJP) against its plain version at the
               same shapes, atol 2e-3 / rtol 1e-4 (the JAX suite's dc
-              tolerance), f32 with TF32 off; kernel, plain and
-              `torch.fft.fft2` (gathered at the entries) times.
-              K1's and K2's bound is what the function needs (`fft_bound`):
+              tolerance), f32 with TF32 off, the same bits on a second
+              launch; kernel, plain and `torch.fft.fft2` (gathered at the
+              entries) times and multiples as for K1.
+              K1's and K2's bound is what the function needs (`fft_ops`):
               one pass over ΔW or g against the FFT formulation's
-              operations; the direct sum the kernels evaluate has its own
-              FP32 floor, reported as `direct_sum_bound_ms`.
+              operations; the direct sum (the earlier design of these
+              kernels) has its own FP32 floor, still reported as
+              `direct_sum_bound_ms`.
 5. K3       — the paged decode attention kernel against its plain version
               at yi-6b geometry (B 8, H 32, K 4, dh 128, page 16, W 1,
               ragged kv_len from 1 to the full window), bf16 (atol/rtol
@@ -55,7 +61,7 @@ no result line:
               shapes, atol 2e-5 / rtol 1e-5 (the JAX suite's site_delta
               tolerance), f32 with TF32 off; kernel, plain and one
               `torch.matmul` of the prebuilt (C1 ⊙ c)·C2ᵀ factors (the
-              library call) times; the bound is `fft_bound`'s (a fast 2-D
+              library call) times; the bound is `fft_ops`'s (a fast 2-D
               DCT costs what a real FFT does), the direct sum's FP32 floor
               (2·d1·d2·n·L) is `direct_sum_bound_ms`.
 10. K5      — the DCT dc kernel (K4's VJP) at the same shapes, atol 1e-4 /
@@ -213,21 +219,27 @@ def main() -> int:
     gen.manual_seed(0)
     shapes = ((4096, 4096, 1000, 2, True), (4096, 512, 1000, 2, True),
               (300, 520, 37, 1, False))
+    # K1/K2 only: qwen2.5-32b wq (radix 5) and yi-6b's MLP (radix 43)
+    fourier_shapes = shapes + ((5120, 5120, 1000, 1, False),
+                               (4096, 11008, 1000, 1, False))
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "matmul_ms": 0.0,
           "err": 0.0, "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
-    for d1, d2, n, L, main_path in shapes:
+    for d1, d2, n, L, main_path in fourier_shapes:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         c = torch.zeros((L, u.shape[0]), dtype=torch.float32, device=dev)
         c[:, :n] = torch.randn((L, n), generator=gen, device=dev)
         out = fdk.deltaw(c, u, v, d1, d2, 300.0)
         ref = fdk.deltaw_reference(c, u, v, d1, d2, 300.0)
+        again = fdk.deltaw(c, u, v, d1, d2, 300.0)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not torch.isfinite(out).all() or err > 2e-4:
             return fail(f"K1 {d1}x{d2} n={n} L={L}: max |kernel - plain| "
                         f"{err:.3e} > 2e-4")
-        ms = timed_ms(lambda: fdk.deltaw(c, u, v, d1, d2, 300.0), 5)
+        if not torch.equal(out, again):
+            return fail(f"K1 {d1}x{d2}: two launches gave different bits")
+        ms = timed_ms(lambda: fdk.deltaw(c, u, v, d1, d2, 300.0), 20)
         plain_ms = timed_ms(
             lambda: fdk.deltaw_reference(c, u, v, d1, d2, 300.0), 5)
         # one torch.matmul of the pre-built rank-2n factors (per layer
@@ -244,7 +256,8 @@ def main() -> int:
         cu, eu = c[:, :n].contiguous(), entries
         fft_err = float((kref.deltaw_ref(cu, eu, d1, d2, 300.0) - ref)
                         .abs().max())
-        lib_ms = timed_ms(lambda: kref.deltaw_ref(cu, eu, d1, d2, 300.0), 5)
+        lib_ms = timed_ms(lambda: kref.deltaw_ref(cu, eu, d1, d2, 300.0),
+                          20)
         flops, direct = fft_ops(d1, d2, L), 4.0 * d1 * d2 * n * L
         nbytes = 4.0 * (L * n + 2 * n + L * d1 * d2)
         b_ms, b_by = bound(flops, nbytes, "float32")
@@ -252,7 +265,9 @@ def main() -> int:
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, ifft2 {lib_ms:.3f} ms "
               f"(|ifft2 - plain| {fft_err:.1e}), matmul {mm_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), direct-sum FP32 floor "
-              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms")
+              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms | kernel "
+              f"{ms / b_ms:.1f}x its bound, {ms / lib_ms:.2f}x ifft2 | "
+              "bit-identical on a second launch")
         k1["err"] = max(k1["err"], err)
         if main_path:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -260,14 +275,20 @@ def main() -> int:
                              ("flops", flops), ("direct_flops", direct),
                              ("bytes", nbytes)):
                 k1[key] += val
-        del a, b, out, ref
+        del a, b, out, ref, again
     k1["bound_ms"], k1["bound_by"] = bound(k1["flops"], k1["bytes"],
                                            "float32")
+    print(f"[K1] main shapes: kernel {k1['ms']:.3f} ms = "
+          f"{k1['ms'] / k1['bound_ms']:.1f}x its bound "
+          f"{k1['bound_ms']:.4f} ms, {k1['ms'] / k1['library_ms']:.2f}x "
+          f"ifft2 ({k1['library_ms']:.3f} ms)")
+    if k1["ms"] >= k1["library_ms"]:
+        print("[K1] note: not faster than ifft2 in this run")
 
     # ---- 4. K2 ---------------------------------------------------------------
     k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
           "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
-    for d1, d2, n, L, main_path in shapes:
+    for d1, d2, n, L, main_path in fourier_shapes:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         g = torch.randn((L, d1, d2), generator=gen, device=dev)
@@ -283,13 +304,13 @@ def main() -> int:
                         f"{err:.3e} beyond atol 2e-3, rtol 1e-4")
         if not torch.equal(out, again):
             return fail(f"K2 {d1}x{d2}: two launches gave different bits")
-        ms = timed_ms(lambda: fdk.dc(g, u, v, d1, d2, 300.0), 5)
+        ms = timed_ms(lambda: fdk.dc(g, u, v, d1, d2, 300.0), 20)
         plain_ms = timed_ms(
             lambda: fdk.dc_reference(g, u, v, d1, d2, 300.0), 5)
         # the library call: fft2 of g, real part at the entries (ref.py)
         fft_err = float((kref.dc_ref(g, entries, 300.0) - ref[:, :n])
                         .abs().max())
-        lib_ms = timed_ms(lambda: kref.dc_ref(g, entries, 300.0), 5)
+        lib_ms = timed_ms(lambda: kref.dc_ref(g, entries, 300.0), 20)
         flops, direct = fft_ops(d1, d2, L), 4.0 * d1 * d2 * n * L
         nbytes = 4.0 * (L * d1 * d2 + 2 * n + L * n)
         b_ms, b_by = bound(flops, nbytes, "float32")
@@ -297,8 +318,9 @@ def main() -> int:
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, fft2 {lib_ms:.3f} ms "
               f"(|fft2 - plain| {fft_err:.1e}), bound {b_ms:.4f} ms "
               f"({b_by}), direct-sum FP32 floor "
-              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms | bit-identical "
-              "on a second launch")
+              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms | kernel "
+              f"{ms / b_ms:.1f}x its bound, {ms / lib_ms:.2f}x fft2 | "
+              "bit-identical on a second launch")
         k2["err"] = max(k2["err"], err)
         if main_path:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -308,6 +330,12 @@ def main() -> int:
         del g, out, ref, again
     k2["bound_ms"], k2["bound_by"] = bound(k2["flops"], k2["bytes"],
                                            "float32")
+    print(f"[K2] main shapes: kernel {k2['ms']:.3f} ms = "
+          f"{k2['ms'] / k2['bound_ms']:.1f}x its bound "
+          f"{k2['bound_ms']:.4f} ms, {k2['ms'] / k2['library_ms']:.2f}x "
+          f"fft2 ({k2['library_ms']:.3f} ms)")
+    if k2["ms"] >= k2["library_ms"]:
+        print("[K2] note: not faster than fft2 in this run")
 
     # ---- 5. K3 ---------------------------------------------------------------
     B, W, H, K, dh, ps, pps = 8, 1, 32, 4, 128, 16, 8     # max_len 128

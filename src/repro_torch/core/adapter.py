@@ -197,7 +197,7 @@ class FourierFT(AdapterMethod):
             KernelOp("deltaw", self.name, "einsum", _fourier_deltaw_einsum),
             KernelOp("deltaw", self.name, "cuda", _fourier_deltaw_cuda,
                      devices=("cuda",), requires=_fourier_basis_only,
-                     note="integer-phase FP32 tiles "
+                     note="row FFTs in shared memory "
                           "(csrc/fourier_deltaw.cu)"),
         )
 

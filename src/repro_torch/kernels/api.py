@@ -58,8 +58,10 @@ class KernelOp:
         paged_attention: fn(q, k_pages, v_pages, block_table, kv_len)
 
     Constraints: `devices` (device types the op runs on; None = any) and
-    `requires` (predicate on the PEFTConfig). There is no dimension bound:
-    the ΔW kernel reduces its phases exactly in 64-bit arithmetic."""
+    `requires` (predicate on the PEFTConfig). Shape limits are the
+    kernels' own: the FourierFT kernels' wrappers raise for a site beyond
+    `kernels.fft_plan`'s limits (d2 ≤ 29056 with odd prime factors ≤ 63,
+    d1 ≤ 65535, n ≤ 16384), and nothing degrades to the plain version."""
     op: str
     method: str
     backend: str

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
+Each `csrc/<name>.cu` has a plain C interface (it may include the headers
+`csrc/*.cuh`, such as the shared-memory FFT) and is compiled on its own by
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
 into `build/repro_torch_kernels/` at the repository root (git-ignored),
 then loaded with `ctypes`. The build runs at first use; `build_all()` starts
 one nvcc per source at once. A library's file name carries a hash of its
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and the headers, so an edit is rebuilt and an unchanged one reused.
 
 Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check()` raises on a
@@ -35,12 +36,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "fourier_deltaw": {
         # cos, sin, d, stream
         "fourier_twiddles_launch": (_P, _P, _I, _P),
-        # c, u, v, cos1, sin1, cos2, sin2, out, L, n, d1, d2, scale, stream
-        "fourier_deltaw_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _F, _P),
-        # g, u, v, cos1, sin1, cos2, sin2, partial, out, L, n, d1, d2,
+        # c, u, v, cos1, sin1, tw, pos, scratch, out, plan, L, n, d1, d2,
         # scale, stream
-        "fourier_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "fourier_deltaw_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _F, _P),
+        # g, u, v, cos1, sin1, tw, pos, partial, out, plan, L, n, d1, d2,
+        # scale, stream
+        "fourier_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _F, _P),
     },
     "dct_deltaw": {
@@ -72,8 +74,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the source, every header of csrc/ (a source may include any) and
+    # the flags
+    data = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

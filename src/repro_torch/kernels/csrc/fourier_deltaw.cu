@@ -1,75 +1,99 @@
 // FourierFT ΔW materialization (K1) and its VJP with respect to the
-// coefficients (K2) for Hopper, sm_90a. The two share their phase code: the
-// twiddle tables and the exact integer phase walk.
+// coefficients (K2) for Hopper, sm_90a, as FFT-structured kernels: each
+// reads or writes ΔW (or g) once and does O(d1·d2·log d2) work per layer.
 //
 // K1 replaces the TPU kernel `deltaw_pallas` (src/repro/kernels/
-// fourier_deltaw.py, body `_deltaw_kernel`, basis `_phase_block`). It
-// computes, for every layer l of a stack and every output element,
+// fourier_deltaw.py, body `_deltaw_kernel`). For every layer l of a stack
 //
-//   out[l, j, k] = scale * sum_e c[l, e] * (cos θ[j,e] cos φ[k,e] - sin θ[j,e] sin φ[k,e])
+//   out[l, j, k] = scale * Re sum_e c[l, e] * exp(i(θ[j,e] + φ[k,e]))
 //   θ[j,e] = 2π ((j·u_e) mod d1) / d1,   φ[k,e] = 2π ((k·v_e) mod d2) / d2
 //
-// K2 replaces `dc_pallas` (same file, body `_dc_kernel`). It computes
+// K2 replaces `dc_pallas` (same file, body `_dc_kernel`):
 //
-//   dc[l, e] = scale * sum_j sum_k g[l, j, k] * cos(θ[j,e] + φ[k,e])
-//            = scale * sum_j (cos θ[j,e] A[j,e] - sin θ[j,e] B[j,e]),
-//   A = g[l] @ cos φ,  B = g[l] @ sin φ      (contraction over k < d2)
+//   dc[l, e] = scale * sum_jk g[l, j, k] * cos(θ[j,e] + φ[k,e])
 //
-// What bounds them. Both kernels evaluate the direct sum: 4·d1·d2·n FP32
-// FLOP per layer against one d1·d2·4-byte pass over ΔW or g (yi-6b wq at
-// n = 1000: ~67 GFLOP for 64 MiB), so as written they are bound by the FP32
-// FMA rate (about 1.0 ms per such layer at 67 TFLOP/s). The functions
-// themselves need far less: they are a 2-D inverse FFT of a sparse spectrum
-// and a 2-D FFT sampled at n points, about 2.5·d1·d2·log2(d1·d2) operations
-// per layer, so their floor is the one pass over memory (~0.02 ms per wq
-// layer at 3.35 TB/s) and `torch.fft` beats both kernels. Reaching that
-// floor is a redesign (FFT-structured or tensor-core) left to later work.
+// The functions split along the axes. Row j of ΔW is the inverse DFT of
+// length d2 of the row spectrum G_j[v] = sum_{e: v_e = v} c_e exp(iθ[j,e])
+// (at most n non-zeros), real part: out[j, :] = scale · Re T(G_j), with
+// T(x)[t] = sum_k x[k] exp(+2πi t k / d2). K2 is its transpose:
+// dc_e = scale · sum_j Re(exp(iθ[j,e]) · T(g_j)[v_e]). So both run one
+// transform of length d2 per row, d1·d2·log d2 operations per layer
+// instead of the direct sum's 4·d1·d2·n, and touch ΔW or g once.
 //
-// Shared by both:
-// - the phase is exact integer arithmetic: one 64-bit product and modulo per
-//   run of rows or columns, then a running `p += u; if (p >= d) p -= d`, so
-//   there is no dimension bound (the TPU kernels' int32 product needed
-//   d ≤ 46336); entries are reduced into [0, d) on load, so any integer
-//   entry is exact and the wrapper reads nothing back to the host;
-// - cos/sin come from per-axis twiddle tables of length d, built by
-//   `twiddle_kernel` in double precision (sincospi) and rounded to f32 —
-//   accurate trig, never the fast `__cosf` intrinsics. The wrapper builds a
-//   table once per (d, device) and reuses it.
+// Two real rows per complex transform. Re T(G) = T(H) for H, the Hermitian
+// part of G, H[v] = (G[v] + conj G[d2-v]) / 2, whose transform is real. So
+// K1 builds Z = H_a + i·H_b for rows a = j, b = j+1 and writes Re T(Z) to
+// row a and Im T(Z) to row b; K2 transforms Z = g_a + i·g_b and splits
+// T(g_a)[v] = (Z[v] + conj Z[d2-v]) / 2 and
+// T(g_b)[v] = (Z[v] - conj Z[d2-v]) / 2i.
 //
-// K1 design: one block per 128×128 output tile of one layer, grid
-// (d2/128, d1/128, L); n is walked in chunks of 16 entries; each chunk's
-// c·cosθ, c·sinθ rows and cosφ, sinφ columns for the tile are built in shared
-// memory, and each of the 256 threads accumulates an 8×8 register tile with
-// FP32 FMAs (16 FMAs per 16-byte shared-memory read). Rows/columns past
-// d1/d2 are masked at the store.
+// The transform is `fft_smem.cuh`: in place in shared memory, radix 8/4/2
+// plus a generic odd radix, twiddles from a per-stage table gathered from
+// the double-precision tables (coalesced reads), rows padded one word in 16
+// where they fit (no bank conflicts in the strided stages). K1 runs it by
+// decimation in time (the spectrum written at its digit-reversed positions,
+// the output read in natural order), K2 by decimation in frequency (g read
+// in natural order, T(g)[v] read at pos[v]). pos (d2,), the stage table,
+// the radices and the blocking come from the host plan
+// (kernels/fft_plan.py), built once per d2.
 //
-// K2 design, two passes with a fixed sum order:
-// - pass 1, `dc_partial_kernel`: one block per (128 rows j) × (64 entries)
-//   × layer, grid (n/64, d1/128, L). k is walked in chunks of 32: the g tile
-//   is read coalesced along k and stored transposed in shared memory, and
-//   the chunk's cos φ / sin φ columns are built in shared memory. Each of
-//   the 256 threads holds an 8-row × 4-entry register tile of A and of B
-//   (64 FMAs per four 16-byte shared-memory reads). The epilogue weights
-//   each row by cos θ / sin θ and sums the block's 128 rows (per thread, then
-//   across the 16 threads of an entry column in a fixed order) into
-//   partial[row block, l, e].
-// - pass 2, `dc_reduce_kernel`: dc[l, e] = scale * sum over row blocks of
-//   partial[rb, l, e], rb ascending. The TPU kernel accumulated into one (n,)
-//   block across its sequential grid; GPU blocks run in no order, and float
-//   atomics would make the f32 sum order vary from run to run, so the
-//   partials are summed in a second pass instead: the result is the same
-//   bits on every run.
+// K1 design. Pass 0, `scatter_plan_kernel` (one block of 1024 threads):
+// entry e adds c_e·exp(iθ) at column v_e and its conjugate at d2 - v_e
+// (the "mirror", which makes the Hermitian part); entries whose c is 0 in
+// every layer (the zero padding) are dropped. The 2n virtual entries are
+// binned by column (integer atomics, a block scan), each bin is put in
+// virtual-index order (insertion sort; bins are short), and the slots are
+// laid out in rounds: round r holds the r-th member of every bin larger
+// than r, with its column's digit-reversed position, u mod d1 (bit 31: a
+// mirror) and its c in every layer. Pass 1, `deltaw_kernel`, grid (row
+// blocks of 2·pairs rows, L), 256 threads: zero the rows, add the rounds'
+// slots one round at a time (within a round every column is distinct, so
+// no two threads add to one word; the phase (j·u) mod d1 is one 32-bit
+// product, + u for row j+1), run the transform, store scale/2 · (Re, Im)
+// to rows j, j+1, coalesced along d2: the only pass over ΔW.
 //
-// No tensor cores. c and g are f32 and contiguous, g unpadded (L, d1, d2);
-// n must be a multiple of 16 (the wrapper pads with zero entries and c = 0,
-// and drops their dc).
+// K2 design. `entry_table_kernel` packs each entry's two places in a padded
+// row and u mod d1. Pass 1, `dc_partial_kernel`, grid (row blocks, L), 256
+// threads: a block walks `slabs` groups of `pairs` row pairs; for each it
+// loads the rows coalesced (the only pass over g), runs the transform, and
+// every thread adds, for each of its entries, Re(exp(iθ)·T(g_j)[v_e]) over
+// the group's rows in order to partial[row block, l, e] (only that thread
+// touches it). Pass 2, `dc_reduce_kernel`: one warp per (l, e) sums the row
+// blocks' partials, lane-strided then a fixed shuffle tree, times scale/2.
+//
+// Determinism: no float atomics. Every word of K1's spectrum is summed in
+// round order, which pass 0 fixes (the order of slots within a round, set
+// by integer atomics, changes no sum); K2's partials and its reduction have
+// a fixed order. A second launch gives the same bits.
+//
+// What bounds them: one pass over ΔW or g is the floor (bytes). Measured on
+// an H100 the kernels sit a few times above it; the transform's shared-
+// memory stages, K1's latency-bound scatter rounds and K2's entry gathers
+// share the rest, and pass 0 costs about 20 µs per launch (one block).
+// Generic odd radices are O(p) per point: 43 (d2 = 11008) and 19 (9728)
+// make those shapes slower per byte.
+//
+// Limits (the wrapper raises before launching, naming the limit, and the
+// entry points refuse with cudaErrorInvalidValue): d2 ≤ 29056 (one complex
+// f32 row, 8·d2 bytes, in the 232,448 bytes of shared memory a block can
+// have; rows of at most 4096 share a block, about 32 KB of buffers), every
+// odd prime factor of d2 ≤ 63, d1 ≤ 65535 (j·u < 2^32), n ≤ 16384 (pass 0
+// holds 2n ints in shared memory), n a multiple of 16 (the wrapper pads with
+// zero entries and c = 0, and drops their dc). c and g are f32 and
+// contiguous, g unpadded (L, d1, d2). No tensor cores.
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "fft_smem.cuh"
 
 namespace {
 
-constexpr int NC = 16;        // n must be a multiple of this (wrapper pads)
-constexpr int PAD = 4;        // row padding: 16-byte aligned, fewer conflicts
+constexpr int NC = 16;              // n must be a multiple of this (wrapper pads)
+constexpr int THREADS = 256;        // K1 and K2 blocks
+constexpr int SORT_THREADS = 1024;  // K1's entry sort
+constexpr int SMEM_MAX = 232448;    // shared memory one block can have
+constexpr int SMEM_DEFAULT = 49152; // above this a kernel needs the attribute
+constexpr int MAX_D1 = 65535;
+constexpr int MAX_N = 16384;   // pass 0 holds 2n ints in shared memory
 
 __global__ void twiddle_kernel(float* __restrict__ cosv,
                                float* __restrict__ sinv, int d) {
@@ -86,113 +110,251 @@ __device__ __forceinline__ unsigned reduce_entry(int e, int d) {
   return static_cast<unsigned>(((e % d) + d) % d);
 }
 
+// plan ints (kernels/fft_plan.py::FftPlan.as_ints): stages, radices padded to
+// FFT_MAX_STAGES, pairs, slabs, shift. False unless the radices multiply to
+// d2 and each is 2, 4, 8 or an odd number ≤ 63. An odd stage's roots follow
+// the N - 1 stage twiddles in the table (fft_plan.stage_twiddles).
+bool read_plan(const int* ints, int d2, FftPlan* plan, int* pairs,
+               int* slabs) {
+  const int stages = ints[0];
+  if (stages < 0 || stages > FFT_MAX_STAGES) return false;
+  plan->n = d2;
+  plan->stages = stages;
+  long long span = 1;
+  int roots = d2 - 1;
+  for (int s = 0; s < FFT_MAX_STAGES; ++s) {
+    const int r = s < stages ? ints[1 + s] : 1;
+    const bool odd = r % 2 == 1 && r >= 3 && r < FFT_MAX_ODD;
+    if (s < stages && !(r == 2 || r == 4 || r == 8 || odd)) return false;
+    plan->radix[s] = r;
+    plan->span[s] = static_cast<int>(span);
+    plan->rootoff[s] = roots;
+    if (s < stages && odd) roots += r;
+    span *= r;
+    if (span > d2) return false;
+  }
+  *pairs = ints[1 + FFT_MAX_STAGES];
+  *slabs = ints[2 + FFT_MAX_STAGES];
+  plan->shift = ints[3 + FFT_MAX_STAGES];
+  if (plan->shift != 4 && plan->shift != 30) return false;
+  plan->stride = d2 + ((d2 - 1) >> plan->shift);
+  return span == d2 && *pairs >= 1 && *slabs >= 1;
+}
+
+// Raise a kernel's dynamic shared-memory limit once to what it needs.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int* allowed) {
+  if (bytes <= SMEM_DEFAULT || bytes <= *allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *allowed = bytes;
+  return static_cast<int>(err);
+}
+
 namespace k1 {
 
-constexpr int BM = 128;       // tile rows (d1 axis)
-constexpr int BN = 128;       // tile cols (d2 axis)
-constexpr int TM = 8;         // rows per thread: two runs of 4, BM/2 apart
-constexpr int TN = 8;         // cols per thread: two runs of 4, BN/2 apart
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int GROUPS = THREADS / NC;             // 16 fill groups
-constexpr int RPG = BM / GROUPS;                 // rows filled per group
-constexpr int CPG = BN / GROUPS;                 // cols filled per group
+// Pass 0's output and scratch, carved by the host from one int buffer.
+struct Scatter {
+  int* off;      // d2 + 1: bin starts (bins by target position w)
+  int* cur;      // d2: placement cursors
+  int* tmp;      // 2n: virtual entries by bin, index order within a bin
+  int* hist;     // 2n + 1: bins of each size
+  int* roff;     // 2n + 2: round starts in the slot arrays
+  int* rcur;     // 2n + 1: placement cursors of the rounds
+  int* spos;     // 2n: slot -> digit-reversed target position
+  int* su;       // 2n: slot -> u mod d1, bit 31 set for a mirror
+  int* rounds;   // 1: the number of rounds (the largest bin)
+  float* cs;     // L × 2n: slot -> its entry's c in each layer
+};
 
-__global__ void __launch_bounds__(THREADS)
-deltaw_kernel(const float* __restrict__ c, const int* __restrict__ u,
-              const int* __restrict__ v, const float* __restrict__ cos1,
-              const float* __restrict__ sin1, const float* __restrict__ cos2,
-              const float* __restrict__ sin2, float* __restrict__ out,
-              int n, int d1, int d2, float scale) {
-  __shared__ __align__(16) float ct[NC][BM + PAD];   // c · cos θ
-  __shared__ __align__(16) float st[NC][BM + PAD];   // c · sin θ
-  __shared__ __align__(16) float cp[NC][BN + PAD];   // cos φ
-  __shared__ __align__(16) float sp[NC][BN + PAD];   // sin φ
-
-  const int layer = blockIdx.z;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+// Inclusive scan of a[0..len) by one block of SORT_THREADS threads (a is
+// global; the caller synchronises before and after).
+__device__ void block_scan(int* a, int len, int* part) {
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int fe = tid % NC;          // entry this thread fills
-  const int fg = tid / NC;          // its run of rows / cols
-  const float* cl = c + static_cast<size_t>(layer) * n;
+  const int chunk = (len + SORT_THREADS - 1) / SORT_THREADS;
+  const int lo = min(tid * chunk, len);
+  const int hi = min(lo + chunk, len);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += __ldcg(a + i);
+  part[tid] = s;
+  __syncthreads();
+  for (int d = 1; d < SORT_THREADS; d <<= 1) {
+    const int x = tid >= d ? part[tid - d] : 0;
+    __syncthreads();
+    part[tid] += x;
+    __syncthreads();
+  }
+  s = tid ? part[tid - 1] : 0;
+  for (int i = lo; i < hi; ++i) {
+    s += __ldcg(a + i);
+    a[i] = s;
+  }
+}
+
+// Pass 0 (one block): the scatter plan of the row spectra. Entry e adds
+// c_e·exp(iθ) at column v_e (its direct copy, virtual index e) and
+// conj(c_e·exp(iθ)) at d2 - v_e (its mirror, virtual index n + e), which
+// together give the Hermitian part. Entries whose c is 0 in every layer
+// (the zero padding) add exactly nothing and are dropped. The virtual
+// entries are binned by target column, ordered by virtual index within a
+// bin, and laid out by rounds: round r holds the r-th member of every bin
+// larger than r. Within a round every target is distinct, so pass 1 adds a
+// round's slots without collisions and each column's sum has one fixed
+// order. (The order of slots inside a round, set by integer atomics, does
+// not change any sum.)
+__global__ void __launch_bounds__(SORT_THREADS)
+scatter_plan_kernel(const float* __restrict__ c, const int* __restrict__ u,
+                    const int* __restrict__ v, const int* __restrict__ pos,
+                    Scatter s, int L, int n, int d1, int d2) {
+  extern __shared__ int key[];                // 2n: target column, or -1
+  __shared__ int part[SORT_THREADS];
+  const int tid = threadIdx.x;
+  const int n2 = 2 * n;
+  for (int i = tid; i <= d2; i += SORT_THREADS) s.off[i] = 0;
+  for (int i = tid; i < d2; i += SORT_THREADS) s.cur[i] = 0;
+  for (int i = tid; i <= n2; i += SORT_THREADS) s.hist[i] = s.rcur[i] = 0;
+  if (tid == 0) *s.rounds = 0;
+  __syncthreads();
+  for (int e = tid; e < n; e += SORT_THREADS) {
+    bool keep = false;
+    for (int l = 0; l < L && !keep; ++l)
+      keep = c[static_cast<size_t>(l) * n + e] != 0.f;
+    const int w = static_cast<int>(reduce_entry(v[e], d2));
+    const int wm = w ? d2 - w : 0;
+    key[e] = keep ? w : -1;
+    key[n + e] = keep ? wm : -1;
+    if (keep) {
+      atomicAdd(s.off + w + 1, 1);
+      atomicAdd(s.off + wm + 1, 1);
+    }
+  }
+  __syncthreads();
+  block_scan(s.off, d2 + 1, part);
+  __syncthreads();
+  for (int i = tid; i < n2; i += SORT_THREADS) {
+    const int w = key[i];
+    if (w >= 0) s.tmp[__ldcg(s.off + w) + atomicAdd(s.cur + w, 1)] = i;
+  }
+  __syncthreads();
+  for (int w = tid; w < d2; w += SORT_THREADS) {
+    const int a = __ldcg(s.off + w), b = __ldcg(s.off + w + 1);
+    for (int x = a + 1; x < b; ++x) {         // insertion sort: bins are short
+      const int t = __ldcg(s.tmp + x);
+      int y = x - 1;
+      for (; y >= a && __ldcg(s.tmp + y) > t; --y)
+        s.tmp[y + 1] = __ldcg(s.tmp + y);
+      s.tmp[y + 1] = t;
+    }
+    if (b > a) {
+      // one atomic per distinct size in the warp (most bins hold one)
+      const unsigned active = __activemask();
+      const unsigned peers = __match_any_sync(active, b - a);
+      if ((threadIdx.x & 31) == __ffs(peers) - 1)
+        atomicAdd(s.hist + (b - a), __popc(peers));
+      const int most = __reduce_max_sync(active, b - a);
+      if ((threadIdx.x & 31) == __ffs(active) - 1) atomicMax(s.rounds, most);
+    }
+  }
+  __syncthreads();
+  // round r has one slot per bin larger than r, so it starts at
+  // roff[r] = sum over sizes z of hist[z]·min(z, r)
+  const int R = __ldcg(s.rounds);
+  for (int r = tid; r <= R; r += SORT_THREADS) {
+    int start = 0;
+    for (int z = 1; z <= R; ++z) start += __ldcg(s.hist + z) * min(z, r);
+    s.roff[r] = start;
+  }
+  __syncthreads();
+  const int total = __ldcg(s.off + d2);
+  for (int x = tid; x < total; x += SORT_THREADS) {
+    const int i = __ldcg(s.tmp + x);
+    const int w = key[i];
+    const int r = x - __ldcg(s.off + w);
+    // one atomic per distinct round in the warp
+    const unsigned active = __activemask();
+    const unsigned peers = __match_any_sync(active, r);
+    const int lane = threadIdx.x & 31;
+    const int leader = __ffs(peers) - 1;
+    int first = 0;
+    if (lane == leader) first = atomicAdd(s.rcur + r, __popc(peers));
+    first = __shfl_sync(peers, first, leader);
+    const int slot = __ldcg(s.roff + r) + first
+                     + __popc(peers & ((1u << lane) - 1u));
+    const int e = i < n ? i : i - n;
+    s.spos[slot] = pos[w];
+    s.su[slot] = static_cast<int>(reduce_entry(u[e], d1)
+                                  | (i < n ? 0u : 0x80000000u));
+    for (int l = 0; l < L; ++l)
+      s.cs[static_cast<size_t>(l) * n2 + slot] =
+          c[static_cast<size_t>(l) * n + e];
+  }
+}
+
+// Pass 1: grid (row blocks of 2·P rows, L). Builds Z = 2·(H_j +
+// i·H_{j+1}) for each of the block's P row pairs in shared memory, round by
+// round, runs the inverse transform, stores scale/2 · (Re, Im) to rows j,
+// j + 1. A slot reads its 2·P row phases' table entries at once.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 4)
+deltaw_kernel(const Scatter s,
+              const float* __restrict__ cos1, const float* __restrict__ sin1,
+              const float2* __restrict__ tw, float* __restrict__ out,
+              const FftPlan plan, int n, int d1, float scale) {
+  constexpr int pairs = P;
+  extern __shared__ float2 buf[];             // P × plan.stride
+  const int N = plan.n;
+  const int layer = blockIdx.y;
+  const unsigned j0 = blockIdx.x * 2u * pairs;
   const unsigned ud1 = static_cast<unsigned>(d1);
-  const unsigned ud2 = static_cast<unsigned>(d2);
+  const int* __restrict__ roff = s.roff;
+  const int* __restrict__ spos = s.spos;
+  const int* __restrict__ su = s.su;
+  const float* __restrict__ cs = s.cs + static_cast<size_t>(layer) * 2 * n;
 
-  float acc[TM][TN];
+  for (int idx = threadIdx.x; idx < pairs * plan.stride; idx += blockDim.x)
+    buf[idx] = make_float2(0.f, 0.f);
+  const int rounds = *s.rounds;
+  for (int r = 0; r < rounds; ++r) {
+    __syncthreads();                          // the last round's adds are done
+    const int hi = roff[r + 1];
+#pragma unroll 2
+    for (int x = roff[r] + threadIdx.x; x < hi; x += blockDim.x) {
+      const unsigned us = static_cast<unsigned>(su[x]);
+      const float ce = cs[x];
+      const int px = fft_phys(plan, spos[x]);
+      const float sg = us >> 31 ? -1.f : 1.f; // the mirror adds the conjugate
+      const unsigned ue = us & 0x7fffffffu;
+      // cos θ, sin θ of rows j0 .. j0 + 2P - 1 (0 past d1)
+      float ct[2 * P], st[2 * P];
+      unsigned p = (j0 * ue) % ud1;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int e0 = 0; e0 < n; e0 += NC) {
-    const int e = e0 + fe;
-    const float ce = cl[e];
-    const unsigned ue = reduce_entry(u[e], d1);
-    const unsigned ve = reduce_entry(v[e], d2);
-    {
-      const int r = fg * RPG;
-      unsigned p = static_cast<unsigned>(
-          (static_cast<unsigned long long>(row0 + r) * ue) % ud1);
-#pragma unroll
-      for (int i = 0; i < RPG; ++i) {
-        ct[fe][r + i] = ce * cos1[p];
-        st[fe][r + i] = ce * sin1[p];
+      for (int t = 0; t < 2 * P; ++t) {
+        const bool live = j0 + t < ud1;
+        ct[t] = live ? cos1[p] : 0.f;
+        st[t] = live ? sin1[p] : 0.f;
         p += ue;
         if (p >= ud1) p -= ud1;
       }
-    }
-    {
-      const int k = fg * CPG;
-      unsigned p = static_cast<unsigned>(
-          (static_cast<unsigned long long>(col0 + k) * ve) % ud2);
 #pragma unroll
-      for (int i = 0; i < CPG; ++i) {
-        cp[fe][k + i] = cos2[p];
-        sp[fe][k + i] = sin2[p];
-        p += ve;
-        if (p >= ud2) p -= ud2;
+      for (int b = 0; b < P; ++b) {
+        // c·e^{±iθa} + i·c·e^{±iθb} for rows a = j0 + 2b, b = a + 1
+        float2& z = buf[b * plan.stride + px];
+        z.x = fmaf(ce, ct[2 * b] - sg * st[2 * b + 1], z.x);
+        z.y = fmaf(ce, sg * st[2 * b] + ct[2 * b + 1], z.y);
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < NC; ++k) {
-      // each thread's rows are ty*4 + {0..3} and BM/2 + ty*4 + {0..3} (and
-      // likewise for columns), so a warp's float4 reads are contiguous
-      float a_c[TM], a_s[TM], b_c[TN], b_s[TN];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 ac = *reinterpret_cast<const float4*>(&ct[k][h * BM / 2 + ty * 4]);
-        const float4 as = *reinterpret_cast<const float4*>(&st[k][h * BM / 2 + ty * 4]);
-        const float4 bc = *reinterpret_cast<const float4*>(&cp[k][h * BN / 2 + tx * 4]);
-        const float4 bs = *reinterpret_cast<const float4*>(&sp[k][h * BN / 2 + tx * 4]);
-        a_c[4 * h] = ac.x; a_c[4 * h + 1] = ac.y; a_c[4 * h + 2] = ac.z; a_c[4 * h + 3] = ac.w;
-        a_s[4 * h] = as.x; a_s[4 * h + 1] = as.y; a_s[4 * h + 2] = as.z; a_s[4 * h + 3] = as.w;
-        b_c[4 * h] = bc.x; b_c[4 * h + 1] = bc.y; b_c[4 * h + 2] = bc.z; b_c[4 * h + 3] = bc.w;
-        b_s[4 * h] = bs.x; b_s[4 * h + 1] = bs.y; b_s[4 * h + 2] = bs.z; b_s[4 * h + 3] = bs.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          acc[i][j] = fmaf(a_c[i], b_c[j], acc[i][j]);
-          acc[i][j] = fmaf(-a_s[i], b_s[j], acc[i][j]);
-        }
-    }
-    __syncthreads();
   }
+  fft_smem_dit<1>(buf, pairs, plan, tw);
 
-  float* ol = out + static_cast<size_t>(layer) * d1 * d2;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + (i / 4) * (BM / 2) + ty * 4 + i % 4;
-    if (row >= d1) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + (j / 4) * (BN / 2) + tx * 4 + j % 4;
-      if (col < d2) ol[static_cast<size_t>(row) * d2 + col] = acc[i][j] * scale;
-    }
+  const float half = 0.5f * scale;
+  float* ol = out + static_cast<size_t>(layer) * d1 * N;
+  for (int idx = threadIdx.x; idx < pairs * N; idx += blockDim.x) {
+    const int b = idx / N;
+    const int k = idx - b * N;
+    const unsigned ja = j0 + 2u * b;
+    const float2 z = buf[b * plan.stride + fft_phys(plan, k)];
+    if (ja < ud1) ol[static_cast<size_t>(ja) * N + k] = half * z.x;
+    if (ja + 1 < ud1) ol[static_cast<size_t>(ja + 1) * N + k] = half * z.y;
   }
 }
 
@@ -200,148 +362,118 @@ deltaw_kernel(const float* __restrict__ c, const int* __restrict__ u,
 
 namespace k2 {
 
-constexpr int BM = 128;       // rows j per block
-constexpr int BN = 64;        // entries per block
-constexpr int BK = 32;        // columns k per shared-memory chunk
-constexpr int TM = 8;         // rows per thread: two runs of 4, BM/2 apart
-constexpr int TN = 4;         // entries per thread
-constexpr int TX = BN / TN;   // 16 entry groups
-constexpr int TY = BM / TM;   // 16 row groups
-constexpr int THREADS = TX * TY;                 // 256
-constexpr int FG = THREADS / BN;                 // 4 φ fill groups
-constexpr int KPG = BK / FG;                     // 8 columns filled per group
-
-__global__ void __launch_bounds__(THREADS)
-dc_partial_kernel(const float* __restrict__ g, const int* __restrict__ u,
-                  const int* __restrict__ v, const float* __restrict__ cos1,
-                  const float* __restrict__ sin1,
-                  const float* __restrict__ cos2,
-                  const float* __restrict__ sin2,
-                  float* __restrict__ partial, int L, int n, int d1, int d2) {
-  __shared__ __align__(16) float gs[BK][BM + PAD];   // g tile, transposed
-  __shared__ __align__(16) float cp[BK][BN + PAD];   // cos φ
-  __shared__ __align__(16) float sp[BK][BN + PAD];   // sin φ
-  __shared__ float red[TY][BN];                      // epilogue reduction
-
-  const int layer = blockIdx.z;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;                  // first entry
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const unsigned ud1 = static_cast<unsigned>(d1);
-  const unsigned ud2 = static_cast<unsigned>(d2);
-  const float* gl = g + static_cast<size_t>(layer) * d1 * d2;
-
-  // this thread fills φ for entry fe at columns fg*KPG .. fg*KPG+KPG-1 of
-  // every chunk; p is the phase of its first column, stepped chunk by chunk
-  const int fe = tid % BN;
-  const int fg = tid / BN;
-  const unsigned ve = (col0 + fe < n) ? reduce_entry(v[col0 + fe], d2) : 0u;
-  unsigned p = static_cast<unsigned>(
-      (static_cast<unsigned long long>(fg * KPG) * ve) % ud2);
-  const unsigned pstep = static_cast<unsigned>(
-      (static_cast<unsigned long long>(BK) * ve) % ud2);
-
-  float acc_a[TM][TN], acc_b[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc_a[i][j] = 0.f;
-      acc_b[i][j] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < d2; k0 += BK) {
-    // g tile: a warp reads 32 consecutive k of one row (128 bytes)
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / THREADS; ++r) {
-      const int e = tid + r * THREADS;
-      const int row = e / BK;
-      const int col = e % BK;
-      const int gj = row0 + row;
-      const int gk = k0 + col;
-      gs[col][row] = (gj < d1 && gk < d2)
-                         ? gl[static_cast<size_t>(gj) * d2 + gk] : 0.f;
-    }
-    {
-      unsigned q = p;
-#pragma unroll
-      for (int i = 0; i < KPG; ++i) {
-        cp[fg * KPG + i][fe] = cos2[q];
-        sp[fg * KPG + i][fe] = sin2[q];
-        q += ve;
-        if (q >= ud2) q -= ud2;
-      }
-      p += pstep;
-      if (p >= ud2) p -= ud2;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      // rows ty*4 + {0..3} and BM/2 + ty*4 + {0..3}; entries tx*4 + {0..3}
-      const float4 a0 = *reinterpret_cast<const float4*>(&gs[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&gs[k][BM / 2 + ty * 4]);
-      const float4 bc = *reinterpret_cast<const float4*>(&cp[k][tx * 4]);
-      const float4 bs = *reinterpret_cast<const float4*>(&sp[k][tx * 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b_c[TN] = {bc.x, bc.y, bc.z, bc.w};
-      const float b_s[TN] = {bs.x, bs.y, bs.z, bs.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          acc_a[i][j] = fmaf(a[i], b_c[j], acc_a[i][j]);
-          acc_b[i][j] = fmaf(a[i], b_s[j], acc_b[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: weight each row by cos θ / sin θ and sum this thread's rows
-  // (rows past d1 hold 0 in acc, and their table index stays in range)
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int ei = col0 + tx * 4 + j;
-    const unsigned ue = (ei < n) ? reduce_entry(u[ei], d1) : 0u;
-    float s = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned q = static_cast<unsigned>(
-          (static_cast<unsigned long long>(row0 + h * (BM / 2) + ty * 4) * ue)
-          % ud1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s = fmaf(cos1[q], acc_a[h * 4 + i][j], s);
-        s = fmaf(-sin1[q], acc_b[h * 4 + i][j], s);
-        q += ue;
-        if (q >= ud1) q -= ud1;
-      }
-    }
-    red[ty][tx * 4 + j] = s;
-  }
-  __syncthreads();
-  if (tid < BN && col0 + tid < n) {
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < TY; ++t) s += red[t][tid];
-    partial[(static_cast<size_t>(blockIdx.y) * L + layer) * n + col0 + tid] = s;
+// Per entry, once per launch: the places of T(g)[v] and T(g)[d2 - v] in a
+// padded row (16 bits each) and u mod d1.
+__global__ void entry_table_kernel(const int* __restrict__ u,
+                                   const int* __restrict__ v,
+                                   const int* __restrict__ pos,
+                                   unsigned* __restrict__ et,
+                                   unsigned* __restrict__ eu,
+                                   const FftPlan plan, int n, int d1) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) {
+    const int N = plan.n;
+    const int ve = static_cast<int>(reduce_entry(v[e], N));
+    et[e] = static_cast<unsigned>(fft_phys(plan, pos[ve]))
+            | static_cast<unsigned>(fft_phys(plan, pos[ve ? N - ve : 0])) << 16;
+    eu[e] = reduce_entry(u[e], d1);
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 4)
+dc_partial_kernel(const float* __restrict__ g,
+                  const unsigned* __restrict__ et,
+                  const unsigned* __restrict__ eu,
+                  const float* __restrict__ cos1,
+                  const float* __restrict__ sin1,
+                  const float2* __restrict__ tw,
+                  float* __restrict__ partial, const FftPlan plan, int pairs,
+                  int slabs, int L, int n, int d1) {
+  extern __shared__ float2 buf[];             // pairs × plan.stride
+  const int N = plan.n;
+  const int layer = blockIdx.y;
+  const unsigned ud1 = static_cast<unsigned>(d1);
+  const float* gl = g + static_cast<size_t>(layer) * d1 * N;
+  float* pl = partial + (static_cast<size_t>(blockIdx.x) * L + layer) * n;
+
+  for (int slab = 0; slab < slabs; ++slab) {
+    const unsigned j0 = (blockIdx.x * static_cast<unsigned>(slabs) + slab)
+                        * 2u * pairs;
+    if (j0 >= ud1) break;                     // the same for the whole block
+    __syncthreads();                          // the last group's reads are done
+    for (int idx = threadIdx.x; idx < pairs * N; idx += blockDim.x) {
+      const int b = idx / N;
+      const int k = idx - b * N;
+      const unsigned ja = j0 + 2u * b;
+      buf[b * plan.stride + fft_phys(plan, k)] = make_float2(
+          ja < ud1 ? gl[static_cast<size_t>(ja) * N + k] : 0.f,
+          ja + 1 < ud1 ? gl[static_cast<size_t>(ja + 1) * N + k] : 0.f);
+    }
+    fft_smem_dif<1>(buf, pairs, plan, tw);
+
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const unsigned places = et[e];
+      const unsigned ue = eu[e];
+      const int pv = static_cast<int>(places & 0xffffu);
+      const int pm = static_cast<int>(places >> 16);
+      float acc = slab ? pl[e] : 0.f;
+      for (int b = 0; b < pairs; ++b) {
+        const unsigned ja = j0 + 2u * b;
+        if (ja >= ud1) break;
+        const float2 zv = buf[b * plan.stride + pv];
+        const float2 zm = buf[b * plan.stride + pm];
+        // 2·T(g_a)[v] = Z[v] + conj Z[d2-v]
+        unsigned p = (ja * ue) % ud1;
+        acc = fmaf(cos1[p], zv.x + zm.x, acc);
+        acc = fmaf(-sin1[p], zv.y - zm.y, acc);
+        if (ja + 1 < ud1) {
+          // 2·T(g_b)[v] = -i·(Z[v] - conj Z[d2-v])
+          p += ue;
+          if (p >= ud1) p -= ud1;
+          acc = fmaf(cos1[p], zv.y + zm.y, acc);
+          acc = fmaf(-sin1[p], zm.x - zv.x, acc);
+        }
+      }
+      pl[e] = acc;
+    }
+  }
+}
+
+// out[i] = scale · sum over row blocks of partial[rb, i], i = (l, e): one
+// warp per i, lanes over rb, then a fixed shuffle tree.
 __global__ void dc_reduce_kernel(const float* __restrict__ partial,
                                  float* __restrict__ out, int blocks, int ln,
                                  float scale) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < ln) {
-    float s = 0.f;
-    for (int rb = 0; rb < blocks; ++rb)
-      s += partial[static_cast<size_t>(rb) * ln + idx];
-    out[idx] = s * scale;
-  }
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= ln) return;
+  float s = 0.f;
+  for (int rb = lane; rb < blocks; rb += 32)
+    s += partial[static_cast<size_t>(rb) * ln + warp];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  if (lane == 0) out[warp] = s * scale;
 }
 
 }  // namespace k2
+
+int sort_smem_allowed = 0, k2_smem_allowed = 0;
+
+// K1's pass 1 for P row pairs per block.
+template <int P>
+int launch_deltaw(const k1::Scatter& sc, const void* cos1, const void* sin1,
+                  const void* tw, void* out, const FftPlan& plan, int L,
+                  int n, int d1, float scale, int smem, cudaStream_t s) {
+  static int allowed = 0;
+  if (int err = allow_smem(k1::deltaw_kernel<P>, smem, &allowed)) return err;
+  const int blocks = (d1 + 2 * P - 1) / (2 * P);
+  k1::deltaw_kernel<P><<<dim3(blocks, L), THREADS, smem, s>>>(
+      sc, static_cast<const float*>(cos1), static_cast<const float*>(sin1),
+      static_cast<const float2*>(tw), static_cast<float*>(out), plan, n, d1,
+      scale);
+  return 0;
+}
 
 }  // namespace
 
@@ -356,51 +488,96 @@ extern "C" int fourier_twiddles_launch(void* cosv, void* sinv, int d,
 }
 
 // c (L, n) f32, u/v (n,) int32 with n % 16 == 0, twiddle tables cos1/sin1
-// (d1,) and cos2/sin2 (d2,) f32, out (L, d1, d2) f32. Returns the CUDA error
-// code of the launch (0 = success).
+// (d1,) f32, tw the stage twiddles of d2 (fft_plan.stage_twiddles, f32
+// pairs), pos (d2,) int32 (fft_plan.digit_reverse), scratch
+// (2·d2 + 12·n + 8 + 2·L·n,) int32, out (L, d1, d2) f32, plan (host) the
+// ints of fft_plan.FftPlan.as_ints(). Returns the CUDA error code of the
+// launches (0 = success).
 extern "C" int fourier_deltaw_launch(const void* c, const void* u,
                                      const void* v, const void* cos1,
-                                     const void* sin1, const void* cos2,
-                                     const void* sin2, void* out, int L,
+                                     const void* sin1, const void* tw,
+                                     const void* pos, void* scratch,
+                                     void* out, const int* plan_ints, int L,
                                      int n, int d1, int d2, float scale,
                                      void* stream) {
-  if (L < 1 || n < NC || n % NC != 0 || d1 < 1 || d2 < 1 || L > 65535 ||
-      (d1 + k1::BM - 1) / k1::BM > 65535)
+  FftPlan plan;
+  int pairs, slabs;
+  if (L < 1 || L > 65535 || n < NC || n % NC != 0 || n > MAX_N || d1 < 1 ||
+      d1 > MAX_D1 || d2 < 1 || !read_plan(plan_ints, d2, &plan, &pairs, &slabs))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((d2 + k1::BN - 1) / k1::BN, (d1 + k1::BM - 1) / k1::BM, L);
-  k1::deltaw_kernel<<<grid, k1::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long smem = 8LL * plan.stride * pairs;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (pairs != 1 && pairs != 2 && pairs != 4 && pairs != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = allow_smem(k1::scatter_plan_kernel, 8 * n,
+                           &sort_smem_allowed))
+    return err;
+  const int n2 = 2 * n;
+  k1::Scatter sc;
+  sc.off = static_cast<int*>(scratch);
+  sc.cur = sc.off + d2 + 1;
+  sc.tmp = sc.cur + d2;
+  sc.hist = sc.tmp + n2;
+  sc.roff = sc.hist + n2 + 1;
+  sc.rcur = sc.roff + n2 + 2;
+  sc.spos = sc.rcur + n2 + 1;
+  sc.su = sc.spos + n2;
+  sc.rounds = sc.su + n2;
+  sc.cs = reinterpret_cast<float*>(sc.rounds + 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  k1::scatter_plan_kernel<<<1, SORT_THREADS, 8 * n, s>>>(
       static_cast<const float*>(c), static_cast<const int*>(u),
-      static_cast<const int*>(v), static_cast<const float*>(cos1),
-      static_cast<const float*>(sin1), static_cast<const float*>(cos2),
-      static_cast<const float*>(sin2), static_cast<float*>(out), n, d1, d2,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int*>(v), static_cast<const int*>(pos), sc, L, n, d1,
+      d2);
+  const auto launch = pairs == 1 ? launch_deltaw<1>
+                      : pairs == 2 ? launch_deltaw<2>
+                      : pairs == 4 ? launch_deltaw<4> : launch_deltaw<8>;
+  const int err = launch(sc, cos1, sin1, tw, out, plan, L, n, d1, scale,
+                         static_cast<int>(smem), s);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
-// g (L, d1, d2) f32, u/v (n,) int32 with n % 16 == 0, twiddle tables
-// cos1/sin1 (d1,) and cos2/sin2 (d2,) f32, partial (ceil(d1/128), L, n) f32
-// scratch, out (L, n) f32. Returns the CUDA error code of the launches
+// g (L, d1, d2) f32, u/v (n,) int32 with n % 16 == 0, cos1/sin1 (d1,) f32,
+// tw and pos as for fourier_deltaw_launch, partial (row_blocks·L·n + 2n,)
+// f32 scratch with row_blocks = ceil(d1 / (2·pairs·slabs))
+// (fft_plan.k2_row_blocks), out (L, n) f32, plan (host) as for
+// fourier_deltaw_launch. Returns the CUDA error code of the launches
 // (0 = success).
 extern "C" int fourier_dc_launch(const void* g, const void* u, const void* v,
                                  const void* cos1, const void* sin1,
-                                 const void* cos2, const void* sin2,
-                                 void* partial, void* out, int L, int n,
-                                 int d1, int d2, float scale, void* stream) {
-  const int blocks = (d1 + k2::BM - 1) / k2::BM;
-  if (L < 1 || n < NC || n % NC != 0 || d1 < 1 || d2 < 1 || L > 65535 ||
-      blocks > 65535 || static_cast<long long>(L) * n > (1LL << 30))
+                                 const void* tw, const void* pos,
+                                 void* partial, void* out,
+                                 const int* plan_ints, int L, int n, int d1,
+                                 int d2, float scale, void* stream) {
+  FftPlan plan;
+  int pairs, slabs;
+  if (L < 1 || L > 65535 || n < NC || n % NC != 0 || d1 < 1 ||
+      d1 > MAX_D1 || d2 < 1 || static_cast<long long>(L) * n > (1LL << 26) ||
+      !read_plan(plan_ints, d2, &plan, &pairs, &slabs))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = 8LL * plan.stride * pairs;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = allow_smem(k2::dc_partial_kernel, static_cast<int>(smem),
+                           &k2_smem_allowed))
+    return err;
+  const int rows = 2 * pairs * slabs;
+  const int blocks = (d1 + rows - 1) / rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((n + k2::BN - 1) / k2::BN, blocks, L);
-  k2::dc_partial_kernel<<<grid, k2::THREADS, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const int*>(u),
-      static_cast<const int*>(v), static_cast<const float*>(cos1),
-      static_cast<const float*>(sin1), static_cast<const float*>(cos2),
-      static_cast<const float*>(sin2), static_cast<float*>(partial), L, n, d1,
-      d2);
+  // the entry table sits after the partial sums
+  unsigned* et = reinterpret_cast<unsigned*>(
+      static_cast<float*>(partial) + static_cast<size_t>(blocks) * L * n);
+  unsigned* eu = et + n;
+  k2::entry_table_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+      static_cast<const int*>(u), static_cast<const int*>(v),
+      static_cast<const int*>(pos), et, eu, plan, n, d1);
+  k2::dc_partial_kernel<<<dim3(blocks, L), THREADS, smem, s>>>(
+      static_cast<const float*>(g), et, eu, static_cast<const float*>(cos1),
+      static_cast<const float*>(sin1), static_cast<const float2*>(tw),
+      static_cast<float*>(partial), plan, pairs, slabs, L, n, d1);
   const int ln = L * n;
-  k2::dc_reduce_kernel<<<(ln + 255) / 256, 256, 0, s>>>(
+  const long long threads = 32LL * ln;
+  k2::dc_reduce_kernel<<<static_cast<int>((threads + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), blocks,
-      ln, scale);
+      ln, 0.5f * scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,13 @@ versions.
 
 Replaces the TPU kernels `deltaw_pallas` and `dc_pallas` in
 src/repro/kernels/fourier_deltaw.py. Both kernels live in
-`csrc/fourier_deltaw.cu`, whose header says what bounds them on the card and
-how the designs keep the bases out of device memory; this module holds the
-wrappers and the plain versions they are held against.
+`csrc/fourier_deltaw.cu`; they are FFT-structured (one in-place transform
+of length d2 per pair of rows, in shared memory, `csrc/fft_smem.cuh`), so
+each reads or writes ΔW or g once. The source's header says what bounds
+them and how they keep their bits fixed; `fft_plan` holds their host-side
+plan (radices, rows per block, the digit-reversed positions, the stage
+twiddles) and the shape limits. This module holds the wrappers and the
+plain versions they are held against.
 
     deltaw(c, u, v, d1, d2, alpha) -> (L, d1, d2) f32
         c (L, n) f32 with n a multiple of NC (zero-padded, c = 0 there),
@@ -18,14 +22,19 @@ wrappers and the plain versions they are held against.
         dc[l, i] = alpha/(d1·d2) · Σ_jk g[l,j,k]·cos(2π(j·u_i/d1 + k·v_i/d2)).
 
 For a CPU tensor a wrapper computes the plain version; for a CUDA tensor it
-launches the kernel or raises. `kernels.ops.FourierDeltaW` is the autograd
-Function whose forward is `deltaw` and whose backward is `dc`.
+launches the kernel or raises, also for a shape beyond the kernels' limits
+(`fft_plan`: d2 ≤ 29056 with odd prime factors ≤ 63, d1 ≤ 65535,
+n ≤ 16384). `kernels.ops.FourierDeltaW` is the autograd Function whose
+forward is `deltaw` and whose backward is `dc`.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.core.fourierft import fourier_bases, materialize_delta
+from repro_torch.kernels import fft_plan as fp
 
 NC = 16                 # the kernels' chunk of entries: n must divide by it
 
@@ -110,11 +119,40 @@ def twiddles(d: int, dev: torch.device):
     return _TWIDDLES[key]
 
 
+_FFT_TABLES = {}        # (d2, device) -> (positions, stage twiddles)
+
+
+def fft_tables(d2: int, dev: torch.device):
+    """The transform's tables for length d2 on `dev`, built at first use and
+    kept (like `twiddles`): the digit-reversed positions (d2,) int32
+    (`fft_plan.digit_reverse`) and the stage twiddles, (cos, sin) f32 pairs
+    gathered from `twiddles(d2)` (`fft_plan.stage_twiddles`)."""
+    key = (d2, dev)
+    if key not in _FFT_TABLES:
+        radices = fp.factor(d2)
+        cos, sin = twiddles(d2, dev)
+        idx = torch.from_numpy(fp.stage_twiddles(radices)).to(dev)
+        tw = torch.stack([cos[idx], sin[idx]], dim=-1).contiguous()
+        pos = torch.from_numpy(fp.digit_reverse(radices)).to(dev)
+        _FFT_TABLES[key] = (pos, tw)
+    return _FFT_TABLES[key]
+
+
+_PLAN_INTS = {}         # FftPlan -> its ints as a ctypes array
+
+
+def _plan_ints(plan: fp.FftPlan):
+    if plan not in _PLAN_INTS:
+        ints = plan.as_ints()
+        _PLAN_INTS[plan] = (ctypes.c_int * len(ints))(*ints)
+    return _PLAN_INTS[plan]
+
+
 def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
            d2: int, alpha: float) -> torch.Tensor:
     """ΔW (L, d1, d2) f32 for stacked coefficients c (L, n): the plain
-    version on the CPU, the CUDA kernel (one launch for the stack) on the
-    card."""
+    version on the CPU, the CUDA kernel (one launch for the stack: the
+    scatter plan, then the row transforms) on the card."""
     check_coefficients(c, u, v, d1, d2)
     if c.device.type == "cpu":
         return deltaw_reference(c, u, v, d1, d2, alpha)
@@ -124,15 +162,22 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
     lib = build.library("fourier_deltaw")
     global launches
     L, n = c.shape
+    plan = fp.fft_plan(d1, d2, n)
     dev = c.device
     out = torch.empty((L, d1, d2), dtype=torch.float32, device=dev)
-    (cos1, sin1), (cos2, sin2) = twiddles(d1, dev), twiddles(d2, dev)
+    # pass 0's bins, rounds and slots, then each slot's c per layer
+    # (`Scatter` in csrc/fourier_deltaw.cu)
+    scratch = torch.empty((2 * d2 + 12 * n + 8 + 2 * L * n,),
+                          dtype=torch.int32, device=dev)
+    cos1, sin1 = twiddles(d1, dev)
+    pos, tw = fft_tables(d2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fourier_deltaw_launch(
             c.data_ptr(), u.data_ptr(), v.data_ptr(), cos1.data_ptr(),
-            sin1.data_ptr(), cos2.data_ptr(), sin2.data_ptr(), out.data_ptr(),
-            L, n, d1, d2, float(alpha / (d1 * d2)), stream)
+            sin1.data_ptr(), tw.data_ptr(), pos.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), _plan_ints(plan), L, n, d1,
+            d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "fourier_deltaw_launch")
     launches += 1
     return out
@@ -142,7 +187,7 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
        alpha: float) -> torch.Tensor:
     """dc (L, n) f32 for the stacked cotangent g (L, d1, d2): the plain
     version on the CPU, the CUDA kernel (one launch for the stack: partial
-    sums per 128-row block, then a fixed-order reduction) on the card."""
+    sums per row block, then a fixed-order reduction) on the card."""
     check_cotangent(g, u, v, d1, d2)
     if g.device.type == "cpu":
         return dc_reference(g, u, v, d1, d2, alpha)
@@ -152,18 +197,21 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
     lib = build.library("fourier_deltaw")
     global dc_launches
     L, n = g.shape[0], u.shape[0]
+    plan = fp.fft_plan(d1, d2)
     dev = g.device
     out = torch.empty((L, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((-(-d1 // 128), L, n), dtype=torch.float32,
-                          device=dev)
-    (cos1, sin1), (cos2, sin2) = twiddles(d1, dev), twiddles(d2, dev)
+    # the row blocks' partial sums, then the entry table (2n words)
+    partial = torch.empty((plan.k2_row_blocks * L * n + 2 * n,),
+                          dtype=torch.float32, device=dev)
+    cos1, sin1 = twiddles(d1, dev)
+    pos, tw = fft_tables(d2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fourier_dc_launch(
             g.data_ptr(), u.data_ptr(), v.data_ptr(), cos1.data_ptr(),
-            sin1.data_ptr(), cos2.data_ptr(), sin2.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), L, n, d1, d2,
-            float(alpha / (d1 * d2)), stream)
+            sin1.data_ptr(), tw.data_ptr(), pos.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), _plan_ints(plan), L, n, d1,
+            d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "fourier_dc_launch")
     dc_launches += 1
     return out

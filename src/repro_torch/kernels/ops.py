@@ -9,7 +9,7 @@ as a `torch.autograd.Function` factory, instantiated for both kernel pairs:
 
 - Forward: n is padded to the kernels' chunk (`NC`) with zero entries whose
   coefficients are 0 — those columns drop out of the sums exactly. The
-  kernel writes ΔW at exactly (d1, d2) (its ragged tile edges are masked at
+  kernel writes ΔW at exactly (d1, d2) (it masks its own ragged edges at
   the store), so nothing is sliced. Only the padded entries are saved.
 - Backward: the cotangent is cast to contiguous f32 and handed to the dc
   kernel unpadded (it masks its own edges); the padded entries' dc is

@@ -34,22 +34,51 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
-                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+# K1/K2 shapes: the slices' yi-6b wv and wq, small ragged ones, qwen3-4b wq
+# (2560x4096), qwen2.5-32b wv (5120x1024), yi-6b's MLP (4096x11008, radix
+# 43) and the largest site, qwen2.5-32b's MLP (5120x27648)
+FOURIER_SHAPES = [(4096, 512, 1000, 2), (300, 520, 37, 1), (512, 96, 64, 3),
+                  (130, 7, 5, 1), (4096, 4096, 1000, 2),
+                  (2560, 4096, 1000, 2), (5120, 1024, 1000, 2),
+                  (4096, 11008, 1000, 1), (5120, 27648, 1000, 1)]
+
+
+@pytest.mark.parametrize("d1,d2,n,L", FOURIER_SHAPES)
 def test_deltaw_kernel_matches_plain(cuda_device, d1, d2, n, L):
+    """K1 against its plain version at atol 2e-4, one launch through the
+    Function, and the same bits on a second launch (entries summed in the
+    stable sort's order, no float atomics)."""
     E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
     c = torch.from_numpy(np.random.default_rng(8).normal(
         size=(L, n)).astype(np.float32)).to(cuda_device)
     before = fdk.launches
     out = ops.fourier_deltaw_forward(c, E, d1, d2, 300.0)
     assert fdk.launches == before + 1
+    assert torch.equal(ops.fourier_deltaw_forward(c, E, d1, d2, 300.0), out)
     plain = fourierft.materialize_delta(c, E, d1, d2, 300.0)
     np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
                                atol=2e-4)
 
 
-@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
-                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+@pytest.mark.parametrize("d1,d2,n", [(64, 29058, 16), (64, 67 * 8, 16),
+                                     (65536, 64, 16)])
+def test_fourier_kernels_raise_beyond_their_limits(cuda_device, d1, d2, n):
+    """A shape the FFT-structured kernels cannot take (d2 > 29056, an odd
+    prime factor above 63, d1 > 65535) raises naming the limit; nothing
+    falls back to the plain version on the card."""
+    u = torch.zeros((n,), dtype=torch.int32, device=cuda_device)
+    c = torch.zeros((1, n), dtype=torch.float32, device=cuda_device)
+    before = (fdk.launches, fdk.dc_launches)
+    with pytest.raises(ValueError, match="29056|63|65535"):
+        fdk.deltaw(c, u, u, d1, d2, 1.0)
+    if d1 * d2 <= 2 ** 22:
+        g = torch.zeros((1, d1, d2), dtype=torch.float32, device=cuda_device)
+        with pytest.raises(ValueError, match="29056|63|65535"):
+            fdk.dc(g, u, u, d1, d2, 1.0)
+    assert (fdk.launches, fdk.dc_launches) == before
+
+
+@pytest.mark.parametrize("d1,d2,n,L", FOURIER_SHAPES)
 def test_dc_kernel_matches_plain(cuda_device, d1, d2, n, L):
     """K2 against its plain version at atol 2e-3 / rtol 1e-4 (the JAX
     suite's dc tolerance), bit-identical on a second launch (fixed-order

@@ -1,7 +1,7 @@
 """The port stands alone and never falls back to the CPU unasked.
 
-An AST walk of every module of `src/repro_torch` and of `chip_smoke.py`
-finds no import of jax, jaxlib, ml_dtypes or the JAX package `repro`; the
+An AST walk of every module of `src/repro_torch`, of `chip_smoke.py` and of
+the port's scripts under `tools/` finds no import of jax, jaxlib, ml_dtypes or the JAX package `repro`; the
 entry points built without a device raise when there is no CUDA device; the
 port's configs resolve only what it implements."""
 import ast
@@ -31,7 +31,8 @@ def _imported_roots(path: Path):
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert len(files) > 20
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
