@@ -57,17 +57,21 @@ no result line:
               w.r.t. c at the first batch, in f32, matches the einsum
               path's, within the tolerances stated there; cold and warm ms
               per step and tokens/s.
-9. K4       — the DCT ΔW kernel against its plain version at the same
-              shapes, atol 2e-5 / rtol 1e-5 (the JAX suite's site_delta
-              tolerance), f32 with TF32 off; kernel, plain and one
-              `torch.matmul` of the prebuilt (C1 ⊙ c)·C2ᵀ factors (the
-              library call) times; the bound is `fft_ops`'s (a fast 2-D
-              DCT costs what a real FFT does), the direct sum's FP32 floor
-              (2·d1·d2·n·L) is `direct_sum_bound_ms`.
-10. K5      — the DCT dc kernel (K4's VJP) at the same shapes, atol 1e-4 /
-              rtol 1e-3 (the JAX suite's gradient tolerance), bit-identical
-              on a second launch; kernel, plain and `torch.matmul(g, C2)`
-              on prebuilt bases (then the C1-weighted row sum) times.
+9. K4       — the DCT ΔW kernel (FFT-structured on K1's passes: one
+              transform of length d2 per pair of rows) against its plain
+              version at K1's shapes (the main ones, the ragged one,
+              5120x5120 and 4096x11008), atol 2e-5 / rtol 1e-5 (the JAX
+              suite's site_delta tolerance), f32 with TF32 off, the same
+              bits on a second launch; kernel, plain and one `torch.matmul`
+              of the prebuilt (C1 ⊙ c)·C2ᵀ factors (the library call)
+              times; the bound is `fft_ops`'s (a fast 2-D DCT costs what a
+              real FFT does), the direct sum's FP32 floor (2·d1·d2·n·L)
+              is `direct_sum_bound_ms`.
+10. K5      — the DCT dc kernel (K4's VJP, on K2's passes) at the same
+              shapes, atol 1e-4 / rtol 1e-3 (the JAX suite's gradient
+              tolerance), bit-identical on a second launch; kernel, plain
+              and `torch.matmul(g, C2)` on prebuilt bases (then the
+              C1-weighted row sum) times, bounds as for K4.
 11. dct gradient — phase 6 for the `dct` method: c.grad through the
               registry's CUDA op (K4 forward, K5 backward) equals the einsum
               path's autograd gradient within K5's tolerance, K5 launched
@@ -217,14 +221,15 @@ def main() -> int:
     # ---- 3. K1 ---------------------------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # (d1, d2, n, L, on the main path) of K1, K2, K4 and K5: yi-6b wq and
+    # wv, one ragged shape, and off the main path qwen2.5-32b wq (radix 5)
+    # and yi-6b's MLP (radix 43)
     shapes = ((4096, 4096, 1000, 2, True), (4096, 512, 1000, 2, True),
-              (300, 520, 37, 1, False))
-    # K1/K2 only: qwen2.5-32b wq (radix 5) and yi-6b's MLP (radix 43)
-    fourier_shapes = shapes + ((5120, 5120, 1000, 1, False),
-                               (4096, 11008, 1000, 1, False))
+              (300, 520, 37, 1, False), (5120, 5120, 1000, 1, False),
+              (4096, 11008, 1000, 1, False))
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "matmul_ms": 0.0,
           "err": 0.0, "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
-    for d1, d2, n, L, main_path in fourier_shapes:
+    for d1, d2, n, L, main_path in shapes:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         c = torch.zeros((L, u.shape[0]), dtype=torch.float32, device=dev)
@@ -288,7 +293,7 @@ def main() -> int:
     # ---- 4. K2 ---------------------------------------------------------------
     k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
           "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
-    for d1, d2, n, L, main_path in fourier_shapes:
+    for d1, d2, n, L, main_path in shapes:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         g = torch.randn((L, d1, d2), generator=gen, device=dev)
@@ -633,6 +638,7 @@ def main() -> int:
         u, v, c, c1, c2 = dct_inputs(d1, d2, n, L)
         out = ddk.deltaw(c, u, v, d1, d2, 300.0)
         ref = ddk.deltaw_reference(c, u, v, d1, d2, 300.0)
+        again = ddk.deltaw(c, u, v, d1, d2, 300.0)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         err = float(diff.max())
@@ -640,7 +646,9 @@ def main() -> int:
                 (diff > 2e-5 + 1e-5 * ref.abs()).any()):
             return fail(f"K4 {d1}x{d2} n={n} L={L}: max |kernel - plain| "
                         f"{err:.3e} beyond atol 2e-5, rtol 1e-5")
-        ms = timed_ms(lambda: ddk.deltaw(c, u, v, d1, d2, 300.0), 5)
+        if not torch.equal(out, again):
+            return fail(f"K4 {d1}x{d2}: two launches gave different bits")
+        ms = timed_ms(lambda: ddk.deltaw(c, u, v, d1, d2, 300.0), 20)
         plain_ms = timed_ms(
             lambda: ddk.deltaw_reference(c, u, v, d1, d2, 300.0), 5)
         # the library call: one torch.matmul of the prebuilt rank-n factors
@@ -655,16 +663,24 @@ def main() -> int:
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, matmul {lib_ms:.3f} ms "
               f"(|matmul - plain| {lib_err:.1e}), bound {b_ms:.4f} ms "
               f"({b_by}), direct-sum FP32 floor "
-              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms")
+              f"{direct / H100_PEAK['float32'] * 1e3:.3f} ms | kernel "
+              f"{ms / b_ms:.1f}x its bound, {ms / lib_ms:.2f}x matmul | "
+              "bit-identical on a second launch")
         k4["err"] = max(k4["err"], err)
         if main_path:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("flops", flops),
                              ("direct_flops", direct), ("bytes", nbytes)):
                 k4[key] += val
-        del a, b, out, ref, c1, c2
+        del a, b, out, ref, again, c1, c2
     k4["bound_ms"], k4["bound_by"] = bound(k4["flops"], k4["bytes"],
                                            "float32")
+    print(f"[K4] main shapes: kernel {k4['ms']:.3f} ms = "
+          f"{k4['ms'] / k4['bound_ms']:.1f}x its bound "
+          f"{k4['bound_ms']:.4f} ms, {k4['ms'] / k4['library_ms']:.2f}x "
+          f"matmul ({k4['library_ms']:.3f} ms)")
+    if k4["ms"] >= k4["library_ms"]:
+        print("[K4] note: not faster than the matmul in this run")
 
     # ---- 10. K5 ----------------------------------------------------------------
     k5 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
@@ -684,7 +700,7 @@ def main() -> int:
                         f"{err:.3e} beyond atol 1e-4, rtol 1e-3")
         if not torch.equal(out, again):
             return fail(f"K5 {d1}x{d2}: two launches gave different bits")
-        ms = timed_ms(lambda: ddk.dc(g, u, v, d1, d2, 300.0), 5)
+        ms = timed_ms(lambda: ddk.dc(g, u, v, d1, d2, 300.0), 20)
         plain_ms = timed_ms(
             lambda: ddk.dc_reference(g, u, v, d1, d2, 300.0), 5)
         # the library call: torch.matmul(g, C2) on the prebuilt bases, then
@@ -699,7 +715,8 @@ def main() -> int:
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, matmul(g, C2) "
               f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), direct-sum "
               f"FP32 floor {direct / H100_PEAK['float32'] * 1e3:.3f} ms | "
-              "bit-identical on a second launch")
+              f"kernel {ms / b_ms:.1f}x its bound, {ms / lib_ms:.2f}x "
+              "matmul | bit-identical on a second launch")
         k5["err"] = max(k5["err"], err)
         if main_path:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -709,6 +726,12 @@ def main() -> int:
         del g, out, ref, again, c1, c2
     k5["bound_ms"], k5["bound_by"] = bound(k5["flops"], k5["bytes"],
                                            "float32")
+    print(f"[K5] main shapes: kernel {k5['ms']:.3f} ms = "
+          f"{k5['ms'] / k5['bound_ms']:.1f}x its bound "
+          f"{k5['bound_ms']:.4f} ms, {k5['ms'] / k5['library_ms']:.2f}x "
+          f"matmul(g, C2) ({k5['library_ms']:.3f} ms)")
+    if k5["ms"] >= k5["library_ms"]:
+        print("[K5] note: not faster than matmul(g, C2) in this run")
 
     # ---- 11. dct gradient -------------------------------------------------------
     dct = adapter_api.resolve("dct")
@@ -905,6 +928,8 @@ def main() -> int:
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"],
          "library_call": "torch.matmul of prebuilt (C1*c), C2^T",
+         "design": "FFT-structured: K1's passes (csrc/fft_rows.cuh) with "
+                   "the DCT basis, one transform of length d2 per row pair",
          "direct_sum_bound_ms": k4["direct_flops"] / H100_PEAK["float32"]
          * 1e3},
         {"name": "dct_dc", "route": "cuda",
@@ -916,6 +941,8 @@ def main() -> int:
          "library_ms": k5["library_ms"],
          "library_call": "torch.matmul(g, C2) on prebuilt bases, "
                          "C1-weighted row sum",
+         "design": "FFT-structured: K2's passes (csrc/fft_rows.cuh) with "
+                   "the DCT basis, one transform of length d2 per row pair",
          "direct_sum_bound_ms": k5["direct_flops"] / H100_PEAK["float32"]
          * 1e3},
     ]}))

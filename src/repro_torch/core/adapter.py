@@ -275,8 +275,8 @@ class DCTAdapter(AdapterMethod):
             KernelOp("deltaw", self.name, "einsum", _dct_deltaw_einsum),
             KernelOp("deltaw", self.name, "cuda", _dct_deltaw_cuda,
                      devices=("cuda",),
-                     note="cosine-only integer-phase FP32 tiles "
-                          "(csrc/dct_deltaw.cu)"),
+                     note="DCT rows as FFTs in shared memory "
+                          "(csrc/dct_deltaw.cu on fft_rows.cuh)"),
         )
 
     def count_trainable(self, site, peft):

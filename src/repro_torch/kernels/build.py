@@ -46,11 +46,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                               _I, _I, _I, _I, _F, _P),
     },
     "dct_deltaw": {
-        # c, u, v, cos1, cos2, out, L, n, d1, d2, scale, stream
-        "dct_deltaw_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-        # g, u, v, cos1, cos2, partial, out, L, n, d1, d2, scale, stream
-        "dct_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                          _P),
+        # c, u, v, cos1, phic, phis, tw, pos, scratch, out, plan, L, n, d1,
+        # d2, scale, stream
+        "dct_deltaw_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _F, _P),
+        # g, u, v, cos1, phic, phis, tw, pos, partial, out, plan, L, n, d1,
+        # d2, scale, stream
+        "dct_dc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _P),
     },
     "paged_attention": {
         # q, k_pages, v_pages, block_table, kv_len, out,

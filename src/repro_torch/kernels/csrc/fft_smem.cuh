@@ -1,7 +1,8 @@
 // In-place mixed-radix FFT of complex f32 rows held in shared memory, for
-// one thread block (sm_90a). Used by the FFT-structured FourierFT kernels
-// (fourier_deltaw.cu); written so that the DCT kernels, whose transforms
-// are real FFTs of the same sizes, can include it too.
+// one thread block (sm_90a). Used by the FFT-structured ΔW and dc kernels
+// of both bases (fft_rows.cuh: FourierFT's K1/K2 and the dct method's K4/K5,
+// whose DCTs are complex transforms of the same length with a permutation
+// and a twiddle).
 //
 //   X[t] = sum_k x[k] * exp(sign * 2πi t k / N)        (no normalisation)
 //

@@ -1,8 +1,11 @@
-"""The host-side plan of the FFT-structured K1 and K2 kernels
-(`csrc/fourier_deltaw.cu`, transform routine `csrc/fft_smem.cuh`).
+"""The host-side plan of the FFT-structured kernels: K1 and K2 of FourierFT
+(`csrc/fourier_deltaw.cu`) and K4 and K5 of the dct method
+(`csrc/dct_deltaw.cu`), whose passes are `csrc/fft_rows.cuh` and transform
+routine `csrc/fft_smem.cuh`.
 
-Both kernels run one in-place complex transform of length d2 per pair of
-rows of ΔW or g, in shared memory. The plan fixes, for a site (d1, d2):
+All four run one in-place complex transform of length d2 per pair of rows
+of ΔW or g, in shared memory, so a site (d1, d2) has one plan for both
+bases. The plan fixes, for a site:
 
 - `radices`: the transform's stages, in order. Odd prime factors first
   (ascending, the generic radix-p stage, p ≤ MAX_RADIX), then the power of
@@ -10,9 +13,9 @@ rows of ΔW or g, in shared memory. The plan fixes, for a site (d1, d2):
 - `pairs`: row pairs per block (one complex buffer each), a power of two
   up to 8; about 32 KB of shared memory per block at small d2, one buffer
   at d2 ≥ 4096.
-- `k2_slabs`, `k2_row_blocks`: K2 walks `k2_slabs` groups of `pairs` row
-  pairs per block, so a layer has at most K2_ROW_BLOCKS partial sums per
-  entry for the fixed-order reduction.
+- `k2_slabs`, `k2_row_blocks`: K2 (and K5) walks `k2_slabs` groups of
+  `pairs` row pairs per block, so a layer has at most K2_ROW_BLOCKS partial
+  sums per entry for the fixed-order reduction.
 - `shift`: a row's point i lives at i + (i >> shift) in shared memory:
   4 (one pad word per 16 points, so the strided first stages read without
   bank conflicts) wherever the padded rows fit, else 30 (no padding: the
@@ -20,15 +23,18 @@ rows of ΔW or g, in shared memory. The plan fixes, for a site (d1, d2):
 - `smem_bytes`: one padded f32 complex row per pair.
 
 `digit_reverse(radices)` is the position of each spectrum index in the
-buffer the stages leave or expect (K1 writes its spectrum there, K2 reads
-its transform from there); `stage_twiddles(radices)` says which entries of
-the length-d2 twiddle table each stage reads, in the order its threads read
-them. The wrapper builds both on the card once per (d2, device).
+buffer the stages leave or expect (K1 and K4 write their spectra there, K2
+and K5 read their transforms from there); `stage_twiddles(radices)` says
+which entries of the length-d2 twiddle table each stage reads, in the order
+its threads read them. The wrapper builds both on the card once per
+(d2, device).
 
 Limits (a shape beyond them raises, naming the limit): d2 ≤ MAX_D2 (one
 buffer in the 227 KB of shared memory a block can have), every odd prime
-factor of d2 ≤ MAX_RADIX, d1 ≤ MAX_D1 (the row phase j·u is one 32-bit
-product), n ≤ MAX_N (K1's scatter plan holds 2n ints in shared memory).
+factor of d2 ≤ MAX_RADIX, d1 ≤ MAX_D1 (K1/K2's row phase j·u is one
+32-bit product; K4/K5's (2j+1)·u mod 4d1 is a 64-bit one, so this is not
+what binds them, but they share the plan), n ≤ MAX_N (the ΔW kernels'
+scatter plan holds 2n ints in shared memory).
 """
 from __future__ import annotations
 
@@ -107,14 +113,15 @@ def factor(d2: int) -> Tuple[int, ...]:
 
 @lru_cache(maxsize=None)
 def fft_plan(d1: int, d2: int, n: int = 0) -> FftPlan:
-    """The plan of K1 and K2 for a (d1, d2) site with n entries; raises
-    ValueError naming the limit a shape breaks."""
+    """The plan of K1/K2 (and K4/K5) for a (d1, d2) site with n entries;
+    raises ValueError naming the limit a shape breaks."""
     radices = factor(d2)
     if not 1 <= d1 <= MAX_D1:
         raise ValueError(f"d1={d1}: the kernels take 1 <= d1 <= {MAX_D1} "
-                         "(the row phase j·u is one 32-bit product)")
+                         "(K1/K2's row phase j·u is one 32-bit product)")
     if n > MAX_N:
-        raise ValueError(f"n={n}: K1's scatter plan takes n <= {MAX_N}")
+        raise ValueError(f"n={n}: the ΔW kernels' scatter plan takes "
+                         f"n <= {MAX_N}")
     total = -(-d1 // 2)                         # row pairs of a layer
     cap = max(1, min(MAX_PAIRS, TARGET_BYTES // (8 * d2), total))
     pairs = 1 << (cap.bit_length() - 1)         # K1 is built for 1, 2, 4, 8

@@ -5,10 +5,11 @@ versions.
 Replaces the TPU kernels `deltaw_pallas` and `dc_pallas` in
 src/repro/kernels/fourier_deltaw.py. Both kernels live in
 `csrc/fourier_deltaw.cu`; they are FFT-structured (one in-place transform
-of length d2 per pair of rows, in shared memory, `csrc/fft_smem.cuh`), so
-each reads or writes ΔW or g once. The source's header says what bounds
-them and how they keep their bits fixed; `fft_plan` holds their host-side
-plan (radices, rows per block, the digit-reversed positions, the stage
+of length d2 per pair of rows, in shared memory, `csrc/fft_smem.cuh`; the
+passes in `csrc/fft_rows.cuh`, shared with the DCT pair), so each reads or
+writes ΔW or g once. The sources' headers say what bounds them and how
+they keep their bits fixed; `fft_plan` holds their host-side plan
+(radices, rows per block, the digit-reversed positions, the stage
 twiddles) and the shape limits. This module holds the wrappers and the
 plain versions they are held against.
 
@@ -100,9 +101,9 @@ _TWIDDLES = {}          # (d, device) -> (cos, sin) tables on the card
 def twiddles(d: int, dev: torch.device):
     """The (cos, sin) table cos(2πp/d), sin(2πp/d), p < d, on `dev`, built
     by the twiddle kernel at its first use and kept: every later call of a
-    kernel with this d reuses it (K1 and K2 at length d; the DCT kernels at
-    length 4d, `dct_deltaw`). The build waits for its stream once, so a
-    table is complete before any stream reads it."""
+    kernel with this d reuses it (K1 and K2 at length d; the DCT kernels'
+    row factors and φ at length 4d, `dct_deltaw`). The build waits for its
+    stream once, so a table is complete before any stream reads it."""
     from repro_torch.kernels import build
     key = (d, dev)
     if key not in _TWIDDLES:
@@ -141,7 +142,9 @@ def fft_tables(d2: int, dev: torch.device):
 _PLAN_INTS = {}         # FftPlan -> its ints as a ctypes array
 
 
-def _plan_ints(plan: fp.FftPlan):
+def plan_ints(plan: fp.FftPlan):
+    """The plan's ints (`FftPlan.as_ints`) as the C entry points take them,
+    built once per plan (shared with `dct_deltaw`)."""
     if plan not in _PLAN_INTS:
         ints = plan.as_ints()
         _PLAN_INTS[plan] = (ctypes.c_int * len(ints))(*ints)
@@ -166,7 +169,7 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
     dev = c.device
     out = torch.empty((L, d1, d2), dtype=torch.float32, device=dev)
     # pass 0's bins, rounds and slots, then each slot's c per layer
-    # (`Scatter` in csrc/fourier_deltaw.cu)
+    # (`Scatter` in csrc/fft_rows.cuh)
     scratch = torch.empty((2 * d2 + 12 * n + 8 + 2 * L * n,),
                           dtype=torch.int32, device=dev)
     cos1, sin1 = twiddles(d1, dev)
@@ -176,7 +179,7 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
         code = lib.fourier_deltaw_launch(
             c.data_ptr(), u.data_ptr(), v.data_ptr(), cos1.data_ptr(),
             sin1.data_ptr(), tw.data_ptr(), pos.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), _plan_ints(plan), L, n, d1,
+            scratch.data_ptr(), out.data_ptr(), plan_ints(plan), L, n, d1,
             d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "fourier_deltaw_launch")
     launches += 1
@@ -210,7 +213,7 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
         code = lib.fourier_dc_launch(
             g.data_ptr(), u.data_ptr(), v.data_ptr(), cos1.data_ptr(),
             sin1.data_ptr(), tw.data_ptr(), pos.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), _plan_ints(plan), L, n, d1,
+            partial.data_ptr(), out.data_ptr(), plan_ints(plan), L, n, d1,
             d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "fourier_dc_launch")
     dc_launches += 1

@@ -34,13 +34,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# K1/K2 shapes: the slices' yi-6b wv and wq, small ragged ones, qwen3-4b wq
-# (2560x4096), qwen2.5-32b wv (5120x1024), yi-6b's MLP (4096x11008, radix
-# 43) and the largest site, qwen2.5-32b's MLP (5120x27648)
+# K1/K2 and K4/K5 shapes: the slices' yi-6b wv and wq, small ragged ones,
+# qwen3-4b wq (2560x4096), qwen2.5-32b wv (5120x1024) and wq (5120x5120,
+# radix 5), yi-6b's MLP (4096x11008, radix 43) and the largest site,
+# qwen2.5-32b's MLP (5120x27648, one unpadded row per block)
 FOURIER_SHAPES = [(4096, 512, 1000, 2), (300, 520, 37, 1), (512, 96, 64, 3),
                   (130, 7, 5, 1), (4096, 4096, 1000, 2),
                   (2560, 4096, 1000, 2), (5120, 1024, 1000, 2),
-                  (4096, 11008, 1000, 1), (5120, 27648, 1000, 1)]
+                  (5120, 5120, 1000, 1), (4096, 11008, 1000, 1),
+                  (5120, 27648, 1000, 1)]
 
 
 @pytest.mark.parametrize("d1,d2,n,L", FOURIER_SHAPES)
@@ -108,27 +110,76 @@ def test_dc_kernel_matches_plain(cuda_device, d1, d2, n, L):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
-                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+@pytest.mark.parametrize("d1,d2,n,L", FOURIER_SHAPES)
 def test_dct_deltaw_kernel_matches_plain(cuda_device, d1, d2, n, L):
     """K4 against its plain version at atol 2e-5 / rtol 1e-5 (the JAX
-    suite's site_delta tolerance), through the padding harness."""
+    suite's site_delta tolerance), through the padding harness, at K1's
+    shapes (radices 5 and 43, the one-unpadded-row-per-block 27648), and
+    the same bits on a second launch (K1's collision-free scatter rounds,
+    no float atomics)."""
     E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
     c = torch.from_numpy(np.random.default_rng(8).normal(
         size=(L, n)).astype(np.float32)).to(cuda_device)
     before = ddk.launches
     out = ops.dct_deltaw_forward(c, E, d1, d2, 300.0)
     assert ddk.launches == before + 1
+    assert torch.equal(ops.dct_deltaw_forward(c, E, d1, d2, 300.0), out)
     plain = dct_delta(c, E, d1, d2, 300.0)
     np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
                                atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d1,d2,n,L", [(4096, 512, 1000, 2), (300, 520, 37, 1),
-                                       (512, 96, 64, 3), (130, 7, 5, 1)])
+@pytest.mark.parametrize("d1,d2", [(96, 160), (130, 7), (40, 24)])
+def test_dct_kernels_take_any_integer_entry(cuda_device, d1, d2):
+    """Entries at v = 0, at one column several times, at v ≡ d2 (mod 2d2)
+    (a cosine that is 0 at every k), negative and past 4d: K4 and K5 fold
+    them exactly as the plain versions' int64 phase does, within K4's and
+    K5's tolerances."""
+    rng = np.random.default_rng(3)
+    v = np.array([0, 0, 5, 5, 5, d2, -3, 2 * d2 + 1, 3 * d2 + 7, 4 * d2 - 1,
+                  2 * d2, d2 + 1, 7, 7, 0, 11], np.int32)
+    u = np.array([0, 3, -1, 4 * d1 + 5, 7, 2, 8, 9, 10, 11, 12, 13, 14, 15,
+                  16, 2 * d1], np.int32)
+    u = torch.from_numpy(u).to(cuda_device)
+    v = torch.from_numpy(v).to(cuda_device)
+    c = torch.from_numpy(rng.normal(size=(2, 16)).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.normal(size=(2, d1, d2)).astype(
+        np.float32)).to(cuda_device)
+    np.testing.assert_allclose(
+        ddk.deltaw(c, u, v, d1, d2, 300.0).cpu().numpy(),
+        ddk.deltaw_reference(c, u, v, d1, d2, 300.0).cpu().numpy(),
+        atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        ddk.dc(g, u, v, d1, d2, 300.0).cpu().numpy(),
+        ddk.dc_reference(g, u, v, d1, d2, 300.0).cpu().numpy(),
+        atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d1,d2,n", [(64, 29058, 16), (64, 67 * 8, 16),
+                                     (65536, 64, 16), (64, 64, 16400)])
+def test_dct_kernels_raise_beyond_their_limits(cuda_device, d1, d2, n):
+    """K4 and K5 take the FFT kernels' plan: a CUDA tensor beyond its limits
+    (d2 > 29056, an odd prime factor above 63, d1 > 65535, and for K4
+    n > 16384) raises naming the limit and launches nothing; nothing falls
+    back to the plain version on the card."""
+    u = torch.zeros((n,), dtype=torch.int32, device=cuda_device)
+    c = torch.zeros((1, n), dtype=torch.float32, device=cuda_device)
+    before = (ddk.launches, ddk.dc_launches)
+    with pytest.raises(ValueError, match="29056|63|65535|16384"):
+        ddk.deltaw(c, u, u, d1, d2, 1.0)
+    if d1 * d2 <= 2 ** 22 and n <= 16384:
+        g = torch.zeros((1, d1, d2), dtype=torch.float32, device=cuda_device)
+        with pytest.raises(ValueError, match="29056|63|65535"):
+            ddk.dc(g, u, u, d1, d2, 1.0)
+    assert (ddk.launches, ddk.dc_launches) == before
+
+
+@pytest.mark.parametrize("d1,d2,n,L", FOURIER_SHAPES)
 def test_dct_dc_kernel_matches_plain(cuda_device, d1, d2, n, L):
     """K5 against its plain version at atol 1e-4 / rtol 1e-3 (the JAX
-    suite's gradient tolerance), bit-identical on a second launch, and
+    suite's gradient tolerance) at K1's shapes, bit-identical on a second
+    launch, and
     `DCTDeltaW`'s backward launches it once with c.grad equal to autograd
     through the plain version."""
     E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.fourierft import sample_entries
+from repro_torch.kernels import dct_deltaw as ddk
 from repro_torch.kernels import fft_plan as fp
 from repro_torch.kernels import fourier_deltaw as fdk
 from repro_torch.models.registry import adapter_sites
@@ -135,13 +136,14 @@ def test_stage_twiddles_are_the_stage_roots(d2):
     assert len(w) == roots
 
 
-def _scatter_plan(c, v, d2):
-    """K1's pass 0: virtual entry i < n is entry i at column v_i, n + i its
-    mirror at d2 - v_i; entries whose c is 0 in every layer are dropped.
-    Returns the rounds: round r lists (virtual entry, column) of the r-th
-    member, by virtual index, of every column's bin larger than r."""
+def _scatter_plan(c, v, d2, live=True):
+    """K1's (and K4's) pass 0: virtual entry i < n is entry i at column v_i,
+    n + i its mirror at d2 - v_i; entries whose c is 0 in every layer, or
+    that `live` marks False, are dropped. Returns the rounds: round r lists
+    (virtual entry, column) of the r-th member, by virtual index, of every
+    column's bin larger than r."""
     n = len(v)
-    keep = (c != 0).any(axis=0)
+    keep = (c != 0).any(axis=0) & live
     w = np.mod(v, d2)
     cols = np.concatenate([w, np.mod(-w, d2)])
     bins = {}
@@ -230,3 +232,139 @@ def test_k2_algorithm_matches_plain(d1, d2, n, L):
                              torch.from_numpy(v), d1, d2, 300.0)
     np.testing.assert_allclose(dc, plain.numpy(), atol=2e-5,
                                rtol=1e-4)
+
+
+# K4/K5: the dct method's ΔW and dc on the same plan. A DCT of length N is
+# a complex transform of length N with a permutation and a twiddle
+# φ_v = exp(iπv/2N); the kernels read φ from the length-4N table.
+DCT_CASES = [s + (False,) for s in SHAPES] + [(40, 24, 16, 2, True)]
+
+
+def _dct_fold(v, d2):
+    """Each entry's column v' in [0, d2), sign and liveness: cos(π(2k+1)v/
+    2d2) = sign·cos(π(2k+1)v'/2d2); where v ≡ d2 (mod 2d2) the cosine is 0
+    for every k, so the entry adds nothing (not live, column 0)."""
+    q = np.mod(v.astype(np.int64), 4 * d2)
+    sign = np.where(q >= 2 * d2, -1.0, 1.0)
+    q = np.where(q >= 2 * d2, q - 2 * d2, q)
+    sign = np.where(q > d2, -sign, sign)
+    q = np.where(q > d2, 2 * d2 - q, q)
+    return np.where(q == d2, 0, q), sign, q != d2
+
+
+def _dct_place(d2):
+    """Where point k of a row sits in the permuted row the transform runs
+    on: k even at k/2, k odd at d2 - 1 - (k-1)/2."""
+    k = np.arange(d2)
+    return np.where(k % 2 == 0, k // 2, d2 - 1 - k // 2)
+
+
+def _dct_inputs(d1, d2, n, L, seed, edges):
+    """`_inputs`, or for `edges` hand-set entries: v = 0 and duplicate
+    columns, v ≡ d2 (mod 2d2), negative entries and entries past 4d, and an
+    entry whose c is 0 in every layer (as the padding's)."""
+    u, v, c, g = _inputs(d1, d2, n, L, seed)
+    if edges:
+        v = np.array([0, 0, 5, 5, 5, d2, -3, 2 * d2 + 1, 3 * d2 + 7,
+                      4 * d2 - 1, 2 * d2, d2 + 1, 7, 7, 0, 11], np.int32)
+        u = np.array([0, 3, -1, 4 * d1 + 5, 7, 2, 8, 9, 10, 11, 12, 13, 14,
+                      15, 16, 2 * d1], np.int32)
+        c[:, -1] = 0
+    return u, v, c, g
+
+
+def _c1(u, d1, rows):
+    """C1[j, e] = cos(π((2j+1)·u_e mod 4d1)/2d1) for j < rows, 0 past d1."""
+    j = np.arange(rows)[:, None]
+    p = np.mod((2 * j + 1) * u.astype(np.int64)[None, :], 4 * d1)
+    c1 = np.cos(np.pi * p / (2 * d1))
+    c1[d1:] = 0
+    return c1
+
+
+@pytest.mark.parametrize("d1,d2,n,L,edges", DCT_CASES)
+def test_k4_algorithm_matches_plain(d1, d2, n, L, edges):
+    """K4 as the kernel runs it: K1's rounds on the folded columns (live
+    entries only), each slot adding s·c·φ_v (its mirror s·c·conj φ_v) times
+    C1 of rows j and j+1 as Re and Im, one DIT transform per row pair, and
+    the store reading point k of a row from its permuted place."""
+    u, v, c, _ = _dct_inputs(d1, d2, n, L, 11, edges)
+    vf, sign, live = _dct_fold(v, d2)
+    rounds = _scatter_plan(c, vf, d2, live)
+    slots = [i for rnd in rounds for i, _ in rnd]
+    kept = np.flatnonzero((c != 0).any(axis=0) & live)
+    assert sorted(slots) == sorted(np.concatenate([kept, kept + len(v)]))
+    assert all(len({col for _, col in rnd}) == len(rnd) for rnd in rounds)
+    radices = fp.factor(d2)
+    pos = fp.digit_reverse(radices)
+    rows = d1 + d1 % 2
+    c1 = _c1(u, d1, rows)
+    phi = np.exp(1j * np.pi * vf / (2 * d2))
+    out = np.zeros((L, rows, d2))
+    for layer in range(L):
+        buf = np.zeros((rows // 2, d2), dtype=complex)
+        for rnd in rounds:
+            for i, col in rnd:
+                e = i % len(v)
+                cf = sign[e] * c[layer, e] * phi[e]
+                if i >= len(v):
+                    cf = np.conj(cf)
+                buf[:, pos[col]] += cf * (c1[0::2, e] + 1j * c1[1::2, e])
+        T = _stages(buf, radices, dif=False)[:, _dct_place(d2)]
+        out[layer, 0::2], out[layer, 1::2] = T.real, T.imag
+    out = 0.5 * (300.0 / (d1 * d2)) * out[:, :d1]
+    plain = ddk.deltaw_reference(torch.from_numpy(c), torch.from_numpy(u),
+                                 torch.from_numpy(v), d1, d2, 300.0)
+    np.testing.assert_allclose(out, plain.numpy(), atol=2e-6)
+
+
+@pytest.mark.parametrize("d1,d2,n,L,edges", DCT_CASES)
+def test_k5_algorithm_matches_plain(d1, d2, n, L, edges):
+    """K5 as the kernel runs it: two rows of g loaded as one complex row at
+    the permuted places, one DIF transform, and per entry the two rows'
+    C1-weighted halves A = Z[v] + conj Z[d2-v], B = -i·(Z[v] - conj
+    Z[d2-v]) summed over the rows, then Re(s·φ_v · sum)."""
+    u, v, _, g = _dct_inputs(d1, d2, n, L, 13, edges)
+    vf, sign, live = _dct_fold(v, d2)
+    radices = fp.factor(d2)
+    pos = fp.digit_reverse(radices)
+    gp = np.zeros((L, d1 + d1 % 2, d2))
+    gp[:, :d1] = g
+    w = np.zeros_like(gp)
+    w[:, :, _dct_place(d2)] = gp
+    Z = _stages(w[:, 0::2] + 1j * w[:, 1::2], radices, dif=True)
+    zv, zm = Z[:, :, pos[vf]], Z[:, :, pos[np.mod(-vf, d2)]]      # (L, P, n)
+    a = zv + np.conj(zm)                                           # 2·T(w_a)
+    b = -1j * (zv - np.conj(zm))                                   # 2·T(w_b)
+    c1 = _c1(u, d1, gp.shape[1])
+    s = (c1[0::2] * a).sum(1) + (c1[1::2] * b).sum(1)              # (L, n)
+    phi = sign * live * np.exp(1j * np.pi * vf / (2 * d2))
+    dc = (phi * s).real * (0.5 * 300.0 / (d1 * d2))
+    plain = ddk.dc_reference(torch.from_numpy(g), torch.from_numpy(u),
+                             torch.from_numpy(v), d1, d2, 300.0)
+    np.testing.assert_allclose(dc, plain.numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d1,d2,n,limit", [
+    (64, fp.MAX_D2 + 2, 16, "29056"), (64, 67, 16, "63"),
+    (64, 2 * 3 * 71, 16, "63"), (fp.MAX_D1 + 1, 64, 16, "65535"),
+    (64, 64, fp.MAX_N + 16, "16384")])
+def test_dct_wrappers_raise_beyond_their_limits(d1, d2, n, limit):
+    """K4's and K5's wrappers take the FFT kernels' plan, so a shape beyond
+    its limits raises naming the limit before anything is built or
+    launched (meta tensors: no card is needed to get that far). Off the CPU only: a CPU tensor takes the plain version at any
+    shape. (On the card: tests/test_torch_cuda_kernels.py.)"""
+    meta = torch.device("meta")
+    u = torch.zeros((n,), dtype=torch.int32, device=meta)
+    c = torch.zeros((1, n), dtype=torch.float32, device=meta)
+    g = torch.zeros((1, d1, d2), dtype=torch.float32, device=meta)
+    before = (ddk.launches, ddk.dc_launches)
+    with pytest.raises(ValueError, match=limit):
+        ddk.deltaw(c, u, u, d1, d2, 1.0)
+    if n <= fp.MAX_N:                   # K5, like K2, takes any n
+        with pytest.raises(ValueError, match=limit):
+            ddk.dc(g, u, u, d1, d2, 1.0)
+    assert (ddk.launches, ddk.dc_launches) == before
+    cpu = ddk.deltaw(torch.zeros((1, 16)), torch.zeros(16, dtype=torch.int32),
+                     torch.zeros(16, dtype=torch.int32), 4, 67, 1.0)
+    assert cpu.shape == (1, 4, 67)

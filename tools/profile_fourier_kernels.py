@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the FourierFT kernels K1 (ΔW) and K2 (dc) goes, on one
-NVIDIA card.
+"""Where the time of the FFT-structured kernels goes, on one NVIDIA card:
+FourierFT's K1 (ΔW) and K2 (dc), and the dct method's K4 (ΔW) and K5 (dc),
+which share their passes (`csrc/fft_rows.cuh`).
 
     python3 tools/profile_fourier_kernels.py
 
-1. Device time of each CUDA kernel a K1 or K2 launch runs (`torch.profiler`,
-   mean over 10 launches): K1's scatter plan and row transforms, K2's entry
-   table, row transforms and reduction, at the main-path shapes (yi-6b wq
-   4096x4096 and wv 4096x512, n = 1000, L = 2) and yi-6b's MLP 4096x11008.
-2. Phase ablation: the library rebuilt with one phase cut out (the shared-
-   memory transform; K1's scatter rounds and K2's entry gathers; both),
-   each timed with CUDA events at the main shapes. The cut libraries give
-   wrong results and serve only to split the time.
+1. Device time of each CUDA kernel a K1, K2, K4 or K5 launch runs
+   (`torch.profiler`, mean over 10 launches): the ΔW kernels' scatter plan
+   and row transforms, the dc kernels' entry table, row transforms and
+   reduction, at the main-path shapes (yi-6b wq 4096x4096 and wv 4096x512,
+   n = 1000, L = 2) and yi-6b's MLP 4096x11008.
+2. Phase ablation: both libraries rebuilt with one phase cut out of the
+   shared passes (the shared-memory transform; the ΔW kernels' scatter
+   rounds and the dc kernels' entry gathers; both), each timed with CUDA
+   events at the main shapes. The cut libraries give wrong results and
+   serve only to split the time.
 
 Prints one line per measurement, with the card's name and power limit
 first. Imports nothing of JAX; needs the repository's `src/` and nvcc.
@@ -26,14 +29,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 MAIN = ((4096, 4096, 1000, 2), (4096, 512, 1000, 2))
+# the kernel libraries, each with its wrapper module and its ΔW and dc
+LIBS = {"fourier_deltaw": ("K1", "K2"), "dct_deltaw": ("K4", "K5")}
 # (file, text, replacement): each cut removes one phase's work
 CUTS = {
     "transform": [("fft_smem.cuh", "const int r = p.radix[s], m = p.span[s];",
                    "return;\n  const int r = p.radix[s], m = p.span[s];")],
     "scatter+gather": [
-        ("fourier_deltaw.cu", "const int rounds = *s.rounds;",
+        ("fft_rows.cuh", "const int rounds = *s.rounds;",
          "const int rounds = 0;"),
-        ("fourier_deltaw.cu",
+        ("fft_rows.cuh",
          "for (int e = threadIdx.x; e < n; e += blockDim.x) {\n"
          "      const unsigned places",
          "for (int e = threadIdx.x; e < 0; e += blockDim.x) {\n"
@@ -51,12 +56,14 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.fourierft import sample_entries
     from repro_torch.kernels import build as kb
+    from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
+    mods = {"fourier_deltaw": fdk, "dct_deltaw": ddk}
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    kb.build_all(("fourier_deltaw",))
+    kb.build_all(tuple(LIBS))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -87,27 +94,29 @@ def main() -> int:
     # ---- 1. device time per CUDA kernel ----------------------------------
     for d1, d2, n, L in MAIN + ((4096, 11008, 1000, 1),):
         u, v, c, g = inputs(d1, d2, n, L)
-        for _ in range(3):
-            fdk.deltaw(c, u, v, d1, d2, 300.0)
-            fdk.dc(g, u, v, d1, d2, 300.0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fdk.deltaw(c, u, v, d1, d2, 300.0)
-                fdk.dc(g, u, v, d1, d2, 300.0)
+        for lib, mod in mods.items():
+            for _ in range(3):
+                mod.deltaw(c, u, v, d1, d2, 300.0)
+                mod.dc(g, u, v, d1, d2, 300.0)
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            us = getattr(ev, "device_time_total", 0) or 0
-            if us > 0:
-                name = ev.key.replace("(anonymous namespace)::", "")
-                name = name.replace("void ", "").split("(")[0]
-                print(f"[kernels] {d1}x{d2} L={L} {name}: "
-                      f"{us / ev.count:.1f} us per launch")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    mod.deltaw(c, u, v, d1, d2, 300.0)
+                    mod.dc(g, u, v, d1, d2, 300.0)
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                us = getattr(ev, "device_time_total", 0) or 0
+                if us > 0:
+                    name = ev.key.replace("(anonymous namespace)::", "")
+                    name = name.replace("void ", "").split("(")[0]
+                    print(f"[kernels] {'/'.join(LIBS[lib])} {d1}x{d2} L={L} "
+                          f"{name}: {us / ev.count:.1f} us per launch")
         del g
 
     # ---- 2. phase ablation ------------------------------------------------
-    libs = {"nothing": kb.library("fourier_deltaw")}
+    # (cut, library) -> the loaded library; "nothing" is the real one
+    libs = {("nothing", lib): kb.library(lib) for lib in LIBS}
     procs = {}
     for name, cuts in CUTS.items():
         d = ROOT / "build" / "profile_cuts" / name.replace("+", "_")
@@ -120,31 +129,34 @@ def main() -> int:
                       f"matches {fname}", file=sys.stderr)
                 return 1
             (d / fname).write_text(src.replace(text, repl))
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "fourier_deltaw.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    for name, (path, proc) in procs.items():
+        for lib in LIBS:
+            procs[name, lib] = (d / f"lib{lib}.so", subprocess.Popen(
+                [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(d / f"lib{lib}.so"),
+                 str(d / f"{lib}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    for (name, lib), (path, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            print(f"profile_fourier_kernels: nvcc failed for {name}:\n{log}",
-                  file=sys.stderr)
+            print(f"profile_fourier_kernels: nvcc failed for {name} "
+                  f"({lib}):\n{log}", file=sys.stderr)
             return 1
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in kb.SIGNATURES["fourier_deltaw"].items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        cdll = ctypes.CDLL(str(path))
+        for fn, argtypes in kb.SIGNATURES[lib].items():
+            getattr(cdll, fn).argtypes = list(argtypes)
+            getattr(cdll, fn).restype = ctypes.c_int
+        libs[name, lib] = cdll
     for d1, d2, n, L in MAIN:
         u, v, c, g = inputs(d1, d2, n, L)
-        for name, lib in libs.items():
-            kb._LIBS["fourier_deltaw"] = lib
-            k1 = timed_ms(lambda: fdk.deltaw(c, u, v, d1, d2, 300.0))
-            k2 = timed_ms(lambda: fdk.dc(g, u, v, d1, d2, 300.0))
-            print(f"[cut] {d1}x{d2} L={L} without {name}: K1 {k1:.4f} ms, "
-                  f"K2 {k2:.4f} ms")
+        for (name, lib), cdll in libs.items():
+            kb._LIBS[lib] = cdll
+            mod = mods[lib]
+            dw = timed_ms(lambda: mod.deltaw(c, u, v, d1, d2, 300.0))
+            dc = timed_ms(lambda: mod.dc(g, u, v, d1, d2, 300.0))
+            kdw, kdc = LIBS[lib]
+            print(f"[cut] {d1}x{d2} L={L} without {name}: {kdw} {dw:.4f} "
+                  f"ms, {kdc} {dc:.4f} ms")
+            kb._LIBS[lib] = libs["nothing", lib]
         del g
-    kb._LIBS["fourier_deltaw"] = libs["nothing"]
     return 0
 
 
