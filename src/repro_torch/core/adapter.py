@@ -161,6 +161,20 @@ def _fourier_basis_only(peft: PEFTConfig) -> bool:
     return getattr(peft, "basis", "fourier") == "fourier"
 
 
+def _fft_plan_accepts(d1, d2, peft, dtype=None):
+    """The FFT-structured ΔW kernels' shape limits (K1/K2 and K4/K5 share
+    `kernels.fft_plan`): the plan's own checks, at n padded to the
+    kernels' chunk as the autograd harness pads it."""
+    from repro_torch.kernels import fft_plan
+    from repro_torch.kernels.fourier_deltaw import NC
+    n = -(-peft.n // NC) * NC if peft is not None else 0
+    try:
+        fft_plan.fft_plan(d1, d2, n)
+    except ValueError as e:
+        return False, str(e)
+    return True, ""
+
+
 def _fourier_deltaw_einsum(tr, aux, d1, d2, peft):
     return fourierft.materialize_delta(tr["c"], aux["entries"], d1, d2,
                                        peft.alpha)
@@ -197,6 +211,7 @@ class FourierFT(AdapterMethod):
             KernelOp("deltaw", self.name, "einsum", _fourier_deltaw_einsum),
             KernelOp("deltaw", self.name, "cuda", _fourier_deltaw_cuda,
                      devices=("cuda",), requires=_fourier_basis_only,
+                     accepts=_fft_plan_accepts,
                      note="row FFTs in shared memory "
                           "(csrc/fourier_deltaw.cu)"),
         )
@@ -274,7 +289,7 @@ class DCTAdapter(AdapterMethod):
         return (
             KernelOp("deltaw", self.name, "einsum", _dct_deltaw_einsum),
             KernelOp("deltaw", self.name, "cuda", _dct_deltaw_cuda,
-                     devices=("cuda",),
+                     devices=("cuda",), accepts=_fft_plan_accepts,
                      note="DCT rows as FFTs in shared memory "
                           "(csrc/dct_deltaw.cu on fft_rows.cuh)"),
         )

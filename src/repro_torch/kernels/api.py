@@ -23,8 +23,9 @@ platform string. `PEFTConfig.kernel_backend` keeps the JAX names:
     interpret    — rejected: Pallas interpret mode has no meaning here.
 
 Unlike the TPU registry, a CUDA-resident site that the kernel cannot take
-(its config predicate fails) RAISES instead of degrading silently to the
-plain version.
+(its config predicate or its shape limits fail) RAISES at resolution, so
+`KernelPolicy.build` refuses it before any launch, instead of degrading
+silently to the plain version.
 """
 from __future__ import annotations
 
@@ -57,27 +58,32 @@ class KernelOp:
                          f32 (the dispatch site casts)
         paged_attention: fn(q, k_pages, v_pages, block_table, kv_len)
 
-    Constraints: `devices` (device types the op runs on; None = any) and
-    `requires` (predicate on the PEFTConfig). Shape limits are the
-    kernels' own: the FourierFT kernels' wrappers raise for a site beyond
-    `kernels.fft_plan`'s limits (d2 ≤ 29056 with odd prime factors ≤ 63,
-    d1 ≤ 65535, n ≤ 16384), and nothing degrades to the plain version."""
+    Constraints: `devices` (device types the op runs on; None = any),
+    `requires` (predicate on the PEFTConfig) and `accepts`, the kernel's
+    shape limits: `accepts(d1, d2, peft, dtype) -> (ok, why)`, where
+    (d1, d2) is the site (deltaw) or (kv heads, head_dim) (paged_attention),
+    `peft` may be None and `dtype` is the tensors' dtype or None (not
+    known). A CUDA-resident site beyond them is refused at resolution,
+    naming the limit; nothing degrades to the plain version."""
     op: str
     method: str
     backend: str
     fn: Callable
     devices: Optional[Tuple[str, ...]] = None
     requires: Optional[Callable] = None
+    accepts: Optional[Callable] = None
     note: str = ""
 
-    def supports(self, d1: int, d2: int, peft=None,
-                 device: str = "cpu") -> Tuple[bool, str]:
+    def supports(self, d1: int, d2: int, peft=None, device: str = "cpu",
+                 dtype: Optional[torch.dtype] = None) -> Tuple[bool, str]:
         """-> (ok, reason-if-not). `peft=None` skips config predicates."""
         if self.devices is not None and device not in self.devices:
             return False, f"device {device!r} not in {self.devices}"
         if self.requires is not None and peft is not None \
                 and not self.requires(peft):
             return False, "config constraint (requires)"
+        if self.accepts is not None:
+            return self.accepts(d1, d2, peft, dtype)
         return True, ""
 
 
@@ -161,11 +167,13 @@ def _device_type(device: Union[str, torch.device]) -> str:
 
 def resolve_op(op: str, method, peft=None, d1: int = 0, d2: int = 0, *,
                device: Union[str, torch.device], backend: Optional[str] = None,
+               dtype: Optional[torch.dtype] = None,
                missing_ok: bool = False) -> Optional[KernelOp]:
     """First registered op along the requested policy's candidate chain
-    whose constraints pass for tensors on `device`. `backend` overrides
-    `peft.kernel_backend`. A CUDA kernel that exists but cannot take a
-    CUDA-resident site raises (no silent degrade on the card)."""
+    whose constraints pass for tensors of `dtype` on `device`. `backend`
+    overrides `peft.kernel_backend`. A CUDA kernel that exists but cannot
+    take a CUDA-resident site raises KernelUnavailableError naming the
+    limit (no silent degrade on the card)."""
     m = _method_obj(method)
     ensure_method(m)
     requested = _validated(backend) if backend else requested_backend(peft)
@@ -174,7 +182,7 @@ def resolve_op(op: str, method, peft=None, d1: int = 0, d2: int = 0, *,
         cand = _OPS.get((op, m.name, b))
         if cand is None:
             continue
-        ok, why = cand.supports(d1, d2, peft, dev)
+        ok, why = cand.supports(d1, d2, peft, dev, dtype)
         if ok:
             return cand
         if b == "cuda" and dev == "cuda":

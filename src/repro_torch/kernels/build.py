@@ -56,10 +56,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                           _I, _I, _I, _I, _F, _P),
     },
     "paged_attention": {
-        # q, k_pages, v_pages, block_table, kv_len, out,
-        # B, W, H, K, dh, ps, pps, is_bf16, stream
-        "paged_attention_launch": (_P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # q, k_pages, v_pages, block_table, kv_len, out, work, dims (int
+        # array: B, W, H, K, dh, ps, pps, splits, pages_per_split, rows,
+        # groups, is_bf16), stream
+        "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
+        # dims, blocks (int*: written)
+        "paged_attention_occupancy": (_P, _P),
     },
 }
 

@@ -1,12 +1,14 @@
 """GQA attention in plain PyTorch: the direct path (prefill and dense-cache
-decode, with ragged per-slot kv_len) and the shared-prefix tail-prefill path
-for the paged cache (`prefix_attention`).
+decode, with ragged per-slot kv_len), the multi-query decode window
+(`windowed_decode_attention`, the plain form of the paged kernel at W > 1)
+and the shared-prefix tail-prefill path for the paged cache
+(`prefix_attention`).
 
 Layouts are the JAX package's: q (B, Sq, H, dh), k/v (B, Skv, K, dh).
 Scores and softmax are f32; probabilities are cast to v's dtype before the
 value product, as `repro.models.attention` does. The JAX package's
-`windowed_decode_attention` (speculation) and scan-based `flash_attention`
-(long training sequences) come with later slices.
+scan-based `flash_attention` (long training sequences) comes with a later
+slice.
 """
 from __future__ import annotations
 
@@ -59,6 +61,32 @@ def direct_attention(q, k, v, *, causal: bool = True,
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     return _softmax_value(s, v).reshape(B, Sq, H, dh)
+
+
+def windowed_decode_attention(q, k, v, kv_len) -> torch.Tensor:
+    """Decode attention for a window of W consecutive queries per slot (the
+    last accepted token plus W-1 draft tokens, for draft verification):
+    q (B,W,H,dh), k/v (B,Skv,K,dh) the cache after the window's own rows
+    were written, kv_len (B,) the valid length seen by query row 0. Row j
+    sees the j window rows before it:
+
+        query j attends columns  c < kv_len + j
+
+    the mask a step-by-step decode would apply. Masked columns contribute
+    exact zeros; a row that sees no column (kv_len + j == 0) is uniform
+    over the window, as the JAX package's softmax of all-masked scores
+    is."""
+    B, W, H, dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = dh ** -0.5
+    qs = q.reshape(B, W, K, G, dh) * scale
+    s = _gqa_scores(qs, k)                                   # (B,K,G,W,Skv)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    lim = (torch.as_tensor(kv_len, device=q.device).reshape(B, 1, 1, 1, 1)
+           + torch.arange(W, device=q.device).reshape(1, 1, 1, W, 1))
+    s = torch.where(kv_pos < lim, s, torch.full_like(s, NEG_INF))
+    return _softmax_value(s, v).reshape(B, W, H, dh)
 
 
 def prefix_attention(q, k, v, kw, vw, prefix_len) -> torch.Tensor:

@@ -60,6 +60,7 @@ class Model:
         self.method = adapter_api.resolve(self.peft.method)
         kernel_api.requested_backend(self.peft)
         self.sites = adapter_sites(self.cfg)
+        self._paged_fns = {}      # (device type, dtype) -> attention fn
 
     def _call(self, fn, params: Dict, *args):
         return fn(params["base"], params["peft"], *args, self.cfg, self.peft,
@@ -115,10 +116,31 @@ class Model:
         return self._call(transformer.prefill_paged, params, cache, batch)
 
     def decode_step(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call(transformer.decode_step, params, cache, batch)
+        return transformer.decode_step(
+            params["base"], params["peft"], cache, batch, self.cfg,
+            self.peft, self.sites, paged_attention=self._paged_fn(cache))
 
     def decode_logits(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call(transformer.decode_logits, params, cache, batch)
+        return transformer.decode_logits(
+            params["base"], params["peft"], cache, batch, self.cfg,
+            self.peft, self.sites, paged_attention=self._paged_fn(cache))
+
+    def paged_attention(self, device, dtype):
+        """The decode attention over a paged cache of `dtype` on `device`:
+        the registry's op for this model's kv heads and head_dim, resolved
+        once per (device type, dtype). A kernel that cannot take them
+        raises KernelUnavailableError here."""
+        key = (torch.device(device).type, dtype)
+        fn = self._paged_fns.get(key)
+        if fn is None:
+            fn = self._paged_fns[key] = transformer.paged_attention_op(
+                self.cfg, self.peft, device, dtype).fn
+        return fn
+
+    def _paged_fn(self, cache: Dict):
+        if "pk" not in cache:
+            return None
+        return self.paged_attention(cache["pk"].device, cache["pk"].dtype)
 
     def init_cache(self, batch: int, max_len: int, dtype, device,
                    per_slot: bool = False, paged: bool = False,

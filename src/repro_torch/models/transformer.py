@@ -425,15 +425,28 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     return next_tokens, cache
 
 
+def paged_attention_op(cfg: ModelConfig, peft: PEFTConfig, device,
+                       dtype) -> kernel_api.KernelOp:
+    """The registry's `paged_attention` op for this model's kv heads,
+    head_dim and cache dtype on `device`: a head_dim or dtype the CUDA
+    kernel cannot take raises KernelUnavailableError here, before any
+    decode step."""
+    from repro_torch.kernels import paged_attention as paged_mod
+    return kernel_api.resolve_op("paged_attention", paged_mod.OWNER, peft,
+                                 d1=cfg.n_kv, d2=cfg.head_dim, device=device,
+                                 dtype=dtype)
+
+
 def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
-                  cfg: ModelConfig, peft: PEFTConfig, sites
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  cfg: ModelConfig, peft: PEFTConfig, sites,
+                  paged_attention=None) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence: batch["tokens"] (B, 1). Returns
     (logits (B, 1, V), cache with pos + 1); the cache is written in place.
 
     A paged cache ("pk"/"pv" pools) takes batch["block_table"]
-    (B, pages_per_seq); its attention is the registry-resolved
-    `paged_attention` op for the cache's device."""
+    (B, pages_per_seq) and `paged_attention`, the function of the op
+    `paged_attention_op` resolved (`Model` resolves it once per device and
+    dtype)."""
     x = _embed(params, batch["tokens"])
     B = x.shape[0]
     pos = cache["pos"]
@@ -444,11 +457,10 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
     paged = None
     if "pk" in cache:
-        from repro_torch.kernels import paged_attention as paged_mod
-        op = kernel_api.resolve_op(
-            "paged_attention", paged_mod.OWNER, peft,
-            d1=cache["pk"].shape[2], d2=cfg.head_dim, device=x.device)
-        paged = (batch["block_table"], op.fn)
+        if paged_attention is None:
+            raise ValueError("a paged cache needs the paged_attention "
+                             "function (paged_attention_op)")
+        paged = (batch["block_table"], paged_attention)
     kk, vk = ("pk", "pv") if paged is not None else ("k", "v")
     for li, lp in enumerate(_layers(eff)):
         x, _ = _attn_block(lp, x, cfg, positions,
@@ -460,9 +472,9 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
 
 
 def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
-                cfg: ModelConfig, peft: PEFTConfig, sites
-                ) -> Tuple[torch.Tensor, Dict]:
+                cfg: ModelConfig, peft: PEFTConfig, sites,
+                paged_attention=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy `decode_logits`: (next_tokens (B,) int32, cache)."""
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
-                                  sites)
+                                  sites, paged_attention)
     return _greedy(logits), cache

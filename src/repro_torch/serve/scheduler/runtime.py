@@ -124,6 +124,10 @@ class ContinuousScheduler:
         self.cache = engine._fresh_cache(paged=True,
                                          page_size=self.pager.page_size,
                                          n_pages=self.pager.n_pages)
+        # the decode attention, resolved once (the model keeps it) for its
+        # head_dim and the cache's dtype: a kernel that cannot take them
+        # refuses here, before the first decode step
+        self.model.paged_attention(self.device, self.cache["pk"].dtype)
         self._sr: List[Optional[ScheduledRequest]] = [None] * self.n_slots
         self._plans: Dict[int, PrimePlan] = {}
         self._prefix_keys: Dict[int, tuple] = {}   # rid -> memoized hashes

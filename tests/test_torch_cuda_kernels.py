@@ -239,7 +239,7 @@ def test_train_steps_run_both_kernels(cuda_device):
 
 
 def _pages(seed, device, dtype, B=4, H=32, K=4, dh=128, ps=16, n_pages=40,
-           pps=8):
+           pps=8, W=1):
     rng = np.random.default_rng(seed)
 
     def t(*shape):
@@ -248,33 +248,130 @@ def _pages(seed, device, dtype, B=4, H=32, K=4, dh=128, ps=16, n_pages=40,
 
     bt = torch.from_numpy(rng.permutation(n_pages)[:B * pps].reshape(
         B, pps).astype(np.int32)).to(device)
-    kv_len = torch.from_numpy(rng.integers(1, pps * ps + 1, size=(B,)).astype(
-        np.int32)).to(device)
-    return t(B, 1, H, dh), t(n_pages, ps, K, dh), t(n_pages, ps, K, dh), \
+    kv_len = torch.from_numpy(rng.integers(
+        1, pps * ps - W + 2, size=(B,)).astype(np.int32)).to(device)
+    return t(B, W, H, dh), t(n_pages, ps, K, dh), t(n_pages, ps, K, dh), \
         bt, kv_len
+
+
+def _plain32(q, kp, vp, bt, kv_len):
+    """The plain version in f32 on the kernel's inputs (upcast)."""
+    return pa.paged_attention_reference(q.float(), kp.float(), vp.float(), bt,
+                                        kv_len)
+
+
+def _k3_close(out, ref, tol):
+    """|out - ref| within `pa.agreement_limit` (f32 atol = rtol = tol; bf16
+    tol of each output vector's largest |value|), ref from `_plain32`."""
+    assert tol == pa.TOLERANCE[out.dtype]
+    diff = (out.float() - ref).abs()
+    lim = pa.agreement_limit(ref, out.dtype)
+    assert bool((diff <= lim).all()), \
+        f"max |diff| {float(diff.max()):.3e}, worst diff/limit " \
+        f"{float((diff / lim).max()):.3f}"
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dh", [64, 128])
-def test_paged_attention_kernel_matches_plain(cuda_device, dtype, tol, dh):
-    q, kp, vp, bt, kv_len = _pages(5, cuda_device, dtype, dh=dh)
+@pytest.mark.parametrize("dh", [16, 64, 80, 112, 128, 256])
+@pytest.mark.parametrize("W", [1, 5])
+def test_paged_attention_kernel_matches_plain(cuda_device, dtype, tol, dh,
+                                              W):
+    """K3 against its plain version at every head class (16 from
+    configs.reduced, 80 and 112 padded to 16 in shared memory), W 1 and 5,
+    kv_len 1 and the full window, one launch each."""
+    q, kp, vp, bt, kv_len = _pages(5, cuda_device, dtype, dh=dh, W=W)
     kv_len[0] = 1
-    kv_len[1] = bt.shape[1] * kp.shape[1]
+    kv_len[1] = bt.shape[1] * kp.shape[1] - W + 1
     before = pa.launches
     out = pa.paged_attention(q, kp, vp, bt, kv_len)
     assert pa.launches == before + 1 and out.dtype == dtype
-    ref = pa.paged_attention_reference(q, kp, vp, bt, kv_len)
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), atol=tol, rtol=tol)
+    _k3_close(out, _plain32(q, kp, vp, bt, kv_len), tol)
 
 
-def test_paged_attention_fully_masked_row_is_zero(cuda_device):
-    q, kp, vp, bt, kv_len = _pages(6, cuda_device, torch.float32)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("W,pps", [(1, 64), (1, 256), (5, 256)])
+def test_paged_attention_splits_long_contexts(cuda_device, dtype, tol, W,
+                                              pps):
+    """kv_len up to 4096 (256 pages of 16): the plan splits the pages
+    (S > 1, a combine), ragged slots (one at kv_len 1, one whose later
+    splits never run) agree with the plain version, and a second launch
+    gives the same bits (fixed-order combine, no atomics)."""
+    B = 8
+    q, kp, vp, bt, kv_len = _pages(7, cuda_device, dtype, B=B, pps=pps,
+                                   n_pages=B * pps + 4, W=W)
+    plan = pa.launch_plan(q, kp, vp, bt, kv_len)
+    assert plan.splits > 1
+    kv_len[0] = 1
+    kv_len[1] = pps * 16 - W + 1
+    kv_len[2] = plan.pages_per_split * 16 + 3
+    out = pa.paged_attention(q, kp, vp, bt, kv_len)
+    assert torch.equal(pa.paged_attention(q, kp, vp, bt, kv_len), out)
+    _k3_close(out, _plain32(q, kp, vp, bt, kv_len), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_combine_takes_odd_row_counts(cuda_device, dtype):
+    """B 3, H = K = 3, W 1 and 3 splits (384 key rows, MIN_SPLIT_KEYS 128
+    each): splits·B·W·H (27) is odd, so the workspace's (max, denominator)
+    part is padded for the accumulators after it to start 16-byte aligned
+    (the combine reads them as float4 at dh 64)."""
+    q, kp, vp, bt, kv_len = _pages(8, cuda_device, dtype, B=3, H=3, K=3,
+                                   dh=64, n_pages=76, pps=24)
+    kv_len.copy_(torch.tensor([384, 200, 300], dtype=torch.int32))
+    assert pa.launch_plan(q, kp, vp, bt, kv_len).splits == 3
+    out = pa.paged_attention(q, kp, vp, bt, kv_len)
+    assert torch.equal(pa.paged_attention(q, kp, vp, bt, kv_len), out)
+    _k3_close(out, _plain32(q, kp, vp, bt, kv_len), pa.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("pps", [8, 256])
+def test_paged_attention_fully_masked_row_is_zero(cuda_device, pps):
+    """kv_len 0 gives 0, not NaN: with one split, and with every split of
+    the row empty (pps 256 splits the pages)."""
+    q, kp, vp, bt, kv_len = _pages(6, cuda_device, torch.float32, pps=pps,
+                                   n_pages=4 * pps + 4)
     kv_len[2] = 0
     out = pa.paged_attention(q, kp, vp, bt, kv_len)
     assert torch.isfinite(out).all()
     assert bool((out[2] == 0).all())
+    keep = [0, 1, 3]
+    _k3_close(out[keep], _plain32(q, kp, vp, bt, kv_len)[keep], 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_paged_attention_kernel_refuses_other_dtypes(cuda_device, dtype):
+    q, kp, vp, bt, kv_len = _pages(6, cuda_device, dtype, dh=64)
+    before = pa.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pa.paged_attention(q, kp, vp, bt, kv_len)
+    assert pa.launches == before
+
+
+def test_reduced_model_serves_through_the_kernel(cuda_device):
+    """The default configs.reduced(yi-6b) (head_dim 16, which K3 once
+    refused) served through ContinuousScheduler on the card: K3 launched
+    every decode step and layer, streams equal the einsum backend's (f32)."""
+    cfg = configs.reduced(configs.get("yi-6b")).replace(
+        param_dtype="float32", dtype="float32")
+    assert cfg.head_dim == 16
+    peft = PEFTConfig(n=32)
+    params = build(cfg, peft).init(0, cuda_device)
+    prompts = [torch.arange(3 + i, dtype=torch.int32) % cfg.vocab
+               for i in range(5)]
+    outs = {}
+    for backend in ("auto", "einsum"):
+        pa.launches = 0
+        engine = Engine(build(cfg, peft.replace(kernel_backend=backend)),
+                        params, batch_slots=3, max_len=48, device=cuda_device)
+        sched = ContinuousScheduler(engine, page_size=8)
+        reqs = [Request(prompt=p, max_new=4 + i) for i, p in enumerate(prompts)]
+        sched.serve(reqs, [0.0, 0.0, 1.0, 2.0, 3.0])
+        outs[backend] = [r.out for r in reqs]
+        expected = sched.metrics.steps * cfg.num_layers
+        assert pa.launches == (expected if backend == "auto" else 0)
+    assert outs["auto"] == outs["einsum"]
 
 
 def test_served_slice_runs_both_kernels(cuda_device):
