@@ -98,7 +98,28 @@ no result line:
               bf16 runs' first tokens are reported with each prompt's top-2
               logit margin (bf16 logits can tie exactly, and a one-ulp
               difference then decides the argmax).
-13. kernels — one JSON line with each kernel's launches, error and times.
+13. bank    — multi-tenant serving over the clean base: yi-6b at full
+              width, SLICE_LAYERS layers, f32; five tenants (fourierft and
+              dct n = 1000, alpha = 300; lora r = 8; circulant alpha = 300;
+              bitfit) on wq/wv, seeded and scaled so each moves tokens,
+              exported with checkpoint/adapters and served by
+              ContinuousScheduler (paged -> K3) from an AdapterBank of
+              capacity 3 over the launcher's 12-request trace cycling the
+              tenants and None (so LRU evictions and checkpoint reloads
+              happen mid-trace, live tenants pinned). Every request
+              completes its budget, K3 launches decode steps x layers, the
+              bank loads at least 6 times; a None request's tokens and
+              logits are bitwise the bare base's; every request's first
+              token equals its serial Engine.generate; the FourierFT
+              tenant's bank_apply at wq (4096x4096) and wv (4096x512)
+              equals x @ K1's ΔW (atol 1e-6 x max |y|, rtol 5e-4); and
+              generate_requests with an EOS id makes exactly as many decode
+              calls as the EOS step. Then the median decode-step time (bf16,
+              8 slots) of the bank engine against the merged one-adapter
+              engine at SLICE_LAYERS and 32 layers, in turns, the bank
+              step's device-busy share (torch.profiler) and the bytes of
+              the frozen tables the bank built once.
+14. kernels — one JSON line with each kernel's launches, error and times.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -164,6 +185,330 @@ def merged_within_one_ulp(w, a, b):
            + torch.maximum((a - w).abs(), (b - w).abs())) * 2.0 ** -7
     diff = (a - b).abs()
     return not bool((diff > ulp).any()), int((diff > 0).sum())
+
+
+class PhaseError(RuntimeError):
+    """A check of a phase failed: the message says which."""
+
+
+def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
+               pps: int, gen, timing_layers) -> int:
+    """Phase 13 (module docstring) on `dev`, over phase 7's model config
+    `cfg`, prompts and cache geometry. Returns K3's launches in the bank
+    trace; raises PhaseError when a check fails."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import adapters as adapter_ckpt
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.core import adapter as adapter_api
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.kernels import dct_deltaw as ddk
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.launch.serve import demo_trace
+    from repro_torch.models import build
+    from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
+                                   Request)
+    bank_profiles = {
+        "fourierft": PEFTConfig(method="fourierft", n=1000, alpha=300.0),
+        "dct": PEFTConfig(method="dct", n=1000, alpha=300.0),
+        "lora": PEFTConfig(method="lora", lora_r=8),
+        "circulant": PEFTConfig(method="circulant", alpha=300.0),
+        "bitfit": PEFTConfig(method="bitfit"),
+    }
+    tenant_ids = [f"t-{m}" for m in bank_profiles]
+    bcfg = cfg.replace(dtype="float32", param_dtype="float32")
+    bmodel = build(bcfg, PEFTConfig(method="none"))
+    bparams = bmodel.init(0, dev)
+    site_by_name = {s_.name: s_ for s_ in bmodel.sites}
+    tenant_dir = Path(__file__).resolve().parent / "build" / "smoke_tenants"
+    shutil.rmtree(tenant_dir, ignore_errors=True)
+    print(f"[bank] yi-6b full width, {bcfg.num_layers} layers, float32 over "
+          f"the clean base; tenants {tenant_ids} on wq/wv, bank capacity 3, "
+          "the launcher's 12-request trace cycling the tenants and None")
+
+    def moving_tenant(mname: str, prof, seed: int):
+        """Seeded trainables scaled so that each site's ΔW has half the
+        Frobenius norm of its weight stack (BitFit: a bias of half the size
+        of a unit-RMS input's projection), so every tenant moves tokens."""
+        m_ = adapter_api.resolve(mname)
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(seed)
+        tree = peft_mod.init_adapters(g_, bmodel.sites, prof, dev)
+        names = m_.trainable_leaves(prof)
+        out = {}
+        for sname, ad in tree.items():
+            site = site_by_name[sname]
+            tr = {k: torch.randn(ad[k].shape, generator=g_, device=dev)
+                  for k in names}
+            if m_.linear_delta:
+                dw = m_.site_delta({**ad, **tr}, site,
+                                   prof.replace(kernel_backend="einsum"))
+                w = bparams["base"]["layers"][sname.split("/")[-1]]
+                scale = 0.5 * float(w.norm()) / float(dw.norm())
+                del dw
+            else:
+                scale = 0.5 * 0.02 * math.sqrt(site.d_in)
+            out[sname] = {k: (v * scale if mname != "lora" or k == "lora_b"
+                              else v) for k, v in tr.items()}
+        return out
+
+    for i, (mname, prof) in enumerate(bank_profiles.items()):
+        adapter_ckpt.export_adapter(str(tenant_dir), tenant_ids[i],
+                                    moving_tenant(mname, prof, 100 + i), prof)
+    bank = AdapterBank(bmodel, bank_profiles, capacity=3,
+                       checkpoint_dir=str(tenant_dir), device=dev)
+    bengine = Engine(bmodel, bparams, batch_slots=slots, max_len=max_len,
+                     bank=bank, device=dev)
+    bare = Engine(bmodel, bparams, batch_slots=slots, max_len=max_len,
+                  device=dev)
+    circ = [r for r in bengine.kernel_policy.resolutions
+            if r.bank == "circulant"]
+    print(f"[bank] frozen tables built once: {bank.table_bytes} bytes "
+          f"({bank.table_bytes / 2 ** 20:.1f} MiB: fourierft 4 and dct 2 "
+          f"f32 (d, n) tables per site); circulant bank_apply -> "
+          f"{circ[0].backend} (torch.fft, a library call)")
+    cycle = tenant_ids + [None]
+    breqs, barrivals = demo_trace(prompts, 12, 16, 2.0, cycle)
+    loads0 = bank.loads
+    pak.launches = fdk.launches = ddk.launches = 0
+    bsched = ContinuousScheduler(bengine, page_size=ps)
+    bsched.serve(breqs, barrivals)
+    torch.cuda.synchronize()
+    k3_bank, bank_loads = pak.launches, bank.loads - loads0
+    bsteps = bsched.metrics.steps
+    for i, r in enumerate(breqs):
+        if r.out is None or len(r.out) != r.max_new:
+            raise PhaseError(f"bank request {i} emitted {r.out!r}, budget "
+                        f"{r.max_new}")
+    if k3_bank != bsteps * bcfg.num_layers:
+        raise PhaseError(f"bank serve: K3 launched {k3_bank} times, expected "
+                    f"{bsteps} decode steps x {bcfg.num_layers}")
+    if bank_loads < 6:
+        raise PhaseError(f"bank serve: the bank loaded {bank_loads} times, "
+                    "expected at least 6 (capacity 3, five tenants)")
+    bs = bsched.metrics.summary()
+    print(f"[bank] serve: {len(breqs)} requests, {bs['total_tokens']:.0f} "
+          f"tokens in {bsteps} decode steps, {bs['tokens_per_s']:.1f} tok/s "
+          f"| K3 launches {k3_bank} | bank loads {bank_loads} "
+          f"({bank_loads - bank.capacity} evictions mid-trace), resident "
+          f"at the end {list(bank.resident_ids)}")
+    # a None request decodes bitwise what the bare base decodes
+    nreqs, _ = demo_trace(prompts, 12, 16, 2.0)
+    ContinuousScheduler(bare, page_size=ps).serve(nreqs, barrivals)
+    for i, (r, rn) in enumerate(zip(breqs, nreqs)):
+        if r.adapter_id is None and r.out != rn.out:
+            raise PhaseError(f"bank serve: the None request {i} decoded "
+                        f"{r.out}, the bare base {rn.out}")
+    moved = sum(r.adapter_id is not None and r.out != rn.out
+                for r, rn in zip(breqs, nreqs))
+    resident = list(bank.resident_ids)
+    ids = [resident[i % len(resident)] if i % 4 else None
+           for i in range(slots)]
+    toks = torch.zeros((slots, max(int(p.shape[0]) for p in prompts)),
+                       dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :p.shape[0]] = p.to(dev)
+    with torch.no_grad():
+        bparams_b, bextra = bengine._batch_extra(ids)
+        lb = bengine.model.forward(bparams_b, {"tokens": toks, **bextra})
+        ln = bare.model.forward(bare.params, {"tokens": toks})
+    none_rows = [i for i, a in enumerate(ids) if a is None]
+    if not all(torch.equal(lb[i], ln[i]) for i in none_rows):
+        raise PhaseError("bank: a None row's logits differ from the bare base's")
+    print(f"[bank] None requests: tokens and logits bitwise the bare base's "
+          f"(f32); {moved} of {sum(r.adapter_id is not None for r in breqs)}"
+          " tenant requests decode other tokens than the base")
+    # each request's first token against its serial Engine.generate
+    for i, r in enumerate(breqs):
+        if r.adapter_id is not None and \
+                r.adapter_id not in bank.resident_ids:
+            bank.load_from_checkpoint(r.adapter_id)
+        first = bengine.generate([r.prompt], max_new=1,
+                                 adapter_ids=[r.adapter_id])[0].tolist()
+        if first[0] != r.out[0]:
+            raise PhaseError(f"bank: request {i} ({r.adapter_id}) first token "
+                        f"{r.out[0]}, serial Engine.generate {first[0]}")
+    print("[bank] every request's first token equals its serial "
+          "Engine.generate with the same bank (f32)")
+    # the FourierFT tenant's bank apply against x @ K1's ΔW
+    ftree, fprof = adapter_ckpt.import_adapter(str(tenant_dir),
+                                               "t-fourierft", device=dev)
+    fm = adapter_api.resolve("fourierft")
+    bank_err = 0.0
+    for sname in ("layers/wq", "layers/wv"):
+        site = site_by_name[sname]
+        aux = bank.params["fourierft"]["aux"][sname]
+        c = ftree[sname]["c"]                            # (L, n) as B rows
+        x = torch.randn((c.shape[0], 1, site.d_in), generator=gen,
+                        device=dev)
+        y = fm.bank_apply(x, {"c": c}, aux, site.d_in, site.d_out, fprof)
+        ref = torch.matmul(x, kops.fourier_deltaw_forward(
+            c, aux["entries"], site.d_in, site.d_out, fprof.alpha))
+        scale = float(ref.abs().max())
+        diff = (y - ref).abs()
+        bank_err = max(bank_err, float(diff.max()))
+        if bool((diff > 1e-6 * scale + 5e-4 * ref.abs()).any()):
+            raise PhaseError(f"bank: FourierFT bank_apply at {sname} "
+                        f"{site.d_in}x{site.d_out} differs from x @ K1's ΔW "
+                        f"by {float(diff.max()):.3e} (max |y| {scale:.3e})")
+        print(f"[bank] FourierFT bank_apply at {sname} {site.d_in}x"
+              f"{site.d_out}: max |apply - x @ K1 ΔW| "
+              f"{float(diff.max()):.3e}, max |y| {scale:.3e} (atol 1e-6 x "
+              "max |y|, rtol 5e-4)")
+    # generate_requests stops after the EOS step
+    eos_case = None
+    for p in prompts:
+        for tid in cycle:
+            if tid is not None and tid not in bank.resident_ids:
+                bank.load_from_checkpoint(tid)
+            probe = [Request(prompt=p, max_new=10, adapter_id=tid)]
+            bengine.generate_requests(probe)
+            k = next((k for k in range(2, 10)
+                      if probe[0].out[k] not in probe[0].out[:k]), None)
+            if k is not None:
+                eos_case = (p, tid, probe[0].out, k)
+                break
+        if eos_case is not None:
+            break
+    if eos_case is None:
+        raise PhaseError("bank: no stream shows a new token to stop on")
+    p, tid, probe_out, k = eos_case
+    calls = [0]
+    real_decode = bengine.model.decode_step
+
+    def counting_decode(*a, **kw):
+        calls[0] += 1
+        return real_decode(*a, **kw)
+
+    bengine.model.decode_step = counting_decode
+    reqs_eos = [Request(prompt=p, max_new=10, adapter_id=tid)]
+    bengine.generate_requests(reqs_eos, eos_id=probe_out[k])
+    del bengine.model.decode_step
+    if reqs_eos[0].out != probe_out[:k + 1] or calls[0] != k:
+        raise PhaseError(f"bank: generate_requests with EOS at step {k} gave "
+                    f"{reqs_eos[0].out} in {calls[0]} decode calls, "
+                    f"expected {probe_out[:k + 1]} in {k}")
+    print(f"[bank] generate_requests ({tid}): EOS first emitted at step {k} "
+          f"-> {k} decode calls, not 9")
+    del bengine, bare, bsched, bank, bparams, lb, ln
+    shutil.rmtree(tenant_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # decode-step time: the bank engine (five groups, all resident, 8 slots
+    # gathering all five and the zero row) against the merged one-adapter
+    # engine, bf16, same shapes, in turns; and the bank step's busy share
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    def device_ms(fn, n: int):
+        """(device ms per call, device kernels per call, the three kernels
+        that take most device time as (name, ms per call)); (None, None,
+        []) when the trace shows no device time."""
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [(ev.key, getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0)),
+                ev.count) for ev in prof.key_averages()]
+        evs = [e for e in evs if e[1] > 0]
+        tot = sum(t for _, t, _ in evs)
+        if tot <= 0:
+            return None, None, []
+        top = sorted(evs, key=lambda e: -e[1])[:3]
+        return (tot / n / 1e3, sum(c for _, _, c in evs) / n,
+                [(k_.split("(")[0][:60], t / n / 1e3) for k_, t, _ in top])
+
+    def step_times(layers: int, steps: int = 12):
+        tcfg_ = cfg.replace(num_layers=layers)
+        fpeft = PEFTConfig(method="fourierft", n=1000, alpha=300.0)
+        m_ = build(tcfg_, fpeft)
+        p_ = m_.init(0, dev)
+        merged = Engine(m_, p_, batch_slots=slots, max_len=max_len,
+                        device=dev)
+        base_model = build(tcfg_, PEFTConfig(method="none"))
+        tbank = AdapterBank(base_model, bank_profiles, capacity=slots,
+                            device=dev)
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(3)
+        for tid, (mname, prof) in zip(tenant_ids, bank_profiles.items()):
+            tree = peft_mod.init_adapters(g_, base_model.sites, prof, dev)
+            names = adapter_api.resolve(mname).trainable_leaves(prof)
+            tbank.load(tid, {s_: {k_: torch.randn(v_.shape, generator=g_,
+                                                  device=dev)
+                                  for k_, v_ in ad.items() if k_ in names}
+                             for s_, ad in tree.items()}, prof)
+        banked = Engine(base_model, {"base": p_["base"], "peft": {}},
+                        batch_slots=slots, max_len=max_len, bank=tbank,
+                        device=dev)
+        ids_ = (tenant_ids + [None] + tenant_ids)[:slots]
+        runs = {}
+        for label, eng in (("merged", merged), ("bank", banked)):
+            cache = eng._fresh_cache(paged=True, page_size=ps,
+                                     n_pages=slots * pps + slots)
+            bt = (torch.arange(slots * pps, dtype=torch.int32, device=dev)
+                  .reshape(slots, pps) + slots)
+            prm, extra = eng._batch_extra(ids_ if eng is banked else None)
+            batch = {"tokens": torch.randint(
+                0, tcfg_.vocab, (slots, 1), generator=g_, device=dev,
+                dtype=torch.int32), "block_table": bt, **extra}
+
+            @torch.no_grad()
+            def one(eng=eng, cache=cache, prm=prm, batch=batch):
+                cache["pos"].fill_(100)
+                eng.model.decode_step(prm, cache, batch)
+            runs[label] = one
+        walls = {"merged": [], "bank": []}
+        for label in ("merged", "bank", "bank", "merged"):
+            fn = runs[label]
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(steps // 2):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[label].append(time.perf_counter() - t0)
+        med = {k_: sorted(v_)[len(v_) // 2] * 1e3 for k_, v_ in walls.items()}
+        res = {"layers": layers, "steps_each": len(walls["bank"]),
+               "table_bytes": tbank.table_bytes}
+        for k_ in ("merged", "bank"):
+            d_ms, kernels, top = device_ms(runs[k_], 10)
+            res[f"{k_}_ms"] = med[k_]
+            res[f"{k_}_device_ms"] = d_ms
+            res[f"{k_}_busy_share"] = d_ms / med[k_] if d_ms else None
+            res[f"{k_}_kernels_per_step"] = kernels
+            res[f"{k_}_top_kernels_ms"] = top
+        del merged, banked, tbank, p_, runs
+        torch.cuda.empty_cache()
+        return res
+
+    bank_timing = []
+    for layers in timing_layers:
+        r_ = step_times(layers)
+        bank_timing.append(r_)
+        busy = {k_: (f"device {r_[k_ + '_device_ms']:.3f} ms/step in "
+                     f"{r_[k_ + '_kernels_per_step']:.0f} kernels, busy "
+                     f"{r_[k_ + '_busy_share']:.1%}"
+                     if r_[k_ + "_device_ms"] else "device not measured")
+                for k_ in ("merged", "bank")}
+        print(f"[bank] decode step, {layers} layers, bf16, 8 slots at kv_len "
+              f"101 (median of {r_['steps_each']} each, in turns): merged "
+              f"one-adapter engine {r_['merged_ms']:.3f} ms ({busy['merged']})"
+              f", bank engine (5 groups) {r_['bank_ms']:.3f} ms "
+              f"({busy['bank']}); cached tables {r_['table_bytes']} bytes")
+        for k_ in ("merged", "bank"):
+            for kname, kms in r_[k_ + "_top_kernels_ms"]:
+                print(f"[bank]   {layers} layers, {k_} step: {kms:.4f} "
+                      f"ms/step  {kname}")
+    print(json.dumps({"bank": {"k3_launches": k3_bank, "steps": bsteps,
+                               "loads": bank_loads,
+                               "bank_apply_max_abs_err": bank_err,
+                               "decode_step": bank_timing}}))
+    return k3_bank
 
 
 def main() -> int:
@@ -994,7 +1339,14 @@ def main() -> int:
                     "plain merges")
     del p32, first32
 
-    # ---- 13. kernels line ------------------------------------------------------
+    # ---- 13. bank: multi-tenant serving over the clean base ----------------------
+    try:
+        k3_bank = bank_phase(dev, cfg, prompts, slots, max_len, ps, pps, gen,
+                             (SLICE_LAYERS, 32))
+    except PhaseError as e:
+        return fail(str(e))
+
+    # ---- 14. kernels line ------------------------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
         {"name": "fourier_deltaw", "route": "cuda",
@@ -1027,7 +1379,8 @@ def main() -> int:
          "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
          "library_ms": kb["library_ms"],
          "library_call": "torch.nn.functional.scaled_dot_product_attention",
-         "launches_by_path": {"serve": k3_launches, "dct_serve": k3_dct},
+         "launches_by_path": {"serve": k3_launches, "dct_serve": k3_dct,
+                              "bank_serve": k3_bank},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

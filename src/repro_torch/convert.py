@@ -7,6 +7,11 @@ which `torch.from_numpy` rejects; their bytes are reinterpreted as uint16
 and viewed as `torch.bfloat16` (exact). The dtype is detected by name, so
 this module needs no `ml_dtypes` import. Integer leaves (FourierFT
 `entries`) and f32 leaves (`c`) carry over as they are.
+
+The same walk carries the serving adapter bank's state: a tenant tree
+`{site: {leaf: array}}` of any method (`c`, `lora_a`/`lora_b`, `kernel`,
+`delta_b`; `from_jax_tenant` checks its shape) and the bank's rows
+`{method: {"sites": {site: {leaf: (K+1, L, ...)}}, "aux": ...}}`.
 """
 from __future__ import annotations
 
@@ -39,3 +44,17 @@ def from_jax_params(tree: Dict, device, dtype: Optional[torch.dtype] = None
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
     return array_to_torch(tree, device, dtype)
+
+
+def from_jax_tenant(tree: Dict, device, dtype: Optional[torch.dtype] = None
+                    ) -> Dict:
+    """A tenant's adapter tree {site: {leaf: array}} (JAX's
+    `init_adapters` or `import_adapter` output, through `jax.device_get`)
+    -> the same tree of torch tensors on `device`, ready for
+    `AdapterBank.load`. Raises on any other nesting."""
+    for site, leaves in tree.items():
+        if not isinstance(leaves, dict) or any(
+                isinstance(v, dict) for v in leaves.values()):
+            raise ValueError(f"tenant site {site!r} is not a "
+                             "{leaf: array} dict")
+    return from_jax_params(tree, device, dtype)

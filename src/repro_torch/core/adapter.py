@@ -8,17 +8,36 @@ axis 0:
     trainable_leaves(peft)              -> names of the trainable leaves
     kernel_ops()                        -> KernelOp implementations
     site_delta(adapter, site, peft)     -> dense ΔW (stack, d1, d2)
+    factored_apply(x, tr, aux, d1, d2)  -> y-contribution without ΔW
+    bank_apply(x, tr, aux, d1, d2)      -> row-batched factored_apply (the
+                                           serving adapter bank: tr leaves
+                                           carry a leading per-request dim)
+    frozen_tables(aux, d1, d2)          -> the frozen tables the factored
+                                           and bank applies read (built once)
     merge_site(eff, key, adapter, ...)  -> fold the site into eff layer tree
     count_trainable(site, peft)         -> |Θ| contribution (paper Table 1)
 
-`site_delta` dispatches through the kernel registry (kernels/api.py) for
-the device the adapter lives on, so the merge runs the CUDA ΔW kernel on
-the card without this module branching on it.
+`site_delta`, `factored_apply` and `bank_apply` dispatch through the kernel
+registry (kernels/api.py) for the device the tensors live on, so the merge
+runs the CUDA ΔW kernel on the card without this module branching on it.
+
+Contract the serving adapter bank needs: the factored contribution is
+linear in the trainable leaves, so an all-zero row contributes exactly
+zero (every request gathers a row from every method group; a request of
+another method gathers the reserved zero row).
+
+Frozen tables: the factored and bank applies of FourierFT and `dct` read
+f32 (d, n) cosine/sine tables of their entries. The JAX package rebuilds
+them inside every traced call; here `frozen_tables` builds them once and
+the caller keeps them beside the entries in the aux dict (the adapter
+bank per group and site, `peft.with_frozen_tables` for factored params),
+where the ops find them. Without them an op builds its own, with the same
+function: the same numbers either way.
 
 Registered: FourierFT (Fourier basis), `dct` (the LoCA-style cosine basis
-on FourierFT's entries) and `none`. The factored and bank applies, the
-other methods (circulant, lora, bitfit, full) and the Table-6 random /
-orthogonal bases come with later slices (ROADMAP queue 1).
+on FourierFT's entries), `circulant`, `lora`, `bitfit` and `none`. `full`
+and the Table-6 random / orthogonal bases come with a later slice
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -29,7 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import PEFTConfig
-from repro_torch.core import fourierft
+from repro_torch.core import fourierft, lora
 from repro_torch.kernels import api as kernel_api
 from repro_torch.kernels.api import KernelOp
 
@@ -54,6 +73,12 @@ class AdapterSite:
     stack: int         # number of layers stacked on axis 0
 
 
+def _per_row(v: torch.Tensor, x_ndim: int) -> torch.Tensor:
+    """Align a per-request leaf (B, k...) against x (B, ..., d): insert
+    broadcast axes so row b of the leaf meets row b of x."""
+    return v.reshape(v.shape[:1] + (1,) * (x_ndim - v.ndim) + v.shape[1:])
+
+
 def entry_seed_for(peft: PEFTConfig, site: AdapterSite) -> int:
     """Paper: one shared seed (2024) for all layers. Distinct (d1, d2) grids
     cannot share integer entries, so the seed is offset per site shape only
@@ -71,6 +96,7 @@ class AdapterMethod:
 
     name: str = ""
     mergeable: bool = True        # ΔW can be folded into the base weight
+    linear_delta: bool = True     # contribution is x @ ΔW (BitFit: a bias)
     has_site_params: bool = True  # owns per-site adapter state
 
     # ---- state ------------------------------------------------------------
@@ -112,6 +138,34 @@ class AdapterMethod:
         dw = op.fn(tr, aux, site.d_in, site.d_out, peft)
         return dw.to(out_dtype) if out_dtype is not None else dw
 
+    def factored_apply(self, x: torch.Tensor, trainable: Dict, aux: Dict,
+                       d1: int, d2: int, peft: PEFTConfig) -> torch.Tensor:
+        """Additive output contribution for one layer slice, x (..., d1) ->
+        (..., d2), in f32. Equals x @ site_delta(...) (up to float error)
+        whenever `linear_delta`."""
+        op = self._kernel("factored_apply", peft, d1, d2, x.device)
+        if op is None:
+            raise NotImplementedError(f"{self.name} has no factored form")
+        return op.fn(x, trainable, aux, d1, d2, peft)
+
+    def bank_apply(self, x: torch.Tensor, trainable: Dict, aux: Dict,
+                   d1: int, d2: int, peft: PEFTConfig) -> torch.Tensor:
+        """Row-batched factored apply: x (B, ..., d1); every trainable leaf
+        carries a leading (B,) per-request dim. Methods that register no
+        bank op run the per-row factored apply row by row."""
+        op = self._kernel("bank_apply", peft, d1, d2, x.device)
+        if op is not None:
+            return op.fn(x, trainable, aux, d1, d2, peft)
+        return torch.stack([
+            self.factored_apply(x[b], {k: v[b] for k, v in trainable.items()},
+                                aux, d1, d2, peft)
+            for b in range(x.shape[0])])
+
+    def frozen_tables(self, aux: Dict, d1: int, d2: int) -> Dict:
+        """The frozen tables the factored and bank applies read, built from
+        the aux leaves (module docstring). None by default."""
+        return {}
+
     def merge_site(self, eff: Dict, key: str, adapter: Dict,
                    site: AdapterSite, peft: PEFTConfig) -> None:
         """Fold one site into the (stacked) layer tree `eff`: ΔW is cast to
@@ -145,8 +199,8 @@ def resolve(name: str) -> AdapterMethod:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown adapter method {name!r}; registered: "
-                       f"{sorted(_REGISTRY)} (the other methods come with a "
-                       "later slice, ROADMAP queue 1)") from None
+                       f"{sorted(_REGISTRY)} (`full` comes with a later "
+                       "slice, ROADMAP queue 1)") from None
 
 
 def registered_methods() -> Tuple[str, ...]:
@@ -178,6 +232,32 @@ def _fft_plan_accepts(d1, d2, peft, dtype=None):
 def _fourier_deltaw_einsum(tr, aux, d1, d2, peft):
     return fourierft.materialize_delta(tr["c"], aux["entries"], d1, d2,
                                        peft.alpha)
+
+
+_FOURIER_TABLES = ("cos_t", "sin_t", "cos_p", "sin_p")
+
+
+def _fourier_tables(aux, d1, d2):
+    """cos θ, sin θ (d1, n), cos φ, sin φ (d2, n): the cached tables, else
+    built from the entries."""
+    if _FOURIER_TABLES[0] in aux:
+        return tuple(aux[k] for k in _FOURIER_TABLES)
+    return fourierft.fourier_bases(aux["entries"], d1, d2)
+
+
+def _fourier_factored_einsum(x, tr, aux, d1, d2, peft):
+    return fourierft.factored_apply(x.to(torch.float32), tr["c"], None, d1,
+                                    d2, peft.alpha,
+                                    bases=_fourier_tables(aux, d1, d2))
+
+
+def _fourier_bank_einsum(x, tr, aux, d1, d2, peft):
+    cos_t, sin_t, cos_p, sin_p = _fourier_tables(aux, d1, d2)
+    xf = x.to(torch.float32)
+    c = _per_row(tr["c"].to(torch.float32), x.ndim)
+    pc = (xf @ cos_t) * c
+    ps = (xf @ sin_t) * c
+    return (pc @ cos_p.T - ps @ sin_p.T) * (peft.alpha / (d1 * d2))
 
 
 def _fourier_deltaw_cuda(tr, aux, d1, d2, peft):
@@ -214,7 +294,15 @@ class FourierFT(AdapterMethod):
                      accepts=_fft_plan_accepts,
                      note="row FFTs in shared memory "
                           "(csrc/fourier_deltaw.cu)"),
+            KernelOp("factored_apply", self.name, "einsum",
+                     _fourier_factored_einsum),
+            KernelOp("bank_apply", self.name, "einsum",
+                     _fourier_bank_einsum),
         )
+
+    def frozen_tables(self, aux, d1, d2):
+        return dict(zip(_FOURIER_TABLES,
+                        fourierft.fourier_bases(aux["entries"], d1, d2)))
 
     def count_trainable(self, site, peft):
         return peft.n * site.stack
@@ -264,6 +352,25 @@ def _dct_deltaw_einsum(tr, aux, d1, d2, peft):
     return dct_delta(tr["c"], aux["entries"], d1, d2, peft.alpha)
 
 
+def _dct_tables(aux, d1, d2):
+    """C1 (d1, n), C2 (d2, n): the cached tables, else built."""
+    if "c1" in aux:
+        return aux["c1"], aux["c2"]
+    return dct_bases(aux["entries"], d1, d2)
+
+
+def _dct_factored_einsum(x, tr, aux, d1, d2, peft):
+    c1, c2 = _dct_tables(aux, d1, d2)
+    proj = (x.to(torch.float32) @ c1) * tr["c"].to(torch.float32)
+    return proj @ c2.T * (peft.alpha / (d1 * d2))
+
+
+def _dct_bank_einsum(x, tr, aux, d1, d2, peft):
+    c1, c2 = _dct_tables(aux, d1, d2)
+    c = _per_row(tr["c"].to(torch.float32), x.ndim)
+    return ((x.to(torch.float32) @ c1) * c) @ c2.T * (peft.alpha / (d1 * d2))
+
+
 def _dct_deltaw_cuda(tr, aux, d1, d2, peft):
     # the autograd Function: K4 forward, K5 (the dc kernel) backward
     from repro_torch.kernels import ops as kops
@@ -292,10 +399,179 @@ class DCTAdapter(AdapterMethod):
                      devices=("cuda",), accepts=_fft_plan_accepts,
                      note="DCT rows as FFTs in shared memory "
                           "(csrc/dct_deltaw.cu on fft_rows.cuh)"),
+            KernelOp("factored_apply", self.name, "einsum",
+                     _dct_factored_einsum),
+            KernelOp("bank_apply", self.name, "einsum", _dct_bank_einsum),
         )
+
+    def frozen_tables(self, aux, d1, d2):
+        return dict(zip(("c1", "c2"), dct_bases(aux["entries"], d1, d2)))
 
     def count_trainable(self, site, peft):
         return peft.n * site.stack
+
+
+# ---------------------------------------------------------------------------
+# Circulant (arXiv:2505.00580 family): one kernel g per layer, ΔW[j,k] =
+# α/(d1·d2) · g[(k−j) mod M], M = max(d1, d2). The einsum ops materialize
+# the (d1, d2) gather; on CUDA tensors the factored and bank applies are a
+# circular convolution through `torch.fft` (kernels/ops.py
+# circulant_apply_fft), as the JAX package registers XLA's FFT for them.
+# ---------------------------------------------------------------------------
+
+def _circulant_idx(d1: int, d2: int, device) -> torch.Tensor:
+    m = max(d1, d2)
+    j = torch.arange(d1, device=device)[:, None]
+    k = torch.arange(d2, device=device)[None, :]
+    return (k - j) % m
+
+
+def _circ_delta(g: torch.Tensor, d1: int, d2: int, peft) -> torch.Tensor:
+    g = g.to(torch.float32)
+    return g[..., _circulant_idx(d1, d2, g.device)] * (peft.alpha / (d1 * d2))
+
+
+def _circ_deltaw_einsum(tr, aux, d1, d2, peft):
+    return _circ_delta(tr["kernel"], d1, d2, peft)
+
+
+def _circ_factored_einsum(x, tr, aux, d1, d2, peft):
+    return x.to(torch.float32) @ _circ_delta(tr["kernel"], d1, d2, peft)
+
+
+def _circ_bank_einsum(x, tr, aux, d1, d2, peft):
+    dw = _circ_delta(tr["kernel"], d1, d2, peft)           # (B, d1, d2)
+    return torch.einsum("b...d,bdf->b...f", x.to(torch.float32), dw)
+
+
+def _circ_factored_fft(x, tr, aux, d1, d2, peft):
+    from repro_torch.kernels import ops as kops
+    return kops.circulant_apply_fft(x, tr["kernel"], d1, d2, peft.alpha)
+
+
+def _circ_bank_fft(x, tr, aux, d1, d2, peft):
+    from repro_torch.kernels import ops as kops
+    return kops.circulant_apply_fft(x, _per_row(tr["kernel"], x.ndim),
+                                    d1, d2, peft.alpha)
+
+
+class CirculantAdapter(AdapterMethod):
+    name = "circulant"
+
+    def init_site(self, gen, site, peft, device):
+        # zero-init: fine-tuning starts at the base model (cf. LoRA's B)
+        m = max(site.d_in, site.d_out)
+        return {"kernel": torch.zeros((site.stack, m), device=device,
+                                      dtype=torch_dtype(peft.param_dtype))}
+
+    def trainable_leaves(self, peft):
+        return ("kernel",)
+
+    def kernel_ops(self):
+        fft_note = ("torch.fft rfft circular convolution (a library call, "
+                    "not a hand-written kernel)")
+        return (
+            KernelOp("deltaw", self.name, "einsum", _circ_deltaw_einsum),
+            KernelOp("factored_apply", self.name, "einsum",
+                     _circ_factored_einsum),
+            KernelOp("factored_apply", self.name, "cuda", _circ_factored_fft,
+                     devices=("cuda",), note=fft_note),
+            KernelOp("bank_apply", self.name, "einsum", _circ_bank_einsum),
+            KernelOp("bank_apply", self.name, "cuda", _circ_bank_fft,
+                     devices=("cuda",), note=fft_note),
+        )
+
+    def count_trainable(self, site, peft):
+        return max(site.d_in, site.d_out) * site.stack
+
+
+# ---------------------------------------------------------------------------
+# LoRA baseline
+# ---------------------------------------------------------------------------
+
+def _lora_deltaw_einsum(tr, aux, d1, d2, peft):
+    return lora.lora_delta(tr["lora_a"], tr["lora_b"], peft.lora_alpha,
+                           peft.lora_r)
+
+
+def _lora_factored_einsum(x, tr, aux, d1, d2, peft):
+    y = (x.to(torch.float32) @ tr["lora_a"].to(torch.float32)) \
+        @ tr["lora_b"].to(torch.float32)
+    return y * (peft.lora_alpha / peft.lora_r)
+
+
+def _lora_bank_einsum(x, tr, aux, d1, d2, peft):
+    p = torch.einsum("b...d,bdr->b...r", x.to(torch.float32),
+                     tr["lora_a"].to(torch.float32))
+    y = torch.einsum("b...r,brf->b...f", p, tr["lora_b"].to(torch.float32))
+    return y * (peft.lora_alpha / peft.lora_r)
+
+
+class LoRA(AdapterMethod):
+    name = "lora"
+
+    def init_site(self, gen, site, peft, device):
+        return lora.init_lora(gen, site.d_in, site.d_out, peft.lora_r,
+                              stack=site.stack,
+                              dtype=torch_dtype(peft.param_dtype),
+                              device=device)
+
+    def trainable_leaves(self, peft):
+        return ("lora_a", "lora_b")
+
+    def kernel_ops(self):
+        return (
+            KernelOp("deltaw", self.name, "einsum", _lora_deltaw_einsum),
+            KernelOp("factored_apply", self.name, "einsum",
+                     _lora_factored_einsum),
+            KernelOp("bank_apply", self.name, "einsum", _lora_bank_einsum),
+        )
+
+    def count_trainable(self, site, peft):
+        return peft.lora_r * (site.d_in + site.d_out) * site.stack
+
+
+# ---------------------------------------------------------------------------
+# BitFit baseline: a bias shift, not a weight delta (linear_delta=False);
+# merging adds to (or creates) the site's `__b` bias leaf. No deltaw op, so
+# site_delta raises through the base class's registry miss.
+# ---------------------------------------------------------------------------
+
+def _bitfit_factored_einsum(x, tr, aux, d1, d2, peft):
+    return tr["delta_b"].to(torch.float32).expand(*x.shape[:-1], d2)
+
+
+def _bitfit_bank_einsum(x, tr, aux, d1, d2, peft):
+    b = _per_row(tr["delta_b"].to(torch.float32), x.ndim)   # (B, 1.., d2)
+    return b.expand(*x.shape[:-1], d2)
+
+
+class BitFit(AdapterMethod):
+    name = "bitfit"
+    linear_delta = False
+
+    def init_site(self, gen, site, peft, device):
+        return {"delta_b": torch.zeros((site.stack, site.d_out),
+                                       device=device,
+                                       dtype=torch_dtype(peft.param_dtype))}
+
+    def trainable_leaves(self, peft):
+        return ("delta_b",)
+
+    def kernel_ops(self):
+        return (
+            KernelOp("factored_apply", self.name, "einsum",
+                     _bitfit_factored_einsum),
+            KernelOp("bank_apply", self.name, "einsum", _bitfit_bank_einsum),
+        )
+
+    def merge_site(self, eff, key, adapter, site, peft):
+        bkey = key + "__b"
+        db = adapter["delta_b"]
+        eff[bkey] = (eff[bkey] + db) if bkey in eff else db
+
+    def count_trainable(self, site, peft):
+        return site.d_out * site.stack
 
 
 class NoAdapter(AdapterMethod):
@@ -305,4 +581,7 @@ class NoAdapter(AdapterMethod):
 
 register(FourierFT())
 register(DCTAdapter())
+register(CirculantAdapter())
+register(LoRA())
+register(BitFit())
 register(NoAdapter())

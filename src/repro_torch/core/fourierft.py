@@ -127,11 +127,16 @@ def materialize_delta(c: torch.Tensor, entries: torch.Tensor, d1: int,
 
 
 def factored_apply(x: torch.Tensor, c: torch.Tensor, entries: torch.Tensor,
-                   d1: int, d2: int, alpha: float) -> torch.Tensor:
+                   d1: int, d2: int, alpha: float,
+                   bases=None) -> torch.Tensor:
     """y += x @ ΔW without materializing ΔW (rank-2n bypass).
 
-    x: (..., d1) -> (..., d2). Equals x @ materialize_delta(...)."""
-    cos_t, sin_t, cos_p, sin_p = fourier_bases(entries.to(x.device), d1, d2)
+    x: (..., d1) -> (..., d2). Equals x @ materialize_delta(...). `bases`:
+    the four tables `fourier_bases(entries, d1, d2)` gives, when the caller
+    built them once beforehand (then `entries` is not read)."""
+    if bases is None:
+        bases = fourier_bases(entries.to(x.device), d1, d2)
+    cos_t, sin_t, cos_p, sin_p = bases
     scale = alpha / (d1 * d2)
     xf = x.to(torch.float32)
     c = c.to(torch.float32)

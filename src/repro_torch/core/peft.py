@@ -1,5 +1,7 @@
-"""PEFT attachment layer: adapter initialization, the trainable subtree and
-parameter accounting (paper Table 1). Adapter params live in a tree parallel to the base params:
+"""PEFT attachment layer: adapter initialization, the trainable subtree,
+parameter accounting (paper Table 1) and the frozen tables of the factored
+form, for every registered method (fourierft, dct, circulant, lora,
+bitfit). Adapter params live in a tree parallel to the base params:
 params = {"base": ..., "peft": {site.name: {...}}}."""
 from __future__ import annotations
 
@@ -41,7 +43,21 @@ def _targeted(sites: Sequence[AdapterSite],
 
 def count_trainable(sites: Sequence[AdapterSite], peft: PEFTConfig) -> int:
     """|Θ| per paper §3.2 — coefficient parameters only (entries are
-    stored, not trained; the paper counts n·L_t for FourierFT)."""
+    stored, not trained; the paper counts n·L_t for FourierFT, 2·d·L_t·r
+    for LoRA)."""
     method = adapter_api.resolve(peft.method)
     return sum(method.count_trainable(s, peft) for s in _targeted(sites, peft))
 
+
+
+def with_frozen_tables(adapters: Dict, sites: Sequence[AdapterSite],
+                       peft: PEFTConfig) -> Dict:
+    """`adapters` with each site's frozen tables (the method's
+    `frozen_tables`: FourierFT's cos/sin bases, dct's cosine bases) built
+    once and kept beside its aux leaves, where the factored apply finds
+    them instead of rebuilding them every call."""
+    method = adapter_api.resolve(peft.method)
+    by_name = {s.name: s for s in sites}
+    return {name: {**ad, **method.frozen_tables(
+                ad, by_name[name].d_in, by_name[name].d_out)}
+            for name, ad in adapters.items()}

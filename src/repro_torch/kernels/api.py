@@ -3,13 +3,15 @@
 Every adapter hot-spot computation is a `KernelOp` keyed by
 ``(op, method, backend)``, as in the JAX package:
 
-    op      — "deltaw" (dense ΔW materialization), "paged_attention"
-              (the factored and bank applies come with later slices)
+    op      — "deltaw" (dense ΔW materialization), "factored_apply"
+              (the y-contribution without ΔW), "bank_apply" (its row-batched
+              form for the serving adapter bank), "paged_attention"
     method  — the owning `AdapterMethod.name` (model-side ops are owned by a
               shim with the same `name`/`kernel_ops()` surface,
               kernels/paged_attention.OWNER)
-    backend — "cuda" (a hand-written Hopper kernel) or "einsum" (the plain
-              PyTorch version)
+    backend — "cuda" (the accelerated version for CUDA tensors: a
+              hand-written Hopper kernel, or circulant's `torch.fft` apply,
+              whose note says so) or "einsum" (the plain PyTorch version)
 
 Methods declare their implementations through `AdapterMethod.kernel_ops()`;
 declarations are collected lazily on first dispatch (`ensure_method`).
@@ -25,7 +27,10 @@ platform string. `PEFTConfig.kernel_backend` keeps the JAX names:
 Unlike the TPU registry, a CUDA-resident site that the kernel cannot take
 (its config predicate or its shape limits fail) RAISES at resolution, so
 `KernelPolicy.build` refuses it before any launch, instead of degrading
-silently to the plain version.
+silently to the plain version. An op registered only as `einsum` (the
+factored and bank applies of most methods: plain matrix products in the
+JAX package too) resolves to `einsum` on CUDA tensors as well: that is its
+only implementation, not a degrade.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-OPS = ("deltaw", "paged_attention")
+OPS = ("deltaw", "factored_apply", "bank_apply", "paged_attention")
 BACKENDS = ("cuda", "einsum")
 
 # candidate chain per requested policy; first supported op wins
@@ -53,9 +58,10 @@ class KernelUnavailableError(KeyError):
 class KernelOp:
     """One backend implementation of one op for one adapter method.
 
-    fn signatures:
+    fn signatures (the adapter ops return f32; the dispatch site casts):
         deltaw:          fn(trainable, aux, d1, d2, peft) -> (stack?, d1, d2)
-                         f32 (the dispatch site casts)
+        factored_apply:  fn(x, trainable, aux, d1, d2, peft) -> (..., d2)
+        bank_apply:      fn(x, trainable, aux, d1, d2, peft) -> (B, ..., d2)
         paged_attention: fn(q, k_pages, v_pages, block_table, kv_len)
 
     Constraints: `devices` (device types the op runs on; None = any),
@@ -207,6 +213,7 @@ class Resolution:
     d2: int
     op: str
     backend: str          # "" when nothing resolved (validate() rejects)
+    bank: str = ""        # the adapter-bank group's method, for its ops
 
 
 @dataclass(frozen=True)
@@ -220,32 +227,49 @@ class KernelPolicy:
 
     @classmethod
     def build(cls, method, sites: Sequence, peft,
-              device: Union[str, torch.device]) -> "KernelPolicy":
+              device: Union[str, torch.device],
+              bank_profiles: Optional[Dict] = None) -> "KernelPolicy":
+        """`bank_profiles` ({method name: PEFTConfig}, the serving adapter
+        bank's groups) adds each group's `bank_apply` at its targeted
+        `layers/` sites, resolved under the group's own profile."""
         m = _method_obj(method)
         ensure_method(m)
         requested = requested_backend(peft)
         dev = _device_type(device)
         res = []
+
+        def targeted(prof):
+            targets = getattr(prof, "target_modules", ())
+            return [s for s in sites if s.name.split("/")[-1] in targets]
+
         if getattr(m, "has_site_params", True):
-            targets = getattr(peft, "target_modules", ())
-            for s in sites:
-                if s.name.split("/")[-1] not in targets:
-                    continue
+            for s in targeted(peft):
                 for op in ops_for(m):
                     chosen = resolve_op(op, m, peft, s.d_in, s.d_out,
                                         device=dev, missing_ok=True)
                     res.append(Resolution(s.name, s.d_in, s.d_out, op,
                                           chosen.backend if chosen else ""))
+        for name, prof in sorted((bank_profiles or {}).items()):
+            for s in targeted(prof):
+                if not s.name.startswith("layers/"):
+                    continue
+                chosen = resolve_op("bank_apply", name, prof, s.d_in,
+                                    s.d_out, device=dev, missing_ok=True)
+                res.append(Resolution(s.name, s.d_in, s.d_out, "bank_apply",
+                                      chosen.backend if chosen else "",
+                                      bank=name))
         return cls(m.name, requested, dev, tuple(res))
 
-    def backend_for(self, site: str, op: str) -> Optional[str]:
+    def backend_for(self, site: str, op: str,
+                    bank: str = "") -> Optional[str]:
         for r in self.resolutions:
-            if r.site == site and r.op == op:
+            if r.site == site and r.op == op and r.bank == bank:
                 return r.backend or None
         return None
 
     def validate(self) -> "KernelPolicy":
-        dead = [f"{r.op}@{r.site}" for r in self.resolutions if not r.backend]
+        dead = [f"{r.op}@{r.site}" + (f" (bank {r.bank})" if r.bank else "")
+                for r in self.resolutions if not r.backend]
         if dead:
             raise KernelUnavailableError(
                 f"method {self.method!r}: no backend resolved for {dead} "
@@ -259,5 +283,6 @@ class KernelPolicy:
         if not self.resolutions:
             return head + "\n  (no registered kernel ops for this method)"
         return "\n".join([head] + [
-            f"  {r.site} ({r.d1}x{r.d2}) {r.op} -> "
-            f"{r.backend or 'UNRESOLVED'}" for r in self.resolutions])
+            f"  {r.site} ({r.d1}x{r.d2}) {r.op}"
+            + (f" [bank {r.bank}]" if r.bank else "")
+            + f" -> {r.backend or 'UNRESOLVED'}" for r in self.resolutions])

@@ -1,5 +1,7 @@
-"""The differentiable padding harness around the ΔW kernels, and the
-standalone registry-dispatched `fourier_deltaw` entry.
+"""The differentiable padding harness around the ΔW kernels, the
+standalone registry-dispatched `fourier_deltaw` entry, and circulant's fast
+apply (`circulant_apply_fft`, `torch.fft`: a library call, not a kernel of
+this package).
 
 `make_deltaw_function(kernels)` is the JAX package's `make_deltaw_harness`
 as a `torch.autograd.Function` factory, instantiated for both kernel pairs:
@@ -94,3 +96,24 @@ def fourier_deltaw(c: torch.Tensor, entries: torch.Tensor, d1: int, d2: int,
     op = api.resolve_op("deltaw", "fourierft", peft, d1, d2, device=c.device)
     out = op.fn({"c": c}, {"entries": entries}, d1, d2, peft)
     return out.to(out_dtype) if out_dtype is not None else out
+
+
+def circulant_apply_fft(x: torch.Tensor, kernel: torch.Tensor, d1: int,
+                        d2: int, alpha: float) -> torch.Tensor:
+    """y = x @ ΔW for ΔW[j,k] = α/(d1·d2)·g[(k−j) mod M], M = max(d1, d2),
+    without materializing ΔW: zero-pad x to M, circularly convolve with g
+    through `torch.fft.rfft`/`irfft`, keep the first d2 columns (the JAX
+    package's `kernels/ops.py::circulant_apply_fft`).
+
+    x (..., d1); kernel (..., M) broadcast-aligned against x's batch dims
+    ((M,) per layer on the factored path, (B, 1, M) per row on the bank
+    path). f32. Exactly zero for a zero kernel (a zero spectrum times
+    anything is zero), which the adapter bank's reserved zero row needs."""
+    m = kernel.shape[-1]
+    xf = x.to(torch.float32)
+    if m != d1:
+        xf = F.pad(xf, (0, m - d1))
+    spec = torch.fft.rfft(xf, dim=-1) \
+        * torch.fft.rfft(kernel.to(torch.float32), dim=-1)
+    y = torch.fft.irfft(spec, n=m, dim=-1)[..., :d2]
+    return y * (alpha / (d1 * d2))

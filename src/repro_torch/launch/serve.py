@@ -11,11 +11,22 @@ through the hand-written paged-attention kernel on the card) and prints
 per-request outputs plus serving metrics. Prompts and trace are the JAX
 launcher's.
 
+With `--bank-dir` it serves a multi-tenant adapter bank instead: every
+adapter-only export in the directory (checkpoint/adapters.py, any method)
+joins the bank's groups, up to `--bank-capacity` of them are loaded
+resident, and the demo prompts (or, with `--continuous`, the trace's
+requests) cycle over the tenants; the scheduler loads and evicts the rest
+at admission. Without `--adapters` the bank runs over the clean base; with
+it the trained adapter is merged into the base first (K1 on the card) and
+the bank attaches on top.
+
     python -m repro_torch.launch.serve --arch yi-6b --continuous
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --device cpu
     python -m repro_torch.launch.serve --arch yi-6b --method dct \
         --adapters /tmp/dct --continuous
+    python -m repro_torch.launch.serve --arch yi-6b --reduced \
+        --bank-dir /tmp/tenants --bank-capacity 2 --continuous --device cpu
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
@@ -23,17 +34,18 @@ no CUDA device and no `--device`.
 from __future__ import annotations
 
 import argparse
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import adapters as adapter_ckpt
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import resolve_device
 from repro_torch.models import build
-from repro_torch.serve import ContinuousScheduler, Engine, Request
+from repro_torch.serve import AdapterBank, ContinuousScheduler, Engine, Request
 from repro_torch.train.step import join_params, split_params
 
 
@@ -44,13 +56,49 @@ def demo_prompts(cfg: ModelConfig, slots: int) -> List[torch.Tensor]:
 
 
 def demo_trace(prompts: List[torch.Tensor], n: int, max_new: int,
-               arrival_every: float) -> Tuple[List[Request], List[float]]:
+               arrival_every: float,
+               tenants: Sequence[Optional[str]] = ()
+               ) -> Tuple[List[Request], List[float]]:
     """The JAX launcher's replay trace: request i reuses prompt i mod
-    len(prompts), asks for 1 + (5i + 3) mod max_new tokens and arrives at
-    step i * arrival_every."""
+    len(prompts), asks for 1 + (5i + 3) mod max_new tokens, arrives at
+    step i * arrival_every and, given `tenants`, is served by tenant
+    i mod len(tenants)."""
     reqs = [Request(prompt=prompts[i % len(prompts)],
-                    max_new=1 + (5 * i + 3) % max_new) for i in range(n)]
+                    max_new=1 + (5 * i + 3) % max_new,
+                    adapter_id=tenants[i % len(tenants)] if tenants else None)
+            for i in range(n)]
     return reqs, [i * arrival_every for i in range(n)]
+
+
+def open_bank(model, bank_dir: str, capacity: int,
+              device) -> Tuple[AdapterBank, List[str]]:
+    """An AdapterBank over every export in `bank_dir`: one group per method
+    (the first export of each method sets its profile), the first
+    `capacity` loadable tenants resident. Returns (bank, every tenant id
+    that matches its group's profile)."""
+    tenant_ids = list(adapter_ckpt.list_adapters(bank_dir))
+    if not tenant_ids:
+        raise SystemExit(f"no adapter exports under {bank_dir}")
+    manifests = {tid: adapter_ckpt.read_manifest(bank_dir, tid)
+                 for tid in tenant_ids}
+    profiles = {}
+    for peft in manifests.values():
+        profiles.setdefault(peft.method, peft)
+    bank = AdapterBank(model, profiles, capacity=capacity,
+                       checkpoint_dir=bank_dir, device=device)
+    served = []
+    for tid in tenant_ids:
+        if not bank.matches(manifests[tid]):
+            # e.g. the same method exported under another n or entry seed
+            print(f"skipping tenant {tid!r}: its config does not match the "
+                  f"{manifests[tid].method!r} group's")
+            continue
+        served.append(tid)
+        if len(bank.resident_ids) < capacity:
+            bank.load_from_checkpoint(tid)
+    if not served:
+        raise SystemExit("no loadable tenants for the bank profiles")
+    return bank, served
 
 
 def main(argv=None):
@@ -64,6 +112,9 @@ def main(argv=None):
     ap.add_argument("--adapters", default=None,
                     help="checkpoint dir from repro_torch.launch.train "
                          "(--method/--n/--alpha must match its run)")
+    ap.add_argument("--bank-dir", default=None,
+                    help="adapter-only export dir: serve a multi-tenant bank")
+    ap.add_argument("--bank-capacity", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--continuous", action="store_true",
@@ -86,28 +137,44 @@ def main(argv=None):
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))
-    model = build(cfg, PEFTConfig(method=args.method, n=args.n,
-                                  alpha=args.alpha))
+    # bank-only serving runs over the clean base: random-init adapters of a
+    # live method would otherwise be merged into it before the bank attaches
+    if args.bank_dir and not args.adapters:
+        peft = PEFTConfig(method="none")
+    else:
+        peft = PEFTConfig(method=args.method, n=args.n, alpha=args.alpha)
+    model = build(cfg, peft)
     params = model.init(args.seed, device)
     if args.adapters:
         state, at = ckpt.restore(args.adapters, device=device)
         _, frozen = split_params(model, params)
         params = join_params(model, state["trainable"], frozen)
         print(f"loaded adapters from step {at}")
-    slots = 2
+    bank, tenants = None, []
+    if args.bank_dir:
+        bank, tenants = open_bank(model, args.bank_dir, args.bank_capacity,
+                                  device)
+        print(f"bank: {len(bank.resident_ids)} of {len(tenants)} tenants "
+              f"resident over groups {sorted(bank.profiles)}, frozen "
+              f"tables {bank.table_bytes / 2 ** 20:.2f} MiB")
+    slots = max(2, len(bank.resident_ids)) if bank is not None else 2
     engine = Engine(model, params, batch_slots=slots, max_len=args.max_len,
-                    device=device)
+                    bank=bank, device=device)
     print(engine.kernel_policy.explain())
     prompts = demo_prompts(cfg, slots)
     if args.continuous:
         sched = ContinuousScheduler(engine, page_size=args.page_size,
                                     n_pages=args.n_pages)
         reqs, arrivals = demo_trace(prompts, args.trace_n, args.max_new,
-                                    args.arrival_every)
+                                    args.arrival_every, tenants)
         sched.serve(reqs, arrivals)
         for i, r in enumerate(reqs):
-            print(f"request {i} (arrival {arrivals[i]:g}, "
+            tag = f" [{r.adapter_id}]" if r.adapter_id else ""
+            print(f"request {i}{tag} (arrival {arrivals[i]:g}, "
                   f"max_new {r.max_new}): {r.out}")
+        if bank is not None:
+            print(f"bank: {bank.loads} loads, resident "
+                  f"{list(bank.resident_ids)}")
         s = sched.metrics.summary()
         print(f"continuous: {s['n_requests']:.0f} requests, "
               f"{s['total_tokens']:.0f} tokens in {s['steps']:.0f} steps | "
@@ -116,9 +183,14 @@ def main(argv=None):
               f"{s['ttft_steps_p90']:.1f}), "
               f"{s['tokens_per_s']:.0f} tok/s on {device}")
         return
-    outs = engine.generate(prompts, max_new=args.max_new)
+    ids = None
+    if bank is not None:
+        resident = list(bank.resident_ids)
+        ids = [resident[i % len(resident)] for i in range(slots)]
+    outs = engine.generate(prompts, max_new=args.max_new, adapter_ids=ids)
     for i, o in enumerate(outs):
-        print(f"prompt {i}: {o.tolist()}")
+        tag = f" [{ids[i]}]" if ids else ""
+        print(f"prompt {i}{tag}: {o.tolist()}")
 
 
 if __name__ == "__main__":

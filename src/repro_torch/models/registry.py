@@ -9,6 +9,10 @@ dense transformer (the JAX package's `models/registry.py`, dense family).
     model.prefill(params, cache, batch)     -> (next_tokens, cache)
     model.decode_step(params, cache, batch) -> (next_tokens, cache)
     model.init_cache(batch, max_len, ...)   -> cache tree
+
+With `bank_profiles` set (the serving Engine sets it on its own copy),
+forward / prefill / prefill_paged / decode read the adapter bank's rows
+from params["bank"] and the per-request rows from batch["adapter_slots"].
     model.sites                             -> adapter sites (PEFT targets)
 """
 from __future__ import annotations
@@ -47,6 +51,10 @@ class Model:
     cfg: ModelConfig
     peft: PEFTConfig
     remat: str = "none"           # none | dots | full (training forward)
+    # serving adapter bank: {method name: PEFTConfig profile}; the resident
+    # rows travel as params["bank"] (serve/engine.py AdapterBank) and the
+    # per-request gather rows as batch["adapter_slots"]
+    bank_profiles: Optional[Dict[str, PEFTConfig]] = None
 
     def __post_init__(self):
         if self.remat not in transformer.REMAT_MODES:
@@ -62,9 +70,15 @@ class Model:
         self.sites = adapter_sites(self.cfg)
         self._paged_fns = {}      # (device type, dtype) -> attention fn
 
+    def _bank_kwargs(self, params: Dict) -> Dict:
+        if self.bank_profiles is None:
+            return {}
+        return {"bank": params.get("bank"),
+                "bank_profiles": self.bank_profiles}
+
     def _call(self, fn, params: Dict, *args):
         return fn(params["base"], params["peft"], *args, self.cfg, self.peft,
-                  self.sites)
+                  self.sites, **self._bank_kwargs(params))
 
     # ---- params -----------------------------------------------------------
     def init(self, seed: int, device) -> Dict:
@@ -80,7 +94,8 @@ class Model:
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         return transformer.forward(params["base"], params["peft"], batch,
                                    self.cfg, self.peft, self.sites,
-                                   remat=self.remat)
+                                   remat=self.remat,
+                                   **self._bank_kwargs(params))
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         return transformer.loss_fn(params["base"], params["peft"], batch,
@@ -118,12 +133,14 @@ class Model:
     def decode_step(self, params: Dict, cache: Dict, batch: Dict):
         return transformer.decode_step(
             params["base"], params["peft"], cache, batch, self.cfg,
-            self.peft, self.sites, paged_attention=self._paged_fn(cache))
+            self.peft, self.sites, paged_attention=self._paged_fn(cache),
+            **self._bank_kwargs(params))
 
     def decode_logits(self, params: Dict, cache: Dict, batch: Dict):
         return transformer.decode_logits(
             params["base"], params["peft"], cache, batch, self.cfg,
-            self.peft, self.sites, paged_attention=self._paged_fn(cache))
+            self.peft, self.sites, paged_attention=self._paged_fn(cache),
+            **self._bank_kwargs(params))
 
     def paged_attention(self, device, dtype):
         """The decode attention over a paged cache of `dtype` on `device`:
@@ -162,9 +179,11 @@ class Model:
 
     # ---- kernels / accounting ---------------------------------------------
     def kernel_policy(self, device) -> kernel_api.KernelPolicy:
-        """Which backend each targeted (site, op) resolves to on `device`."""
+        """Which backend each targeted (site, op), and each bank group's
+        `bank_apply`, resolves to on `device`."""
         return kernel_api.KernelPolicy.build(self.method, self.sites,
-                                             self.peft, device)
+                                             self.peft, device,
+                                             self.bank_profiles)
 
     def trainable_params(self) -> int:
         return peft_mod.count_trainable(self.sites, self.peft)

@@ -7,13 +7,16 @@
   and page pools are written IN PLACE, layer by layer (the JAX version
   donates them to the same effect), so a decode step allocates no second
   cache.
-- PEFT covers the merged strategy (`apply_peft_to_layers` folds every
-  targeted ΔW into W before the layer loop). Training differentiates
-  through that fold: on the card the ΔW kernel's autograd Function gives
-  the coefficients their gradient through the dc kernel. After
-  `merge_for_serving` the served model has method `none`, so decode does no
-  adapter work. The factored strategy and the adapter bank come with later
-  slices.
+- PEFT: the merged strategy (`apply_peft_to_layers` folds every targeted
+  ΔW into W before the layer loop) and the factored one (the method's
+  `factored_apply` inside each layer, `make_linear`). Training
+  differentiates through the fold: on the card the ΔW kernel's autograd
+  Function gives the coefficients their gradient through the dc kernel.
+  After `merge_for_serving` the served model has method `none`, so decode
+  does no adapter work.
+- The serving adapter bank: per-request resident rows are gathered ONCE
+  per call (outside the layer loop) and applied per slot through each
+  method group's `bank_apply` (serve/engine.py `AdapterBank`).
 - `remat` (training forward): "none"; "full" (`torch.utils.checkpoint` per
   layer, saving nothing inside it); "dots" (selective checkpointing that
   saves the projections' matmul outputs, the counterpart of JAX's
@@ -24,7 +27,8 @@
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as ckpt_util
@@ -38,35 +42,106 @@ from repro_torch.models.common import (apply_rope, cross_entropy, dense_init,
 
 
 # ---------------------------------------------------------------------------
-# PEFT (merged strategy)
+# PEFT: merged, factored and the serving adapter bank
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class SiteApp:
+    """One factored adapter application at a weight key: its trainable
+    per-layer slices ride the layer tree under `{key}{tag}{leaf}`, its
+    frozen aux (entries and their cached tables) is captured here, and
+    `banked` selects the row-batched `bank_apply`."""
+    tag: str
+    method: adapter_api.AdapterMethod
+    aux: Dict = field(default_factory=dict)
+    peft: PEFTConfig = PEFTConfig()
+    banked: bool = False
+
+
+def make_linear(apps: Dict[str, List[SiteApp]]):
+    """Returns linear(lp, name, x): y = x @ lp[name] + bias + the adapter
+    applications at `name`, each under its own PEFTConfig (the model's
+    config has no say there)."""
+
+    def linear(lp: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+        w = lp[name]
+        y = x @ w
+        if name + "__b" in lp:
+            y = y + lp[name + "__b"].to(y.dtype)
+        d1, d2 = w.shape
+        for app in apps.get(name, ()):
+            tr = {leaf: lp[name + app.tag + leaf]
+                  for leaf in app.method.trainable_leaves(app.peft)}
+            fn = app.method.bank_apply if app.banked \
+                else app.method.factored_apply
+            y = y + fn(x, tr, app.aux, d1, d2, app.peft).to(y.dtype)
+        return y
+
+    return linear
+
+
+def _app_tag(kind: str, method_name: str) -> str:
+    return f"__{kind}.{method_name}__"
+
+
 def apply_peft_to_layers(layers: Dict, adapters: Dict, sites,
-                         peft: PEFTConfig, prefix: str = "layers/") -> Dict:
-    """Returns the effective layer tree: every targeted site folded in
-    (W <- W + ΔW) through the method's `merge_site`."""
-    if not adapters:
-        return layers
+                         peft: PEFTConfig, prefix: str = "layers/",
+                         bank: Optional[Dict] = None,
+                         bank_profiles: Optional[Dict[str, PEFTConfig]] = None,
+                         bank_slots: Optional[Dict] = None
+                         ) -> Tuple[Dict, Dict[str, List[SiteApp]]]:
+    """Returns (eff_layers, apps). Merged strategy (and a mergeable
+    method): the method folds the site into the stacked tree (W <- W + ΔW;
+    BitFit into the bias). Factored: the trainable leaves join the tree
+    under tagged keys, the frozen aux stays in the app, and `make_linear`
+    applies the method inside each layer.
+
+    `bank` / `bank_profiles` / `bank_slots`: the serving adapter bank. For
+    each method group the per-request rows are gathered from the
+    (K+1, L, ...) resident leaves with `bank_slots[method]` (B,) ONCE
+    here, outside the layer loop, and enter the tree as (L, B, ...) leaves;
+    row K is the reserved zero row, so a request that does not use a method
+    contributes exactly zero."""
     eff = dict(layers)
+    apps: Dict[str, List[SiteApp]] = {}
     method = adapter_api.resolve(peft.method)
     site_by_name = {s.name: s for s in sites}
+    trainable = set(method.trainable_leaves(peft))
     for full_name, ad in adapters.items():
         if not full_name.startswith(prefix):
             continue
-        if peft.strategy != "merged" or not method.mergeable:
-            raise NotImplementedError(
-                "the factored strategy comes with a later slice (ROADMAP "
-                "queue 1); serve merged adapters")
-        method.merge_site(eff, full_name[len(prefix):], ad,
-                          site_by_name[full_name], peft)
-    return eff
-
-
-def linear(lp: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    y = x @ lp[name]
-    if name + "__b" in lp:
-        y = y + lp[name + "__b"].to(y.dtype)
-    return y
+        key = full_name[len(prefix):]
+        if peft.strategy == "merged" and method.mergeable:
+            method.merge_site(eff, key, ad, site_by_name[full_name], peft)
+            continue
+        tag = _app_tag("ad", method.name)
+        aux = {}
+        for leaf, v in ad.items():
+            if leaf in trainable:
+                eff[key + tag + leaf] = v
+            else:
+                aux[leaf] = v
+        apps.setdefault(key, []).append(SiteApp(tag, method, aux, peft))
+    if bank and bank_slots is None:
+        raise ValueError("adapter bank configured but the batch carries no "
+                         "'adapter_slots' (Engine.generate builds them; "
+                         "direct model calls must pass bank.slot_rows(...))")
+    for mname in sorted(bank or ()):
+        group = bank[mname]
+        m = adapter_api.resolve(mname)
+        slots = bank_slots[mname].to(torch.int64)       # (B,) incl. zero row
+        tag = _app_tag("bank", mname)
+        for full_name, leaves in group["sites"].items():
+            if not full_name.startswith(prefix):
+                continue
+            key = full_name[len(prefix):]
+            for leaf, arr in leaves.items():             # (K+1, L, ...)
+                eff[key + tag + leaf] = arr.index_select(0, slots) \
+                    .transpose(0, 1)                     # (L, B, ...)
+            apps.setdefault(key, []).append(
+                SiteApp(tag, m, group["aux"].get(full_name, {}),
+                        bank_profiles[mname], banked=True))
+    return eff, apps
 
 
 def _layers(eff: Dict) -> List[Dict]:
@@ -76,6 +151,16 @@ def _layers(eff: Dict) -> List[Dict]:
     cols = {k: v.unbind(0) for k, v in eff.items()}
     depth = len(next(iter(cols.values())))
     return [{k: c[li] for k, c in cols.items()} for li in range(depth)]
+
+
+def _effective(params: Dict, adapters: Dict, sites, peft: PEFTConfig,
+               batch: Dict, bank, bank_profiles):
+    """(per-layer views of the effective layer tree, its `linear`) for one
+    call: the adapters merged or applied, the bank's rows gathered."""
+    eff, apps = apply_peft_to_layers(
+        params["layers"], adapters, sites, peft, bank=bank,
+        bank_profiles=bank_profiles, bank_slots=batch.get("adapter_slots"))
+    return _layers(eff), make_linear(apps)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +216,7 @@ def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         *tokens.shape, emb.shape[-1])
 
 
-def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions):
+def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear, positions):
     B = x.shape[0]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = linear(lp, "wq", h).reshape(B, -1, cfg.n_heads, cfg.head_dim)
@@ -146,8 +231,8 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                cache_kv=None, cache_pos=None, paged=None):
+def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
+                positions, *, cache_kv=None, cache_pos=None, paged=None):
     """Pre-norm attention. Without `cache_kv` it is the causal prefill and
     returns the post-RoPE (k, v). With `cache_kv=(k, v)` of one layer it is
     the decode path, writing the new rows IN PLACE: an int `cache_pos` is
@@ -157,7 +242,7 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
     block-table row maps the position to, and `attn_fn` (the registry's
     paged_attention op) reads K/V through the block table."""
     B = x.shape[0]
-    q, k, v = _qkv(lp, x, cfg, positions)
+    q, k, v = _qkv(lp, x, cfg, linear, positions)
     if cache_kv is None:
         att = attn_mod.attention(q, k, v, causal=True)
         new_kv = (k, v)
@@ -194,7 +279,8 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
     return x + out, new_kv
 
 
-def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
+               linear) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     hi = linear(lp, "wi", h)
     if cfg.gated_mlp:
@@ -249,23 +335,26 @@ def _remat(fn, mode: str):
 
 
 def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
-            peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
+            peft: PEFTConfig, sites, *, remat: str = "none", bank=None,
+            bank_profiles=None) -> torch.Tensor:
     """Causal forward over batch["tokens"] (B, S). Returns logits (B, S, V).
-    The merge runs once, outside the per-layer checkpoints (as in JAX, where
-    it precedes the scanned body)."""
+    The merge (and the bank's gather, with batch["adapter_slots"]) runs
+    once, outside the per-layer checkpoints (as in JAX, where it precedes
+    the scanned body)."""
     x = _embed(params, batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
-    eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
+    layers, linear = _effective(params, adapters, sites, peft, batch, bank,
+                                bank_profiles)
 
     def body(lp, x):
-        x, _ = _attn_block(lp, x, cfg, positions)
-        return _mlp_block(lp, x, cfg)
+        x, _ = _attn_block(lp, x, cfg, linear, positions)
+        return _mlp_block(lp, x, cfg, linear)
 
     body = _remat(body, remat)
-    for lp in _layers(eff):
+    for lp in layers:
         x = body(lp, x)
     return _logits(params, x, cfg)
 
@@ -279,7 +368,8 @@ def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
 
 
 def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
-            cfg: ModelConfig, peft: PEFTConfig, sites) -> Tuple[torch.Tensor, Dict]:
+            cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
+            bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
     """Process a (B, S) prompt against a fresh dense cache (pos 0), writing
     its KV in place. Returns (next tokens after the last prompt token, cache
     at pos S). batch["true_len"] (B,), optional: per-row real prompt length
@@ -289,13 +379,14 @@ def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
-    eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
+    layers, linear = _effective(params, adapters, sites, peft, batch, bank,
+                                bank_profiles)
     ck_all, cv_all = cache["k"], cache["v"]
-    for li, lp in enumerate(_layers(eff)):
-        x, (k, v) = _attn_block(lp, x, cfg, positions)
+    for li, lp in enumerate(layers):
+        x, (k, v) = _attn_block(lp, x, cfg, linear, positions)
         ck_all[li, :, :S] = k.to(ck_all.dtype)
         cv_all[li, :, :S] = v.to(cv_all.dtype)
-        x = _mlp_block(lp, x, cfg)
+        x = _mlp_block(lp, x, cfg, linear)
     true_len = batch.get("true_len")
     if true_len is None:
         x = x[:, -1:]
@@ -359,8 +450,8 @@ def copy_page(cache: Dict, src: int, dst: int) -> Dict:
 
 
 def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
-                  cfg: ModelConfig, peft: PEFTConfig, sites
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
+                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
     """Shared-prefix tail prefill into the page pool: run only the unshared
     tail of a prompt whose first `prefix_len` tokens are already resident
     in pages, writing the tail's KV through the block table in place.
@@ -375,6 +466,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
       prefix_len   int      reused prefix tokens (present iff window_table)
       slot         int      slot whose pos becomes prefix_len + true_len
       scratch_page int      pad/overflow KV rows are routed to this page
+      adapter_slots         the bank's gather rows (with a bank)
 
     Returns (next_tokens (1,), cache) like `prefill`."""
     x = _embed(params, batch["tokens"])
@@ -383,7 +475,8 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     wt = batch.get("window_table")
     prefix_len = int(batch["prefix_len"]) if wt is not None else 0
     positions = _positions(B, T, dev, prefix_len)
-    eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
+    layers, linear = _effective(params, adapters, sites, peft, batch, bank,
+                                bank_profiles)
     bt = batch["block_table"]
     ps = cache["pk"].shape[2]
     cap = bt.shape[1] * ps
@@ -399,8 +492,8 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     w_page = torch.where(valid, bt[0].to(torch.int64)[safe // ps],
                          torch.full_like(j, int(batch["scratch_page"])))
     w_off = torch.where(valid, safe % ps, j % ps)
-    for li, lp in enumerate(_layers(eff)):
-        q, k, v = _qkv(lp, x, cfg, positions)
+    for li, lp in enumerate(layers):
+        q, k, v = _qkv(lp, x, cfg, linear, positions)
         pk, pv = cache["pk"][li], cache["pv"][li]
         if wt is not None:
             # the resident prefix, gathered BEFORE the tail writes (the
@@ -417,7 +510,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         # pad rows may collide inside the scratch page — dirt either way
         pk[w_page, w_off] = k[0].to(pk.dtype)
         pv[w_page, w_off] = v[0].to(pv.dtype)
-        x = _mlp_block(lp, x, cfg)
+        x = _mlp_block(lp, x, cfg, linear)
     x = x[:, tlen - 1][:, None]
     next_tokens = _greedy(_logits(params, x, cfg))
     pos = cache["pos"]
@@ -439,7 +532,8 @@ def paged_attention_op(cfg: ModelConfig, peft: PEFTConfig, device,
 
 def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites,
-                  paged_attention=None) -> Tuple[torch.Tensor, Dict]:
+                  paged_attention=None, bank=None,
+                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence: batch["tokens"] (B, 1). Returns
     (logits (B, 1, V), cache with pos + 1); the cache is written in place.
 
@@ -454,7 +548,8 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         positions = pos.to(torch.int32)[:, None]
     else:
         positions = _positions(B, 1, x.device, pos)
-    eff = apply_peft_to_layers(params["layers"], adapters, sites, peft)
+    layers, linear = _effective(params, adapters, sites, peft, batch, bank,
+                                bank_profiles)
     paged = None
     if "pk" in cache:
         if paged_attention is None:
@@ -462,19 +557,20 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                              "function (paged_attention_op)")
         paged = (batch["block_table"], paged_attention)
     kk, vk = ("pk", "pv") if paged is not None else ("k", "v")
-    for li, lp in enumerate(_layers(eff)):
-        x, _ = _attn_block(lp, x, cfg, positions,
+    for li, lp in enumerate(layers):
+        x, _ = _attn_block(lp, x, cfg, linear, positions,
                            cache_kv=(cache[kk][li], cache[vk][li]),
                            cache_pos=pos, paged=paged)
-        x = _mlp_block(lp, x, cfg)
+        x = _mlp_block(lp, x, cfg, linear)
     return _logits(params, x, cfg), {kk: cache[kk], vk: cache[vk],
                                      "pos": pos + 1}
 
 
 def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 cfg: ModelConfig, peft: PEFTConfig, sites,
-                paged_attention=None) -> Tuple[torch.Tensor, Dict]:
+                paged_attention=None, bank=None,
+                bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy `decode_logits`: (next_tokens (B,) int32, cache)."""
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
-                                  sites, paged_attention)
+                                  sites, paged_attention, bank, bank_profiles)
     return _greedy(logits), cache

@@ -1,6 +1,9 @@
-"""Serving: merged-adapter engine (`engine`), paged KV bookkeeping
-(`paging`) and the continuous-batching scheduler (`scheduler`)."""
-from repro_torch.serve.engine import Engine, Request, merge_for_serving  # noqa: F401
+"""Serving: merged-adapter engine and adapter bank (`engine`), paged KV
+bookkeeping (`paging`) and the continuous-batching scheduler
+(`scheduler`)."""
+from repro_torch.serve.engine import (  # noqa: F401
+    AdapterBank, BankFullError, Engine, Request, merge_for_serving,
+)
 from repro_torch.serve.paging import (  # noqa: F401
     OutOfPagesError, PageAllocator, PagedKVCache, PageError, PrefixCache,
 )

@@ -17,12 +17,21 @@ completion is due, when the EOS done-flag (copied to the host
 asynchronously, read one step late) comes back set, or every
 `eos_sync_every` steps.
 
+Admission is adapter-bank-aware: a request's tenant is touched when
+resident, loaded through `load_from_checkpoint` when not, with the tenants
+of live slots pinned against LRU eviction (evicting one would zero a row
+that a decoding slot gathers). A request whose tenant cannot be made
+resident now waits, without head-of-line blocking the rest of the queue.
+A slot stays live, and its tenant pinned, until its last token is drained:
+a completion found late by the buffered drain is released only then, so a
+slot re-primed for another tenant never gathers the old tenant's row.
+
 Outputs are exact per request: the same tokens `Engine.generate` gives run
 one request at a time.
 
 Not ported yet, and rejected by the constructor: the dense per-slot cache
-(`paged=False`), speculative decoding (`drafter`), tiering (`tiering`) and
-the adapter bank (ROADMAP queue 1).
+(`paged=False`), speculative decoding (`drafter`) and tiering (`tiering`)
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.engine import BankFullError, Engine, Request
 from repro_torch.serve.paging import PagedKVCache, PrefixCache, PrimePlan
 from repro_torch.serve.scheduler.metrics import ServingMetrics
 from repro_torch.serve.scheduler.queue import (
@@ -100,13 +109,13 @@ class ContinuousScheduler:
         unported = [name for name, on in (
             ("paged=False (the dense per-slot cache)", not paged),
             ("drafter (speculative decoding)", drafter is not None),
-            ("tiering", tiering is not None),
-            ("the adapter bank", engine.bank is not None)) if on]
+            ("tiering", tiering is not None)) if on]
         if unported:
             raise NotImplementedError(
                 f"{', '.join(unported)}: comes with a later slice (ROADMAP "
                 "queue 1)")
         self.engine = engine
+        self.bank = engine.bank
         self.model = engine.model
         self.device = engine.device
         self.n_slots = engine.batch
@@ -158,7 +167,7 @@ class ContinuousScheduler:
                 f"prompt ({S}) + max_new ({request.max_new}) needs "
                 f"{S + request.max_new - 1} cache positions, exceeding the "
                 f"persistent cache's max_len ({self.max_len})")
-        if request.adapter_id is not None:
+        if request.adapter_id is not None and self.bank is None:
             raise ValueError("request has an adapter_id but the engine "
                              "has no bank")
         if request.priority not in PRIORITIES:
@@ -171,11 +180,31 @@ class ContinuousScheduler:
         return rid
 
     # ---- admission --------------------------------------------------------
+    def _ensure_resident(self, sr: ScheduledRequest) -> bool:
+        """Make the request's tenant bank-resident (admission side effect).
+        False defers it: the bank is full of pinned (live) tenants."""
+        aid = sr.request.adapter_id
+        if aid is None:
+            return True
+        if aid in self.bank.resident_ids:
+            self.bank.touch(aid)
+            return True
+        pinned = [a for a in self.slots.adapter_ids() if a is not None]
+        try:
+            if self.bank.load_from_host(aid, pinned=pinned) is None:
+                self.bank.load_from_checkpoint(aid, pinned=pinned)
+        except BankFullError:
+            return False
+        return True
+
     def _try_admit(self, sr: ScheduledRequest) -> bool:
-        """Admission callback for the queue: match the prompt against the
-        prefix cache and allocate the slot's worst-case pages up front, so
-        decode never allocates. False defers the request without
-        head-of-line blocking the queue."""
+        """Admission callback for the queue: bank residency first, then the
+        page plan — match the prompt against the prefix cache and allocate
+        the slot's worst-case pages up front, so decode never allocates.
+        False defers the request without head-of-line blocking the
+        queue."""
+        if not self._ensure_resident(sr):
+            return False
         memo = self._prefix_keys.get(sr.rid)
         if memo is None:                     # hash + host-copy once;
             prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu())
@@ -234,8 +263,10 @@ class ContinuousScheduler:
             batch["window_table"] = torch.as_tensor(plan.block_row[None, :wp],
                                                     device=self.device)
             batch["prefix_len"] = plan.prefix_len
-        nt, self.cache = self.model.prefill_paged(self.engine.params,
-                                                  self.cache, batch)
+        params, extra = self.engine._batch_extra([sr.request.adapter_id],
+                                                 batch=1)
+        batch.update(extra)
+        nt, self.cache = self.model.prefill_paged(params, self.cache, batch)
         tok = int(nt.reshape(-1)[0])
         # publish the prompt's chunks for sharing only past the host sync
         # above: a failed prime must not leave prefix-cache entries pointing
@@ -310,10 +341,12 @@ class ContinuousScheduler:
         if self._toks_dev is None:
             self._toks_dev = self.engine.commit_tokens(
                 np.asarray(self._last, np.int32)[:, None])
+        # the bank's gather order is exactly the slots' occupants
+        params, extra = self.engine._batch_extra(self.slots.adapter_ids())
         nt, self.cache = self.model.decode_step(
-            self.engine.params, self.cache,
+            params, self.cache,
             {"tokens": self._toks_dev,
-             "block_table": self.pager.block_table_device()})
+             "block_table": self.pager.block_table_device(), **extra})
         # feed the device output straight back as the next step's input —
         # the host never sees tokens until a drain
         self._toks_dev = nt[:, None].clone()
@@ -360,6 +393,16 @@ class ContinuousScheduler:
                 yield ("token", sr.rid, tok, t)
                 if self.slots.note_token(slot, tok):
                     yield self._finish(slot, t)
+
+    def resource_gauges(self) -> Dict[str, float]:
+        """Occupancy gauges: bank residency, prefix-cache and page-pool
+        fill."""
+        out: Dict[str, float] = {}
+        if self.bank is not None:
+            out["bank_resident_adapters"] = float(len(self.bank.resident_ids))
+        out["prefix_cache_pages"] = float(len(self.pager.prefix_cache))
+        out["kv_pages_free"] = float(self.pager.allocator.free_count())
+        return out
 
     # ---- main loop --------------------------------------------------------
     @torch.no_grad()

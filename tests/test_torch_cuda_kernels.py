@@ -406,3 +406,75 @@ def test_eos_flag_reads_back_asynchronously(cuda_device):
     assert not _HostFlag(flag).ready_any()
     flag[2] = True
     assert _HostFlag(flag).ready_any()
+
+
+@pytest.mark.parametrize("d1,d2", [(4096, 4096), (4096, 512), (300, 520)])
+def test_fourier_bank_apply_matches_x_at_k1_delta(cuda_device, d1, d2):
+    """The FourierFT bank apply (cached f32 bases, einsum) against x @ ΔW
+    with ΔW from K1 for the same coefficients, per request row, within
+    atol 1e-6 / rtol 5e-4 (the JAX suite's factored tolerance) scaled by
+    the output's largest |value| as chip_smoke does."""
+    from repro_torch.core import adapter as adapter_api
+    m = adapter_api.resolve("fourierft")
+    peft = PEFTConfig(method="fourierft", n=1000 if d1 > 1000 else 64,
+                      alpha=300.0)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    entries = fourierft.sample_entries(d1, d2, peft.n, seed=7).to(cuda_device)
+    aux = {"entries": entries}
+    aux.update(m.frozen_tables(aux, d1, d2))
+    B = 4
+    c = torch.randn((B, peft.n), generator=gen, device=cuda_device)
+    x = torch.randn((B, 1, d1), generator=gen, device=cuda_device)
+    before = fdk.launches
+    y = m.bank_apply(x, {"c": c}, aux, d1, d2, peft)
+    dw = ops.fourier_deltaw_forward(c, entries, d1, d2, peft.alpha)
+    assert fdk.launches == before + 1
+    ref = torch.matmul(x, dw)
+    scale = float(ref.abs().max())
+    assert torch.allclose(y, ref, atol=1e-6 * scale, rtol=5e-4)
+
+
+def test_bank_scheduler_launches_k3_every_decode_layer(cuda_device, tmp_path):
+    """A bank of three methods over a reduced base, served by the
+    continuous scheduler on the card: K3 launches decode steps x layers,
+    and every request's first token equals the serial bank engine's (f32;
+    later tokens go through K3 on one side and the dense cache on the
+    other, so only the first is held bitwise)."""
+    from repro_torch.checkpoint import adapters as adapter_ckpt
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.serve import AdapterBank
+    cfg = configs.reduced(configs.get("yi-6b"), width=512).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    model = build(cfg, PEFTConfig(method="none"))
+    params = model.init(0, cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    profiles = {"fourierft": PEFTConfig(method="fourierft", n=64),
+                "lora": PEFTConfig(method="lora", lora_r=4),
+                "circulant": PEFTConfig(method="circulant")}
+    for m, prof in profiles.items():
+        tree = peft_mod.init_adapters(gen, model.sites, prof, cuda_device)
+        tree = {s: {k: torch.randn(v.shape, generator=gen,
+                                   device=cuda_device)
+                    if v.is_floating_point() else v for k, v in d.items()}
+                for s, d in tree.items()}
+        adapter_ckpt.export_adapter(str(tmp_path), f"t-{m}", tree, prof)
+    bank = AdapterBank(model, profiles, capacity=2,
+                       checkpoint_dir=str(tmp_path), device=cuda_device)
+    engine = Engine(model, params, batch_slots=3, max_len=32, bank=bank,
+                    device=cuda_device)
+    ids = ["t-fourierft", "t-lora", "t-circulant", None, "t-fourierft"]
+    reqs = [Request(prompt=torch.arange(4 + i, dtype=torch.int32) % 64,
+                    max_new=3 + i, adapter_id=a) for i, a in enumerate(ids)]
+    pa.launches = 0
+    sched = ContinuousScheduler(engine, page_size=8)
+    sched.serve(reqs, [0.0, 0.0, 1.0, 2.0, 3.0])
+    assert pa.launches == sched.metrics.steps * cfg.num_layers
+    for r in reqs:
+        if r.adapter_id is not None \
+                and r.adapter_id not in bank.resident_ids:
+            bank.load_from_checkpoint(r.adapter_id)
+        ref = engine.generate([r.prompt], max_new=r.max_new,
+                              adapter_ids=[r.adapter_id])[0].tolist()
+        assert len(r.out) == r.max_new and r.out[0] == ref[0]

@@ -77,9 +77,8 @@ def test_unported_paths_are_rejected():
                {"tiering": object()}):
         with pytest.raises(NotImplementedError, match="later slice"):
             ContinuousScheduler(engine, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Engine(model, params, batch_slots=2, max_len=32, device="cpu",
-               bank=object())
+    with pytest.raises(KeyError, match="later slice"):
+        build(model.cfg, PEFTConfig(method="full"))
     with pytest.raises(NotImplementedError, match="dense"):
         configs.get("olmoe-1b-7b")
     with pytest.raises(ValueError, match="interpret"):

@@ -84,7 +84,11 @@ def test_policy_refuses_an_over_limit_site_before_any_launch(method):
         kernel_api.KernelPolicy.build(method, sites, peft, "cuda").validate()
     ok = kernel_api.KernelPolicy.build(method, sites[:1], peft,
                                        "cuda").validate()
-    assert [r.backend for r in ok.resolutions] == ["cuda"]
+    assert [r.backend for r in ok.resolutions if r.op == "deltaw"] \
+        == ["cuda"]
+    # the factored and bank applies are einsum only, on the card too
+    assert {(r.op, r.backend) for r in ok.resolutions if r.op != "deltaw"} \
+        == {("factored_apply", "einsum"), ("bank_apply", "einsum")}
     cpu = kernel_api.KernelPolicy.build(method, sites, peft, "cpu").validate()
     assert {r.backend for r in cpu.resolutions} == {"einsum"}
     with pytest.raises(Unavailable, match="16384"):
@@ -97,7 +101,10 @@ def test_model_policy_on_cuda_for_the_slices_models():
     """yi-6b's wq (4096x4096) and wv (4096x512) sit inside the plan."""
     model = build(configs.get("yi-6b"), PEFTConfig(n=1000))
     policy = model.kernel_policy("cuda").validate()
-    assert {r.backend for r in policy.resolutions} == {"cuda"}
+    assert {r.backend for r in policy.resolutions if r.op == "deltaw"} \
+        == {"cuda"}
+    assert {r.backend for r in policy.resolutions if r.op != "deltaw"} \
+        == {"einsum"}
 
 
 def test_model_resolves_the_paged_attention_once():
