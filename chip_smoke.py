@@ -119,7 +119,37 @@ no result line:
               engine at SLICE_LAYERS and 32 layers, in turns, the bank
               step's device-busy share (torch.profiler) and the bytes of
               the frozen tables the bank built once.
-14. kernels — one JSON line with each kernel's launches, error and times.
+14. spec    — speculative decoding and the dense per-slot cache on phase
+              7's model in f32 (TF32 off), FourierFT merged by K1, 8 slots,
+              page 16, the launcher's trace: the self-drafter (k = 4: K3 at
+              W 1 for its probes and W 5 to verify) and the n-gram drafter
+              (k = 4: K3 at W 5 only) give the plain scheduler's streams,
+              the self-drafter more than one token per slot-step, and K3
+              launches exactly layers x verify steps at W 5 (x k more at
+              W 1 for the self-drafter); the dense cache (paged=False,
+              self k = 3) gives the same streams with no K3 launch; an EOS
+              inside the window (a token the plain run emits early) stops
+              the same requests at the same tokens; phase 13's tenants and
+              None over a bank of capacity 3 with the self-drafter (k = 3)
+              give the plain bank scheduler's streams, the None requests
+              the bare base's. K3 at the speculative path's shapes (8
+              slots, page 16, 8 pages a slot, W 4 and W 5, positions ragged
+              to 125, one window past the block table) inside
+              `verify_logits`, in f32 and then in bf16 at each timed depth:
+              every layer's K3 output within pak.agreement_limit of the
+              plain version on the same inputs, the logits within those of
+              the forward on the plain version (f32 atol = rtol = 1e-4 and
+              the same tokens; bf16 5e-2 of a row's largest |logit| at
+              SLICE_LAYERS, reported at 32 layers, where bf16 rounding
+              compounds over depth). Then
+              in bf16 at SLICE_LAYERS and 32 layers:
+              the trace's tokens/s plain, self and n-gram (two runs each, in
+              turns), tokens per slot-step, acceptance, the share of tokens
+              equal to the plain run's (bf16 logits can tie: reported, not
+              required), and one decode step, one verify step (W 5) and
+              one self-drafter step (4 probes + verify) alone at kv_len
+              101, wall and device time (torch.profiler).
+15. kernels — one JSON line with each kernel's launches, error and times.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -191,25 +221,42 @@ class PhaseError(RuntimeError):
     """A check of a phase failed: the message says which."""
 
 
-def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
-               pps: int, gen, timing_layers) -> int:
-    """Phase 13 (module docstring) on `dev`, over phase 7's model config
-    `cfg`, prompts and cache geometry. Returns K3's launches in the bank
-    trace; raises PhaseError when a check fails."""
+def device_ms(fn, n: int):
+    """(device ms per call, device kernels per call, the three kernels that
+    take most device time as (name, ms per call)) of `fn` from
+    torch.profiler; (None, None, []) when the trace shows no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [(ev.key, getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0)),
+            ev.count) for ev in prof.key_averages()]
+    evs = [e for e in evs if e[1] > 0]
+    tot = sum(t for _, t, _ in evs)
+    if tot <= 0:
+        return None, None, []
+    top = sorted(evs, key=lambda e: -e[1])[:3]
+    return (tot / n / 1e3, sum(c for _, _, c in evs) / n,
+            [(k_.split("(")[0][:60], t / n / 1e3) for k_, t, _ in top])
+
+
+def bank_tenants(dev, bmodel, bparams, tenant_dir: Path):
+    """Phase 13's five tenants (fourierft and dct n = 1000, alpha = 300;
+    lora r = 8; circulant alpha = 300; bitfit) on wq/wv of `bmodel`,
+    seeded and exported to `tenant_dir` (emptied first). Returns (the
+    bank's profiles by method, the tenant ids)."""
     import shutil
     import torch
     from repro_torch.checkpoint import adapters as adapter_ckpt
     from repro_torch.configs.base import PEFTConfig
     from repro_torch.core import adapter as adapter_api
     from repro_torch.core import peft as peft_mod
-    from repro_torch.kernels import dct_deltaw as ddk
-    from repro_torch.kernels import fourier_deltaw as fdk
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import paged_attention as pak
-    from repro_torch.launch.serve import demo_trace
-    from repro_torch.models import build
-    from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
-                                   Request)
     bank_profiles = {
         "fourierft": PEFTConfig(method="fourierft", n=1000, alpha=300.0),
         "dct": PEFTConfig(method="dct", n=1000, alpha=300.0),
@@ -218,15 +265,8 @@ def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
         "bitfit": PEFTConfig(method="bitfit"),
     }
     tenant_ids = [f"t-{m}" for m in bank_profiles]
-    bcfg = cfg.replace(dtype="float32", param_dtype="float32")
-    bmodel = build(bcfg, PEFTConfig(method="none"))
-    bparams = bmodel.init(0, dev)
     site_by_name = {s_.name: s_ for s_ in bmodel.sites}
-    tenant_dir = Path(__file__).resolve().parent / "build" / "smoke_tenants"
     shutil.rmtree(tenant_dir, ignore_errors=True)
-    print(f"[bank] yi-6b full width, {bcfg.num_layers} layers, float32 over "
-          f"the clean base; tenants {tenant_ids} on wq/wv, bank capacity 3, "
-          "the launcher's 12-request trace cycling the tenants and None")
 
     def moving_tenant(mname: str, prof, seed: int):
         """Seeded trainables scaled so that each site's ΔW has half the
@@ -257,6 +297,37 @@ def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
     for i, (mname, prof) in enumerate(bank_profiles.items()):
         adapter_ckpt.export_adapter(str(tenant_dir), tenant_ids[i],
                                     moving_tenant(mname, prof, 100 + i), prof)
+    return bank_profiles, tenant_ids
+
+
+def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
+               pps: int, gen, timing_layers) -> int:
+    """Phase 13 (module docstring) on `dev`, over phase 7's model config
+    `cfg`, prompts and cache geometry. Returns K3's launches in the bank
+    trace; raises PhaseError when a check fails."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import adapters as adapter_ckpt
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.core import adapter as adapter_api
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.kernels import dct_deltaw as ddk
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.launch.serve import demo_trace
+    from repro_torch.models import build
+    from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
+                                   Request)
+    bcfg = cfg.replace(dtype="float32", param_dtype="float32")
+    bmodel = build(bcfg, PEFTConfig(method="none"))
+    bparams = bmodel.init(0, dev)
+    site_by_name = {s_.name: s_ for s_ in bmodel.sites}
+    tenant_dir = Path(__file__).resolve().parent / "build" / "smoke_tenants"
+    bank_profiles, tenant_ids = bank_tenants(dev, bmodel, bparams, tenant_dir)
+    print(f"[bank] yi-6b full width, {bcfg.num_layers} layers, float32 over "
+          f"the clean base; tenants {tenant_ids} on wq/wv, bank capacity 3, "
+          "the launcher's 12-request trace cycling the tenants and None")
     bank = AdapterBank(bmodel, bank_profiles, capacity=3,
                        checkpoint_dir=str(tenant_dir), device=dev)
     bengine = Engine(bmodel, bparams, batch_slots=slots, max_len=max_len,
@@ -399,29 +470,6 @@ def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
     # decode-step time: the bank engine (five groups, all resident, 8 slots
     # gathering all five and the zero row) against the merged one-adapter
     # engine, bf16, same shapes, in turns; and the bank step's busy share
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    def device_ms(fn, n: int):
-        """(device ms per call, device kernels per call, the three kernels
-        that take most device time as (name, ms per call)); (None, None,
-        []) when the trace shows no device time."""
-        fn()
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [(ev.key, getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0.0)),
-                ev.count) for ev in prof.key_averages()]
-        evs = [e for e in evs if e[1] > 0]
-        tot = sum(t for _, t, _ in evs)
-        if tot <= 0:
-            return None, None, []
-        top = sorted(evs, key=lambda e: -e[1])[:3]
-        return (tot / n / 1e3, sum(c for _, _, c in evs) / n,
-                [(k_.split("(")[0][:60], t / n / 1e3) for k_, t, _ in top])
-
     def step_times(layers: int, steps: int = 12):
         tcfg_ = cfg.replace(num_layers=layers)
         fpeft = PEFTConfig(method="fourierft", n=1000, alpha=300.0)
@@ -454,7 +502,9 @@ def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
             prm, extra = eng._batch_extra(ids_ if eng is banked else None)
             batch = {"tokens": torch.randint(
                 0, tcfg_.vocab, (slots, 1), generator=g_, device=dev,
-                dtype=torch.int32), "block_table": bt, **extra}
+                dtype=torch.int32), "block_table": bt,
+                "scratch_pages": torch.arange(slots, dtype=torch.int32,
+                                              device=dev), **extra}
 
             @torch.no_grad()
             def one(eng=eng, cache=cache, prm=prm, batch=batch):
@@ -509,6 +559,351 @@ def bank_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
                                "bank_apply_max_abs_err": bank_err,
                                "decode_step": bank_timing}}))
     return k3_bank
+
+
+def spec_phase(dev, cfg, prompts, slots: int, max_len: int, ps: int,
+               pps: int, timing_layers) -> dict:
+    """Phase 14 (module docstring) on `dev`, over phase 7's model config
+    `cfg`, prompts and cache geometry. Returns K3's launches by path and
+    by W in the checked runs, and its largest |K3 - plain| at the path's
+    window shapes; raises PhaseError when a check fails."""
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.launch.serve import demo_trace
+    from repro_torch.models import build, transformer
+    from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
+                                   NGramDrafter, SelfDrafter)
+    L = cfg.num_layers
+    fpeft = PEFTConfig(method="fourierft", n=1000, alpha=300.0)
+
+    def serve(engine, reqs, arrivals, **kw):
+        """(scheduler, streams, K3 launches by W) of one trace replay."""
+        pak.launches, pak.launches_by_w = 0, {}
+        sched = ContinuousScheduler(engine, page_size=ps, **kw)
+        sched.serve(reqs, arrivals)
+        torch.cuda.synchronize()
+        if sched._pending:
+            raise PhaseError("spec: buffered decode entries left behind")
+        return sched, [r.out for r in reqs], dict(pak.launches_by_w)
+
+    def trace(tenants=()):
+        return demo_trace(prompts, 12 if tenants else 8, 16, 2.0, tenants)
+
+    def want(what, got, expected):
+        if got != expected:
+            raise PhaseError(f"spec {what}: K3 launches by W {got}, "
+                             f"expected {expected}")
+
+    k3_held = {}            # "dtype layers W W" -> K3 against plain
+
+    def hold_k3_windows(eng, label: str, gate_logits: bool = True):
+        """verify_logits on the serving cache geometry (8 slots, page 16,
+        8 pages a slot, the pools seeded) at W 4 (bank k = 3) and W 5
+        (k = 4), positions ragged to 125 (the last window runs past the
+        block table), twice: through K3, each layer's K3 output held
+        against the plain version on the same inputs within
+        pak.agreement_limit, and through the plain version; the logits
+        held at the tolerance of test_verify_step_through_k3_matches_plain
+        (f32 atol = rtol = 1e-4 and the same tokens; bf16 5e-2 of each
+        row's largest |logit|) where `gate_logits`, else reported: over 32
+        bf16 layers of a random-weight model the two forwards' rounding
+        compounds past that, while every layer's K3 output is held."""
+        m_ = eng.model
+        cache = eng._fresh_cache(paged=True, page_size=ps,
+                                 n_pages=slots * pps + slots)
+        dtype = cache["pk"].dtype
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(11)
+        for key in ("pk", "pv"):
+            cache[key].copy_(torch.randn(cache[key].shape, generator=g_,
+                                         device=dev).to(dtype))
+        extra = {"block_table": (torch.arange(slots * pps, dtype=torch.int32,
+                                              device=dev)
+                                 .reshape(slots, pps) + slots),
+                 "scratch_pages": torch.arange(slots, dtype=torch.int32,
+                                               device=dev)}
+        pos = torch.tensor([0, 1, 17, 40, 64, 99, 101, 125][:slots],
+                           dtype=torch.int32, device=dev)
+        k3 = m_.paged_attention(dev, dtype)
+        for W in (4, 5):
+            worst = {"err": 0.0, "of_limit": 0.0, "calls": 0}
+
+            def held(q, kp, vp, bt, kv_len):
+                out = k3(q, kp, vp, bt, kv_len)
+                ref = pak.paged_attention_reference(q.float(), kp.float(),
+                                                    vp.float(), bt, kv_len)
+                diff = (out.float() - ref).abs()
+                if not torch.isfinite(out.float()).all():
+                    raise PhaseError(f"spec K3 {label} W {W}: non-finite "
+                                     "output")
+                worst["err"] = max(worst["err"], float(diff.max()))
+                worst["of_limit"] = max(worst["of_limit"], float(
+                    (diff / pak.agreement_limit(ref, dtype)).max()))
+                worst["calls"] += 1
+                return out
+
+            toks = torch.randint(0, m_.cfg.vocab, (slots, W), generator=g_,
+                                 device=dev, dtype=torch.int32)
+            logits = {}
+            with torch.no_grad():
+                for name, fn in (("k3", held),
+                                 ("plain", pak.paged_attention_reference)):
+                    c_ = {key: cache[key].clone() for key in ("pk", "pv")}
+                    c_["pos"] = pos.clone()
+                    logits[name] = transformer.verify_logits(
+                        eng.params["base"], eng.params["peft"], c_,
+                        {"tokens": toks, **extra}, m_.cfg, m_.peft, m_.sites,
+                        paged_attention=fn)[0].float()
+                    del c_
+            lk, lp = logits["k3"], logits["plain"]
+            if dtype == torch.float32:
+                ok = (torch.allclose(lk, lp, atol=1e-4, rtol=1e-4)
+                      and torch.equal(lk.argmax(-1), lp.argmax(-1)))
+            else:
+                ok = bool(((lk - lp).abs()
+                           <= 5e-2 * lp.abs().amax(-1, keepdim=True)).all())
+            logit_err = float((lk - lp).abs().max())
+            if (worst["calls"] != m_.cfg.num_layers
+                    or not worst["of_limit"] <= 1.0
+                    or (gate_logits and not ok)):
+                raise PhaseError(
+                    f"spec K3 {label} W {W}: {worst['calls']} K3 calls, "
+                    f"K3 against its plain version {worst['err']:.3e} "
+                    f"({worst['of_limit']:.3f} of the limit), logits "
+                    f"max |diff| {logit_err:.3e} (within tolerance: {ok})")
+            k3_held[f"{label} W {W}"] = {**worst, "logits_err": logit_err,
+                                         "logits_within": ok}
+            print(f"[spec] K3 at W {W}, {label}, 8 slots, positions "
+                  f"{pos.tolist()}: max |K3 - plain| {worst['err']:.3e} "
+                  f"({worst['of_limit']:.3f} of the limit) over "
+                  f"{worst['calls']} layers; logits max |diff| "
+                  f"{logit_err:.3e} against the plain forward (within the "
+                  f"test's tolerance: {ok}, "
+                  f"{'required' if gate_logits else 'reported'})")
+        del cache
+
+    # ---- f32 checks on phase 7's merged FourierFT model --------------------
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    model = build(cfg32, fpeft)
+    params = model.init(0, dev)
+    fdk.launches = 0
+    engine = Engine(model, params, batch_slots=slots, max_len=max_len,
+                    device=dev)
+    if fdk.launches != 2:
+        raise PhaseError(f"spec: the merge launched K1 {fdk.launches} times, "
+                         "expected one per site (2)")
+    del params
+    print(f"[spec] yi-6b full width, {L} layers, float32 (TF32 off), "
+          f"FourierFT merged by K1; {slots} slots, page {ps}, the "
+          "launcher's 8-request trace")
+    hold_k3_windows(engine, f"float32 {L} layers")
+    plain, base, by_w = serve(engine, *trace())
+    want("plain", by_w, {1: plain.metrics.steps * L})
+    runs = {}
+    for label, drafter, kw in (
+            ("self k=4", SelfDrafter(k=4), {}),
+            ("ngram k=4", NGramDrafter(k=4), {}),
+            ("dense self k=3", SelfDrafter(k=3), {"paged": False})):
+        sched, outs, by_w = serve(engine, *trace(), drafter=drafter, **kw)
+        if outs != base:
+            raise PhaseError(f"spec {label}: streams differ from the plain "
+                             f"scheduler's: {outs} against {base}")
+        steps, k = sched.metrics.steps, drafter.k
+        expected = {}
+        if kw.get("paged", True):
+            expected[k + 1] = L * steps
+            if isinstance(drafter, SelfDrafter):
+                expected[1] = L * steps * k
+        want(label, by_w, expected)
+        sm = sched.metrics.summary()
+        runs[label] = {"verify_steps": steps, "launches_by_w": by_w,
+                       "tokens_per_step": sm["spec_tokens_per_step"],
+                       "accept_rate": sm["spec_accept_rate"]}
+        print(f"[spec] {label}: streams equal the plain scheduler's | "
+              f"{steps} verify steps against {plain.metrics.steps} decode "
+              f"steps, {sm['spec_tokens_per_step']:.2f} tokens per "
+              f"slot-step, accept rate {sm['spec_accept_rate']:.2f} | K3 "
+              f"launches by W {by_w}")
+    if not runs["self k=4"]["tokens_per_step"] > 1.0:
+        raise PhaseError("spec: the self-drafter emitted no more than one "
+                         "token per slot-step")
+    # EOS inside the window: the EOS id is a token the plain run emitted
+    # early in its longest stream, so at least one request stops short
+    longest = max(base, key=len)
+    eos = longest[2]
+    _, e_base, _ = serve(engine, *trace(), eos_id=eos)
+    _, e_spec, _ = serve(engine, *trace(), eos_id=eos,
+                         drafter=SelfDrafter(k=3))
+    reqs0, _ = trace()
+    cut = sum(len(o) < r.max_new for o, r in zip(e_spec, reqs0))
+    if e_spec != e_base or not cut:
+        raise PhaseError(f"spec EOS {eos}: streams {e_spec}, plain {e_base}, "
+                         f"{cut} requests cut short")
+    print(f"[spec] EOS {eos} inside the window (self k=3): streams equal "
+          f"the plain scheduler's, {cut} requests cut short")
+    del engine, plain
+
+    # ---- the bank's tenants and None with the self-drafter, f32 ------------
+    bmodel = build(cfg32, PEFTConfig(method="none"))
+    bparams = bmodel.init(0, dev)
+    tenant_dir = Path(__file__).resolve().parent / "build" / "smoke_tenants"
+    profiles, tenant_ids = bank_tenants(dev, bmodel, bparams, tenant_dir)
+    bank = AdapterBank(bmodel, profiles, capacity=3,
+                       checkpoint_dir=str(tenant_dir), device=dev)
+    bengine = Engine(bmodel, bparams, batch_slots=slots, max_len=max_len,
+                     bank=bank, device=dev)
+    bare = Engine(bmodel, bparams, batch_slots=slots, max_len=max_len,
+                  device=dev)
+    cycle = tenant_ids + [None]
+    _, b_base, _ = serve(bengine, *trace(cycle))
+    bsched, b_spec, b_w = serve(bengine, *trace(cycle),
+                                drafter=SelfDrafter(k=3))
+    if b_spec != b_base:
+        raise PhaseError(f"spec bank: streams {b_spec} differ from the plain "
+                         f"bank scheduler's {b_base}")
+    bsteps = bsched.metrics.steps
+    want("bank", b_w, {1: L * bsteps * 3, 4: L * bsteps})
+    _, n_bare, _ = serve(bare, *demo_trace(prompts, 12, 16, 2.0))
+    breqs, _ = trace(cycle)
+    for i, r in enumerate(breqs):
+        if r.adapter_id is None and b_spec[i] != n_bare[i]:
+            raise PhaseError(f"spec bank: the None request {i} decoded "
+                             f"{b_spec[i]}, the bare base {n_bare[i]}")
+    bsm = bsched.metrics.summary()
+    print(f"[spec] bank (5 tenants and None, capacity 3, self k=3): streams "
+          f"equal the plain bank scheduler's, None requests the bare "
+          f"base's | {bsteps} verify steps, "
+          f"{bsm['spec_tokens_per_step']:.2f} tokens per slot-step, accept "
+          f"rate {bsm['spec_accept_rate']:.2f} | K3 launches by W {b_w}")
+    runs["bank self k=3"] = {"verify_steps": bsteps, "launches_by_w": b_w,
+                             "tokens_per_step": bsm["spec_tokens_per_step"],
+                             "accept_rate": bsm["spec_accept_rate"]}
+    del bengine, bare, bank, bparams
+    shutil.rmtree(tenant_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- bf16 timing: the trace's tokens/s, decode and verify steps -------
+    def timing(layers: int, steps: int = 12):
+        tcfg = cfg.replace(num_layers=layers)
+        m_ = build(tcfg, fpeft)
+        eng = Engine(m_, m_.init(0, dev), batch_slots=slots,
+                     max_len=max_len, device=dev)
+        drafters = {"plain": lambda: None, "self": lambda: SelfDrafter(k=4),
+                    "ngram": lambda: NGramDrafter(k=4)}
+        hold_k3_windows(eng, f"bfloat16 {layers} layers",
+                        gate_logits=layers <= SLICE_LAYERS)
+        serve(eng, *trace())                              # warm-up
+        tps = {k_: [] for k_ in drafters}
+        outs, spec = {}, {}
+        for label in ("plain", "self", "ngram", "ngram", "self", "plain"):
+            sched, o, _ = serve(eng, *trace(), drafter=drafters[label]())
+            sm = sched.metrics.summary()
+            tps[label].append(sm["tokens_per_s"])
+            outs[label] = o
+            if label != "plain":
+                spec[label] = (sm["spec_tokens_per_step"],
+                               sm["spec_accept_rate"])
+        same = {}
+        for label in ("self", "ngram"):
+            pairs = [(a, b) for x, y in zip(outs[label], outs["plain"])
+                     for a, b in zip(x, y)]
+            same[label] = sum(a == b for a, b in pairs) / len(pairs)
+        # one step alone, 8 slots at kv_len 101, in turns: decode (W 1),
+        # verify (W 5), and the self-drafter's step (4 probes + verify)
+        cache = eng._fresh_cache(paged=True, page_size=ps,
+                                 n_pages=slots * pps + slots)
+        bt = (torch.arange(slots * pps, dtype=torch.int32, device=dev)
+              .reshape(slots, pps) + slots)
+        cache["pos"].fill_(100)
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(5)
+        win = torch.randint(0, tcfg.vocab, (slots, 5), generator=g_,
+                            device=dev, dtype=torch.int32)
+        extra = {"block_table": bt,
+                 "scratch_pages": torch.arange(slots, dtype=torch.int32,
+                                               device=dev)}
+
+        @torch.no_grad()
+        def decode():
+            eng.model.decode_step(eng.params, cache,
+                                  {"tokens": win[:, :1], **extra})
+
+        @torch.no_grad()
+        def verify():
+            eng.model.verify_step(eng.params, cache,
+                                  {"tokens": win, **extra})
+
+        @torch.no_grad()
+        def self_step():
+            c, t = cache, win[:, :1]
+            for _ in range(4):
+                nt, c = eng.model.decode_step(eng.params, c,
+                                              {"tokens": t, **extra})
+                t = nt[:, None]
+            eng.model.verify_step(eng.params, cache, {"tokens": win, **extra})
+
+        fns = {"decode": decode, "verify": verify, "self_step": self_step}
+        walls = {k_: [] for k_ in fns}
+        for label in ("decode", "verify", "self_step", "self_step", "verify",
+                      "decode"):
+            for _ in range(2):
+                fns[label]()
+            torch.cuda.synchronize()
+            for _ in range(steps // 2):
+                t0 = time.perf_counter()
+                fns[label]()
+                torch.cuda.synchronize()
+                walls[label].append(time.perf_counter() - t0)
+        res = {"layers": layers,
+               "tokens_per_s": tps,
+               "tokens_per_step": {k_: v[0] for k_, v in spec.items()},
+               "accept_rate": {k_: v[1] for k_, v in spec.items()},
+               "bf16_tokens_equal_plain": same}
+        for k_, fn in fns.items():
+            med = statistics.median(walls[k_]) * 1e3
+            d_ms, kernels, _ = device_ms(fn, 5)
+            res[f"{k_}_ms"] = med
+            res[f"{k_}_device_ms"] = d_ms
+            res[f"{k_}_busy_share"] = d_ms / med if d_ms else None
+            res[f"{k_}_kernels"] = kernels
+        del eng, cache, m_
+        torch.cuda.empty_cache()
+        return res
+
+    spec_timing = []
+    for layers in timing_layers:
+        r_ = timing(layers)
+        spec_timing.append(r_)
+        tps = {k_: statistics.mean(v) for k_, v in r_["tokens_per_s"].items()}
+        print(f"[spec] bf16, {layers} layers, 8 slots, the launcher's trace: "
+              f"tokens/s plain {tps['plain']:.1f}, self k=4 "
+              f"{tps['self']:.1f}, ngram k=4 {tps['ngram']:.1f} (means of "
+              f"two runs each, in turns: {r_['tokens_per_s']}) | tokens per "
+              f"slot-step {r_['tokens_per_step']}, accept rate "
+              f"{r_['accept_rate']} | bf16 tokens equal to the plain run's: "
+              f"{r_['bf16_tokens_equal_plain']}")
+        busy = {k_: (f"device {r_[k_ + '_device_ms']:.3f} ms in "
+                     f"{r_[k_ + '_kernels']:.0f} kernels, busy "
+                     f"{r_[k_ + '_busy_share']:.1%}"
+                     if r_[k_ + "_device_ms"] else "device not measured")
+                for k_ in ("decode", "verify", "self_step")}
+        print(f"[spec] bf16, {layers} layers, one step alone at kv_len 101 "
+              f"(median of 12 each, in turns): "
+              f"decode {r_['decode_ms']:.3f} ms ({busy['decode']}), verify "
+              f"W 5 {r_['verify_ms']:.3f} ms ({busy['verify']}), self-drafter "
+              f"step (4 probes + verify) {r_['self_step_ms']:.3f} ms "
+              f"({busy['self_step']})")
+    print(json.dumps({"spec": {"runs": runs, "timing": spec_timing,
+                               "k3_windows": k3_held}}))
+    return {"spec_serve": sum(runs["self k=4"]["launches_by_w"].values()),
+            "spec_bank_serve": sum(b_w.values()),
+            "w_gt_1": sum(n for r in runs.values()
+                          for w, n in r["launches_by_w"].items() if w > 1)
+            }, max(v["err"] for v in k3_held.values())
 
 
 def main() -> int:
@@ -1346,7 +1741,15 @@ def main() -> int:
     except PhaseError as e:
         return fail(str(e))
 
-    # ---- 14. kernels line ------------------------------------------------------
+    # ---- 14. spec: speculative decoding and the dense per-slot cache -------
+    try:
+        k3_spec, k3_spec_err = spec_phase(dev, cfg, prompts, slots,
+                                          max_len, ps, pps,
+                                          (SLICE_LAYERS, 32))
+    except PhaseError as e:
+        return fail(str(e))
+
+    # ---- 15. kernels line ------------------------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
         {"name": "fourier_deltaw", "route": "cuda",
@@ -1374,13 +1777,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:149",
          "launches": k3_launches,
-         "max_abs_err": max(v["err"] for v in k3.values()),
+         "max_abs_err": max([v["err"] for v in k3.values()]
+                            + [k3_spec_err]),
          "ms": kb["ms"], "plain_ms": kb["plain_ms"],
          "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
          "library_ms": kb["library_ms"],
          "library_call": "torch.nn.functional.scaled_dot_product_attention",
          "launches_by_path": {"serve": k3_launches, "dct_serve": k3_dct,
-                              "bank_serve": k3_bank},
+                              "bank_serve": k3_bank, **k3_spec},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

@@ -45,6 +45,7 @@ from repro_torch.kernels.api import KernelOp
 from repro_torch.models import attention as attn_mod
 
 launches = 0            # kernel launches made by `paged_attention`
+launches_by_w = {}      # the same launches by query rows per slot W
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256      # the widest head class the kernel is built for
@@ -284,6 +285,8 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_len):
         from repro_torch.kernels import build
         build.check(code, "paged_attention_launch")
     launches += 1
+    W = q.shape[1]
+    launches_by_w[W] = launches_by_w.get(W, 0) + 1
     return out
 
 

@@ -20,6 +20,15 @@ at admission. Without `--adapters` the bank runs over the clean base; with
 it the trained adapter is merged into the base first (K1 on the card) and
 the bank attaches on top.
 
+With `--continuous --speculative` the scheduler decodes draft-then-verify
+(`--drafter self`: the base model drafts `--draft-k` tokens through the
+decode step; `--drafter ngram`: prompt lookup on the host) and verifies
+each window in one forward (on the card the paged-attention kernel at
+W = k+1 rows). In f32 (TF32 off on the card) the streams are the plain
+loop's; in bf16 on the card they can part from it where two logits nearly
+tie. `--dense-cache` serves from the dense per-slot cache instead of the
+paged one.
+
     python -m repro_torch.launch.serve --arch yi-6b --continuous
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --device cpu
@@ -27,6 +36,10 @@ the bank attaches on top.
         --adapters /tmp/dct --continuous
     python -m repro_torch.launch.serve --arch yi-6b --reduced \
         --bank-dir /tmp/tenants --bank-capacity 2 --continuous --device cpu
+    python -m repro_torch.launch.serve --arch yi-6b --continuous \
+        --speculative --drafter self --draft-k 4
+    python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
+        --speculative --drafter ngram --dense-cache --device cpu
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
@@ -45,7 +58,8 @@ from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import resolve_device
 from repro_torch.models import build
-from repro_torch.serve import AdapterBank, ContinuousScheduler, Engine, Request
+from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
+                               NGramDrafter, Request, SelfDrafter)
 from repro_torch.train.step import join_params, split_params
 
 
@@ -124,8 +138,22 @@ def main(argv=None):
                     help="--continuous: number of replayed requests")
     ap.add_argument("--arrival-every", type=float, default=2.0,
                     help="--continuous: arrival gap in decode steps")
+    ap.add_argument("--dense-cache", action="store_true",
+                    help="--continuous: the dense per-slot KV cache instead "
+                         "of the default paged cache")
     ap.add_argument("--page-size", type=int, default=16,
                     help="--continuous: paged-cache page size (tokens)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="--continuous: draft-then-verify speculative "
+                         "decoding; greedy outputs equal the plain loop's "
+                         "in f32 (TF32 off on the card), and in bf16 on "
+                         "the card can part from them where logits nearly "
+                         "tie")
+    ap.add_argument("--drafter", default="self", choices=("self", "ngram"),
+                    help="--speculative: base-row self-drafter (the bank's "
+                         "zero row) or host-side n-gram prompt lookup")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="--speculative: draft tokens per slot per step")
     ap.add_argument("--n-pages", type=int, default=None,
                     help="--continuous: constrain the device page pool")
     ap.add_argument("--seed", type=int, default=0)
@@ -163,8 +191,13 @@ def main(argv=None):
     print(engine.kernel_policy.explain())
     prompts = demo_prompts(cfg, slots)
     if args.continuous:
-        sched = ContinuousScheduler(engine, page_size=args.page_size,
-                                    n_pages=args.n_pages)
+        drafter = None
+        if args.speculative:
+            drafter = (SelfDrafter(k=args.draft_k) if args.drafter == "self"
+                       else NGramDrafter(k=args.draft_k))
+        sched = ContinuousScheduler(engine, paged=not args.dense_cache,
+                                    page_size=args.page_size,
+                                    n_pages=args.n_pages, drafter=drafter)
         reqs, arrivals = demo_trace(prompts, args.trace_n, args.max_new,
                                     args.arrival_every, tenants)
         sched.serve(reqs, arrivals)
@@ -182,6 +215,12 @@ def main(argv=None):
               f"ttft {s['ttft_steps_mean']:.1f} steps (p90 "
               f"{s['ttft_steps_p90']:.1f}), "
               f"{s['tokens_per_s']:.0f} tok/s on {device}")
+        if "spec_accept_rate" in s:
+            print(f"speculative ({args.drafter}, k={args.draft_k}): "
+                  f"{s['spec_tokens_per_step']:.2f} tokens/step/slot, "
+                  f"accept rate {s['spec_accept_rate']:.2f}, "
+                  f"{s['spec_drafts_wasted']:.0f} drafts wasted over "
+                  f"{s['spec_slot_steps']:.0f} slot-steps")
         return
     ids = None
     if bank is not None:

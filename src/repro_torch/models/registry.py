@@ -8,7 +8,9 @@ dense transformer (the JAX package's `models/registry.py`, dense family).
     model.loss_from_parts(trainable, frozen_base, frozen_adapters, batch)
     model.prefill(params, cache, batch)     -> (next_tokens, cache)
     model.decode_step(params, cache, batch) -> (next_tokens, cache)
+    model.verify_step(params, cache, batch) -> (window tokens, cache)
     model.init_cache(batch, max_len, ...)   -> cache tree
+    model.write_slot / reset_slots / advance_pos -> per-slot cache updates
 
 With `bank_profiles` set (the serving Engine sets it on its own copy),
 forward / prefill / prefill_paged / decode read the adapter bank's rows
@@ -131,16 +133,32 @@ class Model:
         return self._call(transformer.prefill_paged, params, cache, batch)
 
     def decode_step(self, params: Dict, cache: Dict, batch: Dict):
-        return transformer.decode_step(
-            params["base"], params["peft"], cache, batch, self.cfg,
-            self.peft, self.sites, paged_attention=self._paged_fn(cache),
-            **self._bank_kwargs(params))
+        return self._call_attending(transformer.decode_step, params,
+                                    cache, batch)
 
     def decode_logits(self, params: Dict, cache: Dict, batch: Dict):
-        return transformer.decode_logits(
-            params["base"], params["peft"], cache, batch, self.cfg,
-            self.peft, self.sites, paged_attention=self._paged_fn(cache),
-            **self._bank_kwargs(params))
+        return self._call_attending(transformer.decode_logits, params,
+                                    cache, batch)
+
+    def verify_step(self, params: Dict, cache: Dict, batch: Dict):
+        """Draft verification: one forward over batch["tokens"] (B, W), the
+        last accepted token and W-1 drafts per slot, writing all W K/V
+        rows; returns the greedy continuation after each (B, W). `pos` does
+        not advance (`advance_pos` commits the accepted counts). A paged
+        cache reads through the same resolved attention as decode."""
+        return self._call_attending(transformer.verify_step, params,
+                                    cache, batch)
+
+    def verify_logits(self, params: Dict, cache: Dict, batch: Dict):
+        return self._call_attending(transformer.verify_logits, params,
+                                    cache, batch)
+
+    def _call_attending(self, fn, params: Dict, cache: Dict, batch: Dict):
+        """`fn` (a decode or verify function of `transformer`) with the
+        attention resolved for `cache` (None for a dense cache)."""
+        return fn(params["base"], params["peft"], cache, batch, self.cfg,
+                  self.peft, self.sites, paged_attention=self._paged_fn(cache),
+                  **self._bank_kwargs(params))
 
     def paged_attention(self, device, dtype):
         """The decode attention over a paged cache of `dtype` on `device`:
@@ -171,8 +189,19 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len, dtype,
                                       device, per_slot=per_slot)
 
+    def write_slot(self, cache: Dict, slot_cache: Dict, slot: int,
+                   length) -> Dict:
+        """In-flight prefill on the dense per-slot cache: splice a primed
+        batch-1 cache into slot row `slot` (position <- `length`)."""
+        return transformer.write_slot_cache(cache, slot_cache, slot, length)
+
     def reset_slots(self, cache: Dict, mask) -> Dict:
         return transformer.reset_slots(cache, mask)
+
+    def advance_pos(self, cache: Dict, delta) -> Dict:
+        """Per-slot position commit after verification ((B,) accepted
+        counts, or a scalar for the self-drafter's rollback)."""
+        return transformer.advance_pos(cache, delta)
 
     def copy_page(self, cache: Dict, src: int, dst: int) -> Dict:
         return transformer.copy_page(cache, src, dst)

@@ -22,11 +22,14 @@
   saves the projections' matmul outputs, the counterpart of JAX's
   `dots_with_no_batch_dims_saveable`).
 - Paged decode dispatches the registry's `paged_attention` op: on the card
-  that is the hand-written kernel (kernels/paged_attention.py).
+  that is the hand-written kernel (kernels/paged_attention.py). Draft
+  verification (`verify_logits`) dispatches the same op with W = k+1 query
+  rows per slot; its dense-cache form reads `windowed_decode_attention`.
 """
 from __future__ import annotations
 
 import functools
+import numbers
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -232,46 +235,22 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear, positions):
 
 
 def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
-                positions, *, cache_kv=None, cache_pos=None, paged=None):
+                positions, *, cache_kv=None, cache_pos: int = 0):
     """Pre-norm attention. Without `cache_kv` it is the causal prefill and
-    returns the post-RoPE (k, v). With `cache_kv=(k, v)` of one layer it is
-    the decode path, writing the new rows IN PLACE: an int `cache_pos` is
-    the lockstep batch, a (B,) tensor the per-slot path (each row at its own
-    position, ragged kv_len). `paged=(block_table, attn_fn)` makes cache_kv
-    a page-pool pair ((P, ps, K, hd)): each row's token goes to the page its
-    block-table row maps the position to, and `attn_fn` (the registry's
-    paged_attention op) reads K/V through the block table."""
+    returns the post-RoPE (k, v). With `cache_kv=(k, v)` of one layer of a
+    lockstep cache (every row at the int position `cache_pos`) it is the
+    lockstep decode, writing the new rows IN PLACE. Per-slot caches decode
+    through `verify_logits`."""
     B = x.shape[0]
     q, k, v = _qkv(lp, x, cfg, linear, positions)
     if cache_kv is None:
         att = attn_mod.attention(q, k, v, causal=True)
         new_kv = (k, v)
-    elif paged is not None:
-        bt, attn_fn = paged
-        pk, pv = cache_kv
-        ps = pk.shape[1]
-        # clamp keeps retired slots in bounds (their block-table rows point
-        # at the slot's reserved scratch page — dirt, never readable)
-        idx = torch.clamp(cache_pos, max=bt.shape[1] * ps - 1).to(torch.int64)
-        page = torch.gather(bt, 1, (idx // ps)[:, None])[:, 0].to(torch.int64)
-        off = idx % ps
-        pk[page, off] = k[:, 0].to(pk.dtype)
-        pv[page, off] = v[:, 0].to(pv.dtype)
-        att = attn_fn(q, pk, pv, bt, cache_pos + 1)
-        new_kv = (pk, pv)
     else:
         ck, cv = cache_kv
-        if isinstance(cache_pos, int):
-            S = k.shape[1]
-            ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-            cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-        else:
-            # per-slot: row i writes at its own position; the clamp keeps
-            # retired slots in bounds (their rows are dead under kv_len)
-            idx = torch.clamp(cache_pos, max=ck.shape[1] - 1).to(torch.int64)
-            rows = torch.arange(B, device=x.device)
-            ck[rows, idx] = k[:, 0].to(ck.dtype)
-            cv[rows, idx] = v[:, 0].to(cv.dtype)
+        S = k.shape[1]
+        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
         att = attn_mod.direct_attention(q, ck, cv, causal=False,
                                         kv_len=cache_pos + 1)
         new_kv = (ck, cv)
@@ -416,6 +395,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
     }
 
 
+def write_slot_cache(cache: Dict, slot_cache: Dict, slot: int,
+                     length) -> Dict:
+    """In-flight prefill splice: write one primed request's KV (a batch-1
+    cache of P <= max_len rows) into slot row `slot` of a per-slot dense
+    cache, in place, and set that slot's position to `length`. Every other
+    slot's rows and position are untouched."""
+    pos = cache["pos"]
+    if not torch.is_tensor(pos):
+        raise ValueError("write_slot_cache needs a per-slot cache")
+    P = slot_cache["k"].shape[2]
+    for key in ("k", "v"):
+        cache[key][:, slot, :P] = slot_cache[key][:, 0].to(cache[key].dtype)
+    pos[slot] = int(length)
+    return cache
+
+
 def reset_slots(cache: Dict, mask) -> Dict:
     """Retire slots: masked slots' positions return to 0 (their KV rows are
     left as they are — dead until overwritten, and unreadable meanwhile
@@ -425,6 +420,22 @@ def reset_slots(cache: Dict, mask) -> Dict:
         raise ValueError("reset_slots needs a per-slot cache")
     mask = torch.as_tensor(mask, dtype=torch.bool, device=pos.device)
     return {**cache, "pos": torch.where(mask, torch.zeros_like(pos), pos)}
+
+
+def advance_pos(cache: Dict, delta) -> Dict:
+    """Per-slot position commit for speculative decoding: `pos + delta`,
+    clamped at 0. `delta` is a (B,) array of accepted counts (0 for free
+    slots) or a scalar (the self-drafter rolls its k probe steps back with
+    -k); the clamp keeps free slots, which sit at 0, from going negative."""
+    pos = cache["pos"]
+    if not torch.is_tensor(pos):
+        raise ValueError("advance_pos needs a per-slot cache")
+    if isinstance(delta, numbers.Integral):
+        moved = pos + int(delta)
+    else:
+        moved = pos + torch.as_tensor(delta, dtype=pos.dtype,
+                                      device=pos.device)
+    return {**cache, "pos": torch.clamp(moved, min=0)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
@@ -537,32 +548,26 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     """One token for every sequence: batch["tokens"] (B, 1). Returns
     (logits (B, 1, V), cache with pos + 1); the cache is written in place.
 
-    A paged cache ("pk"/"pv" pools) takes batch["block_table"]
-    (B, pages_per_seq) and `paged_attention`, the function of the op
-    `paged_attention_op` resolved (`Model` resolves it once per device and
-    dtype)."""
-    x = _embed(params, batch["tokens"])
-    B = x.shape[0]
+    A per-slot cache (a (B,) `pos`, dense or paged) decodes as a
+    `verify_logits` window of one row and then advances `pos`; a paged
+    cache takes what that window takes (batch["block_table"],
+    batch["scratch_pages"] and `paged_attention`)."""
     pos = cache["pos"]
-    if torch.is_tensor(pos):            # per-slot cache: row i sits at pos[i]
-        positions = pos.to(torch.int32)[:, None]
-    else:
-        positions = _positions(B, 1, x.device, pos)
+    if torch.is_tensor(pos):
+        logits, cache = verify_logits(params, adapters, cache, batch, cfg,
+                                      peft, sites, paged_attention, bank,
+                                      bank_profiles)
+        return logits, {**cache, "pos": pos + 1}
+    x = _embed(params, batch["tokens"])
+    positions = _positions(x.shape[0], 1, x.device, pos)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
                                 bank_profiles)
-    paged = None
-    if "pk" in cache:
-        if paged_attention is None:
-            raise ValueError("a paged cache needs the paged_attention "
-                             "function (paged_attention_op)")
-        paged = (batch["block_table"], paged_attention)
-    kk, vk = ("pk", "pv") if paged is not None else ("k", "v")
     for li, lp in enumerate(layers):
         x, _ = _attn_block(lp, x, cfg, linear, positions,
-                           cache_kv=(cache[kk][li], cache[vk][li]),
-                           cache_pos=pos, paged=paged)
+                           cache_kv=(cache["k"][li], cache["v"][li]),
+                           cache_pos=pos)
         x = _mlp_block(lp, x, cfg, linear)
-    return _logits(params, x, cfg), {kk: cache[kk], vk: cache[vk],
+    return _logits(params, x, cfg), {"k": cache["k"], "v": cache["v"],
                                      "pos": pos + 1}
 
 
@@ -574,3 +579,94 @@ def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
                                   sites, paged_attention, bank, bank_profiles)
     return _greedy(logits), cache
+
+
+def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
+                  cfg: ModelConfig, peft: PEFTConfig, sites,
+                  paged_attention=None, bank=None,
+                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+    """Draft verification: one forward over a window of W consecutive
+    tokens per slot. batch["tokens"] (B, W) holds [last accepted token,
+    draft_1 .. draft_{W-1}]; window row j sits at position pos + j of a
+    per-slot cache. Returns (logits (B, W, V), cache); logits[:, j] score
+    the continuation after window token j.
+
+    Each layer writes all W K/V rows (in place) before its attention reads
+    them, and query row j attends columns < pos + 1 + j: the rows W
+    sequential decode steps would see. `pos` does not advance; the
+    scheduler commits each slot's accepted count with `advance_pos`, and
+    rejected rows stay past kv_len until a later window overwrites them.
+
+    Paged cache: batch["block_table"] (B, PPS) routes the writes; a
+    position at or past PPS·ps goes to batch["scratch_pages"][b] (slot b's
+    scratch page, `PagedKVCache.scratch_pages_device`) at offset j % ps,
+    never clamped onto a real row. Attention is `paged_attention` with
+    kv_len = pos + 1 (on the card the paged-attention kernel at W rows).
+    Dense cache: rows past max_len are dropped, attention is
+    `windowed_decode_attention`. `decode_logits` on a per-slot cache is
+    this function at W = 1."""
+    x = _embed(params, batch["tokens"])
+    B, W = x.shape[0], x.shape[1]
+    dev = x.device
+    pos = cache["pos"]
+    if not torch.is_tensor(pos):
+        raise ValueError("verify needs a per-slot cache")
+    j = torch.arange(W, dtype=torch.int64, device=dev)
+    positions = pos.to(torch.int64)[:, None] + j[None, :]        # (B, W)
+    kv_len = pos + 1                          # what query row 0 sees
+    layers, linear = _effective(params, adapters, sites, peft, batch, bank,
+                                bank_profiles)
+    paged = "pk" in cache
+    if paged:
+        if paged_attention is None:
+            raise ValueError("a paged cache needs the paged_attention "
+                             "function (paged_attention_op)")
+        bt = batch["block_table"]
+        ps = cache["pk"].shape[2]
+        valid = positions < bt.shape[1] * ps
+        safe = torch.where(valid, positions, torch.zeros_like(positions))
+        w_page = torch.where(valid, torch.gather(bt.to(torch.int64), 1,
+                                                 safe // ps),
+                             batch["scratch_pages"].to(torch.int64)[:, None])
+        w_off = torch.where(valid, safe % ps, (j % ps)[None, :])
+        kk, vk = "pk", "pv"
+    else:
+        # drop the rows past max_len without a host sync: they are written
+        # clamped onto column T-1, then each slot's window row that owns
+        # column T-1 (or, without overflow, its last row) is written again
+        T = cache["k"].shape[2]
+        rows = torch.arange(B, device=dev)
+        col = torch.clamp(positions, max=T - 1)
+        own = torch.clamp(T - 1 - pos.to(torch.int64), 0, W - 1)     # (B,)
+        own_col = torch.clamp(pos.to(torch.int64) + own, max=T - 1)
+        kk, vk = "k", "v"
+    for li, lp in enumerate(layers):
+        q, k, v = _qkv(lp, x, cfg, linear, positions)
+        ck, cv = cache[kk][li], cache[vk][li]
+        if paged:
+            # write, then attend: rows of one slot past its pages share
+            # its scratch page at distinct offsets while W <= ps
+            ck[w_page, w_off] = k.to(ck.dtype)
+            cv[w_page, w_off] = v.to(cv.dtype)
+            att = paged_attention(q, ck, cv, bt, kv_len)
+        else:
+            for c, t in ((ck, k), (cv, v)):
+                c[rows[:, None], col] = t.to(c.dtype)
+                if W > 1:               # one row needs no second write
+                    c[rows, own_col] = t[rows, own].to(c.dtype)
+            att = attn_mod.windowed_decode_attention(q, ck, cv, kv_len)
+        x = x + linear(lp, "wo", att.reshape(B, W, cfg.attn_dim))
+        x = _mlp_block(lp, x, cfg, linear)
+    return _logits(params, x, cfg), {kk: cache[kk], vk: cache[vk],
+                                     "pos": pos}
+
+
+def verify_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
+                cfg: ModelConfig, peft: PEFTConfig, sites,
+                paged_attention=None, bank=None,
+                bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+    """Greedy `verify_logits`: (tokens (B, W) int32, cache), tokens[:, j]
+    the greedy continuation after window token j."""
+    logits, cache = verify_logits(params, adapters, cache, batch, cfg, peft,
+                                  sites, paged_attention, bank, bank_profiles)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache

@@ -1,6 +1,6 @@
 """Serving: merged-adapter engine and adapter bank (`engine`), paged KV
-bookkeeping (`paging`) and the continuous-batching scheduler
-(`scheduler`)."""
+bookkeeping (`paging`), the continuous-batching scheduler (`scheduler`)
+and its speculative drafters (`spec`)."""
 from repro_torch.serve.engine import (  # noqa: F401
     AdapterBank, BankFullError, Engine, Request, merge_for_serving,
 )
@@ -10,3 +10,4 @@ from repro_torch.serve.paging import (  # noqa: F401
 from repro_torch.serve.scheduler import (  # noqa: F401
     ContinuousScheduler, RequestQueue, ServingMetrics, SlotManager,
 )
+from repro_torch.serve.spec import NGramDrafter, SelfDrafter  # noqa: F401

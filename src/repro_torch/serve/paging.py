@@ -266,6 +266,7 @@ class PagedKVCache:
             np.arange(n_slots, dtype=np.int32)[:, None], (1, pps))
         self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
         self._device_bt = None
+        self._device_scratch = None
 
     # ---- admission --------------------------------------------------------
     def plan_admit(self, slot: int, prompt: np.ndarray, max_new: int,
@@ -431,6 +432,17 @@ class PagedKVCache:
             self._device_bt = torch.as_tensor(self.block_tables,
                                               device=self.device)
         return self._device_bt
+
+    def scratch_pages_device(self):
+        """(n_slots,) int32 torch tensor on the pool's device: slot i's
+        scratch page, page i, where its writes past its own pages go."""
+        if self.device is None:
+            raise ValueError("PagedKVCache was built without a device")
+        if self._device_scratch is None:
+            import torch
+            self._device_scratch = torch.arange(
+                self.n_slots, dtype=torch.int32, device=self.device)
+        return self._device_scratch
 
     # ---- invariants (tests) -----------------------------------------------
     def holders(self) -> Dict[int, int]:

@@ -1,15 +1,18 @@
 """Continuous-batching runtime over the slot Engine (the JAX package's
-`serve/scheduler/runtime.py`, paged path).
+`serve/scheduler/runtime.py`, without tiering).
 
-One persistent PAGED KV cache: K/V in a global pool of fixed-size pages,
-each slot mapping its logical positions onto pages through a block-table
-row, with page-aligned prompt prefixes reused across requests so the prime
-prefill computes only the unshared tail (copy-on-write when a prompt is
-exactly a cached prefix). Every slot decodes at its own position and ragged
-kv_len; requests are admitted into FREE slots the moment a slot and the
-request's worst-case page count are available, and a slot is recycled — its
-pages freed — the very step its request completes. In-flight prefill primes
-one slot while the other slots keep decoding.
+One persistent PAGED KV cache by default: K/V in a global pool of
+fixed-size pages, each slot mapping its logical positions onto pages
+through a block-table row, with page-aligned prompt prefixes reused across
+requests so the prime prefill computes only the unshared tail
+(copy-on-write when a prompt is exactly a cached prefix). `paged=False`
+keeps a dense per-slot cache instead (max_len rows per slot; the prime
+prefills a batch-1 cache and splices it into the slot with `write_slot`).
+Every slot decodes at its own position and ragged kv_len; requests are
+admitted into FREE slots the moment a slot (and, paged, the request's
+worst-case page count) is available, and a slot is recycled — its pages
+freed — the very step its request completes. In-flight prefill primes one
+slot while the other slots keep decoding.
 
 Decode feeds its own device output back as the next step's input; emitted
 tokens buffer on the device and drain in one transfer when a budget
@@ -26,12 +29,22 @@ A slot stays live, and its tenant pinned, until its last token is drained:
 a completion found late by the buffered drain is released only then, so a
 slot re-primed for another tenant never gathers the old tenant's row.
 
-Outputs are exact per request: the same tokens `Engine.generate` gives run
-one request at a time.
+Speculative decoding (`drafter=`, serve/spec.py): each step the drafter
+proposes k tokens per slot, ONE `verify_step` forward scores the window
+[last token, drafts] (W = k+1 query rows per slot; on the card the
+paged-attention kernel at W rows), and each slot keeps the longest prefix
+greedy decoding would have emitted. The window and the scores come back
+in one device-to-host transfer per step; the accepted counts commit to the
+cache's positions with `advance_pos`.
 
-Not ported yet, and rejected by the constructor: the dense per-slot cache
-(`paged=False`), speculative decoding (`drafter`) and tiering (`tiering`)
-(ROADMAP queue 1).
+Outputs are exact per request: the same tokens `Engine.generate` gives run
+one request at a time, on either cache. With a drafter that holds in f32
+(TF32 off on the card); in bf16 on the card the verify window's matrix
+products (B·W rows) round differently from decode's (B rows), and a stream
+can part from the plain loop's where two logits nearly tie (PERF.md §6).
+
+Not ported yet, and rejected by the constructor: tiering (`tiering`,
+ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -93,8 +106,12 @@ class ContinuousScheduler:
     policy:  RequestQueue admission order ("fcfs" | "resident_first" |
              "fair").
     bucket:  pad prime prefills to pow2 prompt buckets.
+    paged:   block-table page-pool cache with shared-prefix reuse (the
+             default); False: the dense per-slot cache.
     page_size / n_pages: paged-cache geometry (n_pages defaults to the
              zero-sharing worst case plus prefix-cache headroom).
+    drafter: a `serve.spec.Drafter` switches the decode loop to
+             draft-then-verify speculative decoding.
 
     `events()` yields ("admit", rid, slot, t), ("token", rid, token, t) and
     ("done", rid, tokens, t) tuples; `serve(requests, arrivals)` replays a
@@ -106,14 +123,9 @@ class ContinuousScheduler:
                  paged: bool = True, page_size: int = 16,
                  n_pages: Optional[int] = None, drafter=None,
                  eos_sync_every: int = 4, tiering=None):
-        unported = [name for name, on in (
-            ("paged=False (the dense per-slot cache)", not paged),
-            ("drafter (speculative decoding)", drafter is not None),
-            ("tiering", tiering is not None)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: comes with a later slice (ROADMAP "
-                "queue 1)")
+        if tiering is not None:
+            raise NotImplementedError("tiering: comes with a later slice "
+                                      "(ROADMAP queue 1)")
         self.engine = engine
         self.bank = engine.bank
         self.model = engine.model
@@ -123,20 +135,25 @@ class ContinuousScheduler:
         self.eos_id = eos_id
         self.bucket = bucket
         self.queue = RequestQueue(policy)
-        self.pager = PagedKVCache(self.n_slots, self.max_len,
-                                  page_size=page_size, n_pages=n_pages,
-                                  device=self.device)
+        self.pager: Optional[PagedKVCache] = None
+        if paged:
+            self.pager = PagedKVCache(self.n_slots, self.max_len,
+                                      page_size=page_size, n_pages=n_pages,
+                                      device=self.device)
         self.slots = SlotManager(self.n_slots, eos_id=eos_id,
                                  on_release=self._release_pages)
         self.metrics = ServingMetrics()
         self.t = 0.0                           # decode-step clock
-        self.cache = engine._fresh_cache(paged=True,
-                                         page_size=self.pager.page_size,
-                                         n_pages=self.pager.n_pages)
-        # the decode attention, resolved once (the model keeps it) for its
-        # head_dim and the cache's dtype: a kernel that cannot take them
-        # refuses here, before the first decode step
-        self.model.paged_attention(self.device, self.cache["pk"].dtype)
+        if paged:
+            self.cache = engine._fresh_cache(paged=True,
+                                             page_size=self.pager.page_size,
+                                             n_pages=self.pager.n_pages)
+            # the decode attention, resolved once (the model keeps it) for
+            # its head_dim and the cache's dtype: a kernel that cannot take
+            # them refuses here, before the first decode step
+            self.model.paged_attention(self.device, self.cache["pk"].dtype)
+        else:
+            self.cache = engine._fresh_cache(per_slot=True)
         self._sr: List[Optional[ScheduledRequest]] = [None] * self.n_slots
         self._plans: Dict[int, PrimePlan] = {}
         self._prefix_keys: Dict[int, tuple] = {}   # rid -> memoized hashes
@@ -150,6 +167,9 @@ class ContinuousScheduler:
         self._toks_dev: Optional[torch.Tensor] = None   # (B, 1) next inputs
         self._flag_dev: Optional[torch.Tensor] = None   # (B,) done-flags
         self._flag_prev: Optional[_HostFlag] = None     # last copy in flight
+        self.drafter = drafter
+        if drafter is not None:
+            drafter.bind(self)
 
     # ---- submission -------------------------------------------------------
     def submit(self, request: Request, arrival: float = 0.0) -> int:
@@ -205,6 +225,8 @@ class ContinuousScheduler:
         queue."""
         if not self._ensure_resident(sr):
             return False
+        if self.pager is None:
+            return True
         memo = self._prefix_keys.get(sr.rid)
         if memo is None:                     # hash + host-copy once;
             prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu())
@@ -225,7 +247,8 @@ class ContinuousScheduler:
     def _release_pages(self, slot: int, snapshot) -> None:
         """SlotManager release hook: a recycled slot frees its pages the
         same scheduler step its request completes."""
-        self.pager.release(slot)
+        if self.pager is not None:
+            self.pager.release(slot)
 
     def _bucketed_prompt(self, tokens: np.ndarray) -> Dict:
         """{tokens, true_len?} for a batch-1 prefill, pow2-bucketed and
@@ -240,13 +263,30 @@ class ContinuousScheduler:
                                            device=self.device)
         return batch
 
-    def _prime(self, sr: ScheduledRequest, slot: int) -> int:
-        """In-flight prefill: run the UNSHARED TAIL of the prompt through a
-        batch-1 paged prefill that writes its KV into the slot's pages.
-        Reused prefix pages enter the tail's attention through the
-        block-table window, after the COW clone when the plan calls for
-        one. Returns the first generated token."""
+    def _prime(self, sr: ScheduledRequest, slot: int,
+               prompt: np.ndarray) -> int:
+        """In-flight prefill of `prompt` (the request's, on the host);
+        returns the first generated token. Paged: run
+        the UNSHARED TAIL of the prompt through a batch-1 paged prefill
+        that writes its KV into the slot's pages; reused prefix pages enter
+        the tail's attention through the block-table window, after the COW
+        clone when the plan calls for one. Dense: prefill the prompt into a
+        batch-1 cache and splice it into the slot's row."""
         t0 = time.perf_counter()
+        params, extra = self.engine._batch_extra([sr.request.adapter_id],
+                                                 batch=1)
+        if self.pager is None:
+            batch = self._bucketed_prompt(prompt)
+            batch.update(extra)
+            scratch = self.model.init_cache(
+                1, int(batch["tokens"].shape[1]), self.cache["k"].dtype,
+                self.device)
+            nt, scratch = self.model.prefill(params, scratch, batch)
+            self.cache = self.model.write_slot(self.cache, scratch, slot,
+                                               int(prompt.shape[0]))
+            tok = int(nt.reshape(-1)[0])
+            self.metrics.on_prime(sr.rid, time.perf_counter() - t0)
+            return tok
         plan = self._plans.pop(sr.rid)
         if plan.cow is not None:
             self.cache = self.model.copy_page(self.cache, *plan.cow)
@@ -263,8 +303,6 @@ class ContinuousScheduler:
             batch["window_table"] = torch.as_tensor(plan.block_row[None, :wp],
                                                     device=self.device)
             batch["prefix_len"] = plan.prefix_len
-        params, extra = self.engine._batch_extra([sr.request.adapter_id],
-                                                 batch=1)
         batch.update(extra)
         nt, self.cache = self.model.prefill_paged(params, self.cache, batch)
         tok = int(nt.reshape(-1)[0])
@@ -284,20 +322,24 @@ class ContinuousScheduler:
 
     def _admit_one(self, sr: ScheduledRequest) -> Iterator[Event]:
         """Acquire + prime one accepted request."""
-        plan = self._plans[sr.rid]
+        plan = self._plans.get(sr.rid)
         slot = self.slots.acquire(sr.rid, budget=sr.request.max_new,
                                   adapter_id=sr.request.adapter_id,
                                   prompt_len=int(sr.request.prompt.shape[0]),
-                                  slot=plan.slot)
+                                  slot=plan.slot if plan else None)
         self._sr[slot] = sr
         self.metrics.on_admit(sr.rid, self.t)
-        tok = self._prime(sr, slot)
+        prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu(),
+                            np.int32)
+        tok = self._prime(sr, slot, prompt)
         self._outs[sr.rid] = [tok]
         self._last[slot] = tok
         if self._toks_dev is not None:
             # mid-buffer admission: in-flight slots' next tokens live only
             # on the device, so splice the new slot's first token in
             self._toks_dev[slot, 0] = tok
+        if self.drafter is not None:
+            self.drafter.on_prime(slot, prompt, tok)
         self.metrics.on_token(sr.rid, self.t)
         self.queue.note_usage(sr.request.adapter_id, 1)
         yield ("admit", sr.rid, slot, self.t)
@@ -312,6 +354,8 @@ class ContinuousScheduler:
         self._last[slot] = 0
         self.slots.release(slot)
         self._stale.add(slot)          # reset is batched into the next step
+        if self.drafter is not None:
+            self.drafter.on_release(slot)
         toks = self._outs.pop(sr.rid)
         sr.request.out = toks
         self.metrics.on_finish(sr.rid, t)
@@ -328,6 +372,16 @@ class ContinuousScheduler:
             mask[list(stale)] = True
             self.cache = self.model.reset_slots(self.cache, mask)
 
+    def _batch_inputs(self) -> Tuple[Dict, Dict]:
+        """(params, extra) for a full-batch decode or verify call: the
+        bank's gather rows in slot order (the slots' occupants) and, paged,
+        the block table and the slots' scratch pages."""
+        params, extra = self.engine._batch_extra(self.slots.adapter_ids())
+        if self.pager is not None:
+            extra["block_table"] = self.pager.block_table_device()
+            extra["scratch_pages"] = self.pager.scratch_pages_device()
+        return params, extra
+
     def _min_budget_left(self) -> int:
         """Tokens until the EARLIEST budget completion among active slots,
         counted from the last drain."""
@@ -341,12 +395,9 @@ class ContinuousScheduler:
         if self._toks_dev is None:
             self._toks_dev = self.engine.commit_tokens(
                 np.asarray(self._last, np.int32)[:, None])
-        # the bank's gather order is exactly the slots' occupants
-        params, extra = self.engine._batch_extra(self.slots.adapter_ids())
+        params, extra = self._batch_inputs()
         nt, self.cache = self.model.decode_step(
-            params, self.cache,
-            {"tokens": self._toks_dev,
-             "block_table": self.pager.block_table_device(), **extra})
+            params, self.cache, {"tokens": self._toks_dev, **extra})
         # feed the device output straight back as the next step's input —
         # the host never sees tokens until a drain
         self._toks_dev = nt[:, None].clone()
@@ -394,27 +445,84 @@ class ContinuousScheduler:
                 if self.slots.note_token(slot, tok):
                     yield self._finish(slot, t)
 
+    # ---- speculative decode ------------------------------------------------
+    def _spec_decode_once(self) -> Iterator[Event]:
+        """One draft-then-verify step: the drafter proposes k tokens per
+        slot, ONE `verify_step` forward scores the (n_slots, k+1) window,
+        and each active slot accepts the longest prefix greedy decoding
+        would have emitted — token j is kept iff draft j matched the
+        model's own output after token j-1, with EOS and budget clamping
+        anywhere inside the window. The accepted counts commit to the
+        device `pos` with `advance_pos` (0 for free slots); rejected rows
+        stay past kv_len until a later window overwrites them."""
+        self._flush_stale()
+        active = self.slots.active_slots()
+        params, extra = self._batch_inputs()
+        k = self.drafter.k
+        # the window is assembled on the device whether the drafts come
+        # from the device (SelfDrafter) or the host (NGramDrafter)
+        drafts = torch.as_tensor(self.drafter.propose(), dtype=torch.int32,
+                                 device=self.device)
+        last = self.engine.commit_tokens(np.asarray(self._last, np.int32))
+        win_dev = torch.cat([last[:, None], drafts], dim=1)
+        out, self.cache = self.model.verify_step(
+            params, self.cache, {"tokens": win_dev, **extra})
+        self.t += 1
+        self.metrics.on_step(len(active), self.n_slots)
+        # the step's one device-to-host transfer: the window and its scores
+        wa = torch.cat([win_dev, out], dim=1).cpu().numpy()
+        win, arr = wa[:, :k + 1], wa[:, k + 1:]
+        deltas = np.zeros((self.n_slots,), np.int32)
+        for slot in active:
+            sr = self._sr[slot]
+            # token 0 is the mandatory next token; token j is valid iff
+            # draft j matched the model's own continuation after token j-1
+            accepted = [int(arr[slot, 0])]
+            for j in range(1, k + 1):
+                if win[slot, j] != arr[slot, j - 1]:
+                    break
+                accepted.append(int(arr[slot, j]))
+            n_emit, done = self.slots.note_window(slot, accepted)
+            emitted = accepted[:n_emit]         # budget / EOS clamp
+            for tok in emitted:
+                self._outs[sr.rid].append(tok)
+                self._last[slot] = tok
+                self.metrics.on_token(sr.rid, self.t)
+                self.queue.note_usage(sr.request.adapter_id, 1)
+                yield ("token", sr.rid, tok, self.t)
+            deltas[slot] = n_emit
+            self.drafter.on_tokens(slot, emitted)
+            self.metrics.on_spec(sr.rid, drafted=k, accepted=n_emit - 1,
+                                 emitted=n_emit)
+            if done:
+                yield self._finish(slot)
+        self.cache = self.model.advance_pos(self.cache, deltas)
+
     def resource_gauges(self) -> Dict[str, float]:
-        """Occupancy gauges: bank residency, prefix-cache and page-pool
-        fill."""
+        """Occupancy gauges: bank residency and, paged, prefix-cache and
+        page-pool fill."""
         out: Dict[str, float] = {}
         if self.bank is not None:
             out["bank_resident_adapters"] = float(len(self.bank.resident_ids))
-        out["prefix_cache_pages"] = float(len(self.pager.prefix_cache))
-        out["kv_pages_free"] = float(self.pager.allocator.free_count())
+        if self.pager is not None:
+            out["prefix_cache_pages"] = float(len(self.pager.prefix_cache))
+            out["kv_pages_free"] = float(self.pager.allocator.free_count())
         return out
 
     # ---- main loop --------------------------------------------------------
     @torch.no_grad()
     def tick(self) -> List[Event]:
         """ONE scheduler round — admit every admissible arrived request,
-        then (if anything is decoding) one decode step — returning the
-        round's events. Returns [] when there is nothing to do right now
-        (the round idle-skips the clock to the next arrival). Every prefill
-        and decode runs here, without autograd."""
+        then (if anything is decoding) one decode or verify step —
+        returning the round's events. Returns [] when there is nothing to
+        do right now (the round idle-skips the clock to the next arrival).
+        Every prefill, decode and verify runs here, without autograd."""
         evs: List[Event] = list(self._admit_ready())
         if self.slots.any_active():
-            evs.extend(self._decode_once())
+            if self.drafter is not None:
+                evs.extend(self._spec_decode_once())
+            else:
+                evs.extend(self._decode_once())
         else:
             nxt = self.queue.next_arrival()
             if nxt is not None and nxt > self.t:

@@ -21,7 +21,8 @@ from repro_torch.kernels import fourier_deltaw as fdk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import build
-from repro_torch.serve import ContinuousScheduler, Engine, Request
+from repro_torch.serve import (ContinuousScheduler, Engine, NGramDrafter,
+                               Request, SelfDrafter)
 
 pytestmark = pytest.mark.cuda
 
@@ -478,3 +479,100 @@ def test_bank_scheduler_launches_k3_every_decode_layer(cuda_device, tmp_path):
         ref = engine.generate([r.prompt], max_new=r.max_new,
                               adapter_ids=[r.adapter_id])[0].tolist()
         assert len(r.out) == r.max_new and r.out[0] == ref[0]
+
+
+def _window_model(device, dtype):
+    """A reduced yi-6b (head_dim 128) in `dtype` on `device`, its params
+    seeded, and the same model on the plain attention (einsum backend)."""
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = configs.reduced(configs.get("yi-6b"), width=512).replace(
+        vocab=64, param_dtype=name, dtype=name)
+    peft = PEFTConfig(method="none")
+    return (cfg, build(cfg, peft), build(cfg, peft.replace(
+        kernel_backend="einsum")), build(cfg, peft).init(0, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [4, 5])
+def test_verify_step_through_k3_matches_plain(cuda_device, dtype, W):
+    """verify_logits on a paged cache of seeded K/V — one slot inside its
+    pages, one past its owned pages, one past the block table — through K3
+    (one launch per layer, all at W rows) against the plain paged
+    attention on the same inputs: f32 logits within atol = rtol = 1e-4 and
+    the same tokens; bf16 logits within 5e-2 of each row's largest
+    |logit| (K3's bf16 limit is 2e-2 of an output's largest |value| per
+    layer); the window's first layer K/V rows bitwise equal (the writes
+    are the same plain indexing on both sides)."""
+    cfg, kmodel, pmodel, params = _window_model(cuda_device, dtype)
+    B, ps, pps = 3, 16, 4
+    n_pages = B + B * pps
+    rng = np.random.default_rng(9)
+    shape = (cfg.num_layers, n_pages, ps, cfg.n_kv, cfg.head_dim)
+    pools = {k: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             .to(cuda_device, dtype) for k in ("pk", "pv")}
+    bt = B + torch.arange(B * pps, dtype=torch.int32).reshape(B, pps)
+    bt[1, 2:] = 1
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, 64, size=(B, W)).astype(np.int32)).to(cuda_device),
+        "block_table": bt.to(cuda_device),
+        "scratch_pages": torch.arange(B, dtype=torch.int32,
+                                      device=cuda_device)}
+    pos = torch.tensor([7, 30, pps * ps - 2], dtype=torch.int32,
+                       device=cuda_device)
+    outs = {}
+    for label, model in (("k3", kmodel), ("plain", pmodel)):
+        cache = {k: v.clone() for k, v in pools.items()}
+        cache["pos"] = pos.clone()
+        before = (pa.launches, pa.launches_by_w.get(W, 0))
+        outs[label] = model.verify_logits(params, cache, batch)
+        torch.cuda.synchronize()
+        launched = (pa.launches - before[0],
+                    pa.launches_by_w.get(W, 0) - before[1])
+        assert launched == ((cfg.num_layers, cfg.num_layers)
+                            if label == "k3" else (0, 0))
+    (lk, ck), (lp, cp) = outs["k3"], outs["plain"]
+    assert lk.shape == (B, W, cfg.vocab)
+    assert torch.equal(ck["pos"], pos)
+    lk, lp = lk.float(), lp.float()
+    if dtype == torch.float32:
+        assert torch.allclose(lk, lp, atol=1e-4, rtol=1e-4)
+        assert torch.equal(lk.argmax(-1), lp.argmax(-1))
+    else:
+        lim = 5e-2 * lp.abs().amax(-1, keepdim=True)
+        assert bool(((lk - lp).abs() <= lim).all())
+    for key in ("pk", "pv"):
+        assert torch.equal(ck[key][0], cp[key][0])
+
+
+@pytest.mark.parametrize("drafter,paged", [("self", True), ("ngram", True),
+                                           ("self", False)])
+def test_spec_serving_launches_k3_by_window(cuda_device, drafter, paged):
+    """Speculative serving of a reduced yi-6b on the card (f32, k = 3):
+    streams equal the plain scheduler's; K3 launches layers x verify steps
+    at W = 4, and layers x verify steps x 3 at W = 1 for the self-drafter's
+    probes (none for the n-gram drafter); the dense cache launches no K3."""
+    cfg, model, _, params = _window_model(cuda_device, torch.float32)
+    engine = Engine(model, params, batch_slots=3, max_len=40,
+                    device=cuda_device)
+    prompts = [torch.arange(4 + i, dtype=torch.int32) % 64 for i in range(5)]
+
+    def trace():
+        return [Request(prompt=p, max_new=4 + 2 * i)
+                for i, p in enumerate(prompts)]
+    base = trace()
+    ContinuousScheduler(engine, page_size=8).serve(base, [0, 0, 1, 2, 3])
+    pa.launches, pa.launches_by_w = 0, {}
+    spec = trace()
+    sched = ContinuousScheduler(
+        engine, paged=paged, page_size=8,
+        drafter=SelfDrafter(k=3) if drafter == "self" else NGramDrafter(k=3))
+    sched.serve(spec, [0, 0, 1, 2, 3])
+    assert [r.out for r in spec] == [r.out for r in base]
+    steps, L = sched.metrics.steps, cfg.num_layers
+    expected = {}
+    if paged:
+        expected[4] = L * steps
+        if drafter == "self":
+            expected[1] = L * steps * 3
+    assert pa.launches_by_w == expected
+    assert pa.launches == sum(expected.values())

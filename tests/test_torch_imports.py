@@ -73,10 +73,8 @@ def test_entry_points_raise_without_cuda():
 def test_unported_paths_are_rejected():
     model, params = _tiny()
     engine = Engine(model, params, batch_slots=2, max_len=32, device="cpu")
-    for kw in ({"paged": False}, {"drafter": object()},
-               {"tiering": object()}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ContinuousScheduler(engine, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ContinuousScheduler(engine, tiering=object())
     with pytest.raises(KeyError, match="later slice"):
         build(model.cfg, PEFTConfig(method="full"))
     with pytest.raises(NotImplementedError, match="dense"):
