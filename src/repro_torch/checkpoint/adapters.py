@@ -4,10 +4,13 @@ packages in either direction).
 
 One tenant = one `<dir>/<adapter_id>/` holding exactly the trainable leaves
 (`adapter.npz`, keys "<site>::<leaf>") plus a JSON manifest carrying the
-PEFTConfig. Frozen state (FourierFT spectral entries) is not stored: it is
-keyed by method + entry seed and regenerates deterministically at import
-through the method's `init_site`, so a FourierFT tenant is n·(2+L) numbers
-on the wire (paper §3.2). Export is atomic (tmp + os.replace).
+PEFTConfig. Frozen state (FourierFT spectral entries, or the Table-6
+random/orthogonal bases b1/b2) is not stored: it is keyed by method +
+entry seed and regenerates deterministically at import through the
+method's `init_site`, so a FourierFT tenant is n·(2+L) numbers on the wire
+(paper §3.2). The bases are drawn with the JAX package's random stream
+(`core/prng.py`), so a basis tenant exported by either package imports
+into the other with the same ΔW. Export is atomic (tmp + os.replace).
 """
 from __future__ import annotations
 

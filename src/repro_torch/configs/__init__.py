@@ -1,7 +1,9 @@
 """Architecture configs: `get(arch_id)`, `reduced(cfg)` for smoke tests.
 
-Copies of the JAX package's dense-family configs. The other families
-(moe, ssm, hybrid, audio, vlm) are not ported yet: asking for one raises
+Copies of the JAX package's dense-family configs and of the paper's own
+models (`PAPER_MODELS`, reached through `get` as in the JAX package; the
+launchers' `--arch` choices stay `ARCHS`). The other families (moe, ssm,
+hybrid, audio, vlm) are not ported yet: asking for one raises
 NotImplementedError (ROADMAP queue 1, "the other architecture families").
 """
 from __future__ import annotations
@@ -11,6 +13,7 @@ import dataclasses
 from repro_torch.configs.base import (ModelConfig, MoEConfig, PEFTConfig,
                                       TrainConfig)
 from repro_torch.configs import qwen2_5_32b, qwen3_4b, yi_6b, yi_9b
+from repro_torch.configs.paper_models import PAPER_MODELS
 
 ARCHS = {
     "yi-6b": yi_6b.CONFIG,
@@ -29,12 +32,15 @@ ARCH_IDS = tuple(ARCHS)
 def get(arch: str) -> ModelConfig:
     if arch in ARCHS:
         return ARCHS[arch]
+    if arch in PAPER_MODELS:
+        return PAPER_MODELS[arch]
     if arch in UNPORTED_ARCHS:
         raise NotImplementedError(
             f"arch {arch!r} is not a dense model; the port covers the dense "
             "family only so far (ROADMAP queue 1: the other architecture "
             "families)")
-    raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    raise KeyError(f"unknown arch {arch!r}; known: "
+                   f"{sorted(ARCHS) + sorted(PAPER_MODELS)}")
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, width: int = 64,
@@ -73,4 +79,4 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, width: int = 64,
 
 
 __all__ = ["ModelConfig", "PEFTConfig", "TrainConfig", "ARCHS", "ARCH_IDS",
-           "get", "reduced"]
+           "PAPER_MODELS", "get", "reduced"]

@@ -6,7 +6,9 @@ with the same key paths. JAX's bf16 arrays arrive as `ml_dtypes.bfloat16`,
 which `torch.from_numpy` rejects; their bytes are reinterpreted as uint16
 and viewed as `torch.bfloat16` (exact). The dtype is detected by name, so
 this module needs no `ml_dtypes` import. Integer leaves (FourierFT
-`entries`) and f32 leaves (`c`) carry over as they are.
+`entries`) and f32 leaves (`c`, the random/orthogonal bases `b1`/`b2`)
+carry over as they are, and so does a `full` run's base, every leaf of
+which trains.
 
 The same walk carries the serving adapter bank's state: a tenant tree
 `{site: {leaf: array}}` of any method (`c`, `lora_a`/`lora_b`, `kernel`,

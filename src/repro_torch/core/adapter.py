@@ -16,6 +16,8 @@ axis 0:
                                            and bank applies read (built once)
     merge_site(eff, key, adapter, ...)  -> fold the site into eff layer tree
     count_trainable(site, peft)         -> |Θ| contribution (paper Table 1)
+    shared_storage_numbers(sites, peft) -> frozen numbers a checkpoint must
+                                           carry beyond Θ (e.g. 2n entries)
 
 `site_delta`, `factored_apply` and `bank_apply` dispatch through the kernel
 registry (kernels/api.py) for the device the tensors live on, so the merge
@@ -34,20 +36,28 @@ bank per group and site, `peft.with_frozen_tables` for factored params),
 where the ops find them. Without them an op builds its own, with the same
 function: the same numbers either way.
 
-Registered: FourierFT (Fourier basis), `dct` (the LoCA-style cosine basis
-on FourierFT's entries), `circulant`, `lora`, `bitfit` and `none`. `full`
-and the Table-6 random / orthogonal bases come with a later slice
-(ROADMAP queue 1).
+Registered: FourierFT (the Fourier basis, and the Table-6 random and
+orthogonal bases of `core/basis.py`), `dct` (the LoCA-style cosine basis on
+FourierFT's entries), `circulant`, `lora`, `bitfit`, `none` and `full` (the
+FF baseline: no adapter state, the whole base trains).
+
+On CUDA tensors FourierFT's ΔW has two routes under one key: the Fourier
+basis runs the hand-written K1 (its autograd Function runs K2 backward),
+and the random and orthogonal bases one `torch.matmul` of (B1 ⊙ c) by B2ᵀ,
+a library product as in the JAX package, where the basis ΔW is a plain
+product outside any Pallas kernel. `KernelPolicy.explain()` names the route
+each site resolved to.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import PEFTConfig
+from repro_torch.core import basis as basis_mod
 from repro_torch.core import fourierft, lora
 from repro_torch.kernels import api as kernel_api
 from repro_torch.kernels.api import KernelOp
@@ -98,6 +108,7 @@ class AdapterMethod:
     mergeable: bool = True        # ΔW can be folded into the base weight
     linear_delta: bool = True     # contribution is x @ ΔW (BitFit: a bias)
     has_site_params: bool = True  # owns per-site adapter state
+    trains_base: bool = False     # "full": the base weights are the trainables
 
     # ---- state ------------------------------------------------------------
     def init_site(self, gen: torch.Generator, site: AdapterSite,
@@ -177,6 +188,12 @@ class AdapterMethod:
     def count_trainable(self, site: AdapterSite, peft: PEFTConfig) -> int:
         return 0
 
+    def shared_storage_numbers(self, sites: Sequence[AdapterSite],
+                               peft: PEFTConfig) -> int:
+        """Frozen numbers stored once per checkpoint beyond the trainables
+        (regenerable-from-seed state counts 0)."""
+        return 0
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -199,20 +216,27 @@ def resolve(name: str) -> AdapterMethod:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown adapter method {name!r}; registered: "
-                       f"{sorted(_REGISTRY)} (`full` comes with a later "
-                       "slice, ROADMAP queue 1)") from None
+                       f"{sorted(_REGISTRY)}") from None
 
 
-def registered_methods() -> Tuple[str, ...]:
-    return tuple(sorted(_REGISTRY))
+def registered_methods(site_params_only: bool = False) -> Tuple[str, ...]:
+    names = sorted(_REGISTRY)
+    if site_params_only:
+        names = [n for n in names if _REGISTRY[n].has_site_params]
+    return tuple(names)
 
 
 # ---------------------------------------------------------------------------
-# FourierFT (the paper): spectral coefficients on frozen Fourier entries
+# FourierFT (the paper): spectral coefficients on frozen Fourier entries,
+# with the Table-6 random/orthogonal basis ablation folded in via peft.basis
 # ---------------------------------------------------------------------------
 
 def _fourier_basis_only(peft: PEFTConfig) -> bool:
     return getattr(peft, "basis", "fourier") == "fourier"
+
+
+def _other_basis(peft: PEFTConfig) -> bool:
+    return not _fourier_basis_only(peft)
 
 
 def _fft_plan_accepts(d1, d2, peft, dtype=None):
@@ -230,8 +254,11 @@ def _fft_plan_accepts(d1, d2, peft, dtype=None):
 
 
 def _fourier_deltaw_einsum(tr, aux, d1, d2, peft):
-    return fourierft.materialize_delta(tr["c"], aux["entries"], d1, d2,
-                                       peft.alpha)
+    if "entries" in aux:
+        return fourierft.materialize_delta(tr["c"], aux["entries"], d1, d2,
+                                           peft.alpha)
+    return basis_mod.materialize_delta_basis(tr["c"], aux["b1"], aux["b2"],
+                                             peft.basis, peft.alpha)
 
 
 _FOURIER_TABLES = ("cos_t", "sin_t", "cos_p", "sin_p")
@@ -246,15 +273,23 @@ def _fourier_tables(aux, d1, d2):
 
 
 def _fourier_factored_einsum(x, tr, aux, d1, d2, peft):
+    if "b1" in aux:
+        scale = basis_mod.basis_scale(peft.basis, d1, d2, peft.alpha)
+        proj = (x.to(torch.float32) @ aux["b1"]) \
+            * tr["c"].to(torch.float32)
+        return proj @ aux["b2"].T * scale
     return fourierft.factored_apply(x.to(torch.float32), tr["c"], None, d1,
                                     d2, peft.alpha,
                                     bases=_fourier_tables(aux, d1, d2))
 
 
 def _fourier_bank_einsum(x, tr, aux, d1, d2, peft):
-    cos_t, sin_t, cos_p, sin_p = _fourier_tables(aux, d1, d2)
     xf = x.to(torch.float32)
     c = _per_row(tr["c"].to(torch.float32), x.ndim)
+    if "b1" in aux:
+        scale = basis_mod.basis_scale(peft.basis, d1, d2, peft.alpha)
+        return ((xf @ aux["b1"]) * c) @ aux["b2"].T * scale
+    cos_t, sin_t, cos_p, sin_p = _fourier_tables(aux, d1, d2)
     pc = (xf @ cos_t) * c
     ps = (xf @ sin_t) * c
     return (pc @ cos_p.T - ps @ sin_p.T) * (peft.alpha / (d1 * d2))
@@ -268,20 +303,32 @@ def _fourier_deltaw_cuda(tr, aux, d1, d2, peft):
                                        peft.alpha)
 
 
+def _basis_deltaw_matmul(tr, aux, d1, d2, peft):
+    # the random/orthogonal bases on the card: materialize_delta_basis's
+    # one batched torch.matmul; autograd gives c its gradient
+    return basis_mod.materialize_delta_basis(tr["c"], aux["b1"], aux["b2"],
+                                             peft.basis, peft.alpha)
+
+
 class FourierFT(AdapterMethod):
     name = "fourierft"
 
     def init_site(self, gen, site, peft, device):
-        if peft.basis != "fourier":
-            raise NotImplementedError(
-                f"basis {peft.basis!r} (Table 6 ablation) comes with a later "
-                "slice (ROADMAP queue 1)")
-        entries = fourierft.sample_entries(
-            site.d_in, site.d_out, peft.n, entry_seed_for(peft, site),
-            freq_bias=peft.freq_bias, fc=peft.fc, bandwidth=peft.bandwidth)
+        if peft.basis == "fourier":
+            entries = fourierft.sample_entries(
+                site.d_in, site.d_out, peft.n, entry_seed_for(peft, site),
+                freq_bias=peft.freq_bias, fc=peft.fc,
+                bandwidth=peft.bandwidth)
+            aux = {"entries": entries.to(device)}
+        else:
+            # the JAX package's draw, on the host once per (seed, shape)
+            b1, b2 = basis_mod.site_basis(peft.entry_seed, peft.basis,
+                                          site.d_in, site.d_out, peft.n)
+            aux = {"b1": torch.tensor(b1, device=device),
+                   "b2": torch.tensor(b2, device=device)}
         c = torch.randn((site.stack, peft.n), generator=gen, device=device,
                         dtype=torch.float32).to(torch_dtype(peft.param_dtype))
-        return {"c": c, "entries": entries.to(device)}
+        return {"c": c, **aux}
 
     def trainable_leaves(self, peft):
         return ("c",)
@@ -292,8 +339,12 @@ class FourierFT(AdapterMethod):
             KernelOp("deltaw", self.name, "cuda", _fourier_deltaw_cuda,
                      devices=("cuda",), requires=_fourier_basis_only,
                      accepts=_fft_plan_accepts,
-                     note="row FFTs in shared memory "
+                     note="K1: row FFTs in shared memory "
                           "(csrc/fourier_deltaw.cu)"),
+            KernelOp("deltaw", self.name, "cuda", _basis_deltaw_matmul,
+                     devices=("cuda",), requires=_other_basis,
+                     note="torch.matmul of the random/orthogonal basis: "
+                          "a library product, not a hand-written kernel"),
             KernelOp("factored_apply", self.name, "einsum",
                      _fourier_factored_einsum),
             KernelOp("bank_apply", self.name, "einsum",
@@ -301,11 +352,19 @@ class FourierFT(AdapterMethod):
         )
 
     def frozen_tables(self, aux, d1, d2):
+        if "entries" not in aux:
+            return {}           # b1/b2 are the random/orthogonal tables
         return dict(zip(_FOURIER_TABLES,
                         fourierft.fourier_bases(aux["entries"], d1, d2)))
 
     def count_trainable(self, site, peft):
         return peft.n * site.stack
+
+    def shared_storage_numbers(self, sites, peft):
+        if peft.basis != "fourier":
+            return 0        # b1/b2 regenerate from entry_seed
+        shapes = {(s.d_in, s.d_out) for s in sites}
+        return 2 * peft.n * len(shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +468,10 @@ class DCTAdapter(AdapterMethod):
 
     def count_trainable(self, site, peft):
         return peft.n * site.stack
+
+    def shared_storage_numbers(self, sites, peft):
+        shapes = {(s.d_in, s.d_out) for s in sites}
+        return 2 * peft.n * len(shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -574,9 +637,19 @@ class BitFit(AdapterMethod):
         return site.d_out * site.stack
 
 
+# ---------------------------------------------------------------------------
+# Degenerate methods: no adapter state
+# ---------------------------------------------------------------------------
+
 class NoAdapter(AdapterMethod):
     name = "none"
     has_site_params = False
+
+
+class FullFinetune(AdapterMethod):
+    name = "full"
+    has_site_params = False
+    trains_base = True
 
 
 register(FourierFT())
@@ -585,3 +658,4 @@ register(CirculantAdapter())
 register(LoRA())
 register(BitFit())
 register(NoAdapter())
+register(FullFinetune())

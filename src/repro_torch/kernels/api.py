@@ -14,7 +14,11 @@ Every adapter hot-spot computation is a `KernelOp` keyed by
               whose note says so) or "einsum" (the plain PyTorch version)
 
 Methods declare their implementations through `AdapterMethod.kernel_ops()`;
-declarations are collected lazily on first dispatch (`ensure_method`).
+declarations are collected lazily on first dispatch (`ensure_method`). One
+key may hold several routes told apart by their `requires` predicates
+(FourierFT's `cuda` ΔW: K1 for the Fourier basis, a `torch.matmul` for the
+random and orthogonal bases); resolution takes the first that passes, and
+`KernelPolicy.explain()` prints the chosen route's note.
 
 Resolution keys on the device of the tensors the op will see, not on a
 platform string. `PEFTConfig.kernel_backend` keeps the JAX names:
@@ -97,19 +101,27 @@ class KernelOp:
 # Registry
 # ---------------------------------------------------------------------------
 
-_OPS: Dict[Tuple[str, str, str], KernelOp] = {}
+# (op, method, backend) -> its routes, in registration order
+_OPS: Dict[Tuple[str, str, str], Tuple[KernelOp, ...]] = {}
 _ENSURED: set = set()
 
 
 def register_kernel_op(op: KernelOp) -> KernelOp:
+    """Add `op` as a route of its key. A key takes a second route only
+    when every route of it carries a `requires` predicate, and never the
+    same fn or note twice."""
     if op.op not in OPS:
         raise ValueError(f"unknown kernel op {op.op!r}; one of {OPS}")
     if op.backend not in BACKENDS:
         raise ValueError(f"unknown backend {op.backend!r}; one of {BACKENDS}")
     key = (op.op, op.method, op.backend)
-    if key in _OPS:
+    old = _OPS.get(key, ())
+    routes = old + (op,)
+    if len(routes) > 1 and (
+            any(r.requires is None for r in routes)
+            or any(r.fn is op.fn or r.note == op.note for r in old)):
         raise ValueError(f"kernel op {key} already registered")
-    _OPS[key] = op
+    _OPS[key] = routes
     return op
 
 
@@ -175,26 +187,26 @@ def resolve_op(op: str, method, peft=None, d1: int = 0, d2: int = 0, *,
                device: Union[str, torch.device], backend: Optional[str] = None,
                dtype: Optional[torch.dtype] = None,
                missing_ok: bool = False) -> Optional[KernelOp]:
-    """First registered op along the requested policy's candidate chain
-    whose constraints pass for tensors of `dtype` on `device`. `backend`
-    overrides `peft.kernel_backend`. A CUDA kernel that exists but cannot
-    take a CUDA-resident site raises KernelUnavailableError naming the
-    limit (no silent degrade on the card)."""
+    """First registered route along the requested policy's candidate
+    chain whose constraints pass for tensors of `dtype` on `device`.
+    `backend` overrides `peft.kernel_backend`. When the `cuda` routes that
+    exist all refuse a CUDA-resident site, it raises KernelUnavailableError
+    naming each route's reason (no silent degrade on the card)."""
     m = _method_obj(method)
     ensure_method(m)
     requested = _validated(backend) if backend else requested_backend(peft)
     dev = _device_type(device)
     for b in CANDIDATES[requested]:
-        cand = _OPS.get((op, m.name, b))
-        if cand is None:
-            continue
-        ok, why = cand.supports(d1, d2, peft, dev, dtype)
-        if ok:
-            return cand
-        if b == "cuda" and dev == "cuda":
+        whys = []
+        for cand in _OPS.get((op, m.name, b), ()):
+            ok, why = cand.supports(d1, d2, peft, dev, dtype)
+            if ok:
+                return cand
+            whys.append(why)
+        if whys and b == "cuda" and dev == "cuda":
             raise KernelUnavailableError(
                 f"the CUDA kernel for ({op!r}, {m.name!r}) cannot take this "
-                f"{d1}x{d2} site on {dev}: {why}")
+                f"{d1}x{d2} site on {dev}: {'; '.join(whys)}")
     if missing_ok:
         return None
     raise KernelUnavailableError(
@@ -214,6 +226,7 @@ class Resolution:
     op: str
     backend: str          # "" when nothing resolved (validate() rejects)
     bank: str = ""        # the adapter-bank group's method, for its ops
+    note: str = ""        # the chosen route's note (which kernel or call)
 
 
 @dataclass(frozen=True)
@@ -248,7 +261,9 @@ class KernelPolicy:
                     chosen = resolve_op(op, m, peft, s.d_in, s.d_out,
                                         device=dev, missing_ok=True)
                     res.append(Resolution(s.name, s.d_in, s.d_out, op,
-                                          chosen.backend if chosen else ""))
+                                          chosen.backend if chosen else "",
+                                          note=chosen.note if chosen
+                                          else ""))
         for name, prof in sorted((bank_profiles or {}).items()):
             for s in targeted(prof):
                 if not s.name.startswith("layers/"):
@@ -257,7 +272,8 @@ class KernelPolicy:
                                     s.d_out, device=dev, missing_ok=True)
                 res.append(Resolution(s.name, s.d_in, s.d_out, "bank_apply",
                                       chosen.backend if chosen else "",
-                                      bank=name))
+                                      bank=name,
+                                      note=chosen.note if chosen else ""))
         return cls(m.name, requested, dev, tuple(res))
 
     def backend_for(self, site: str, op: str,
@@ -285,4 +301,5 @@ class KernelPolicy:
         return "\n".join([head] + [
             f"  {r.site} ({r.d1}x{r.d2}) {r.op}"
             + (f" [bank {r.bank}]" if r.bank else "")
-            + f" -> {r.backend or 'UNRESOLVED'}" for r in self.resolutions])
+            + f" -> {r.backend or 'UNRESOLVED'}"
+            + (f" ({r.note})" if r.note else "") for r in self.resolutions])

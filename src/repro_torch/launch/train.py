@@ -1,18 +1,23 @@
 """Training launcher: `python -m repro_torch.launch.train --arch <id> [...]`.
 
-Fine-tunes adapter coefficients (`--method`: FourierFT, or the cosine-basis
-`dct`) on a dense decoder through the merged train step and the
-fault-tolerant loop: on the card every step's forward materializes ΔW with
-the method's hand-written ΔW kernel (K1 or K4) and its backward takes the
-coefficients' gradient with its hand-written dc kernel (K2 or K5). Data is the
-step-keyed synthetic Markov task; `--ckpt-dir` checkpoints every
-`--ckpt-every` steps and a rerun of the same command resumes.
+Fine-tunes a dense decoder with any registered method (`--method`) through
+the train step and the fault-tolerant loop. With the merged strategy (the
+default) on the card, every FourierFT or `dct` step's forward materializes
+ΔW with the method's hand-written ΔW kernel (K1 or K4) and its backward
+takes the coefficients' gradient with its hand-written dc kernel (K2 or
+K5). `--strategy factored` differentiates through the methods' factored
+applies instead (no ΔW, no K1/K2); `--method full` (the FF baseline) trains
+the whole base. Data is the step-keyed synthetic Markov task; `--ckpt-dir`
+checkpoints every `--ckpt-every` steps and a rerun of the same command
+resumes.
 
     python -m repro_torch.launch.train --arch yi-6b --steps 20
     python -m repro_torch.launch.train --arch yi-6b --reduced --steps 3 \
         --device cpu
     python -m repro_torch.launch.train --arch yi-6b --method dct \
         --steps 20 --ckpt-dir /tmp/dct
+    python -m repro_torch.launch.train --arch yi-6b --reduced --steps 3 \
+        --strategy factored --device cpu
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`. The mesh, FSDP, gradient-compression and
@@ -60,10 +65,6 @@ def main(argv=None):
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
 
-    if args.strategy == "factored":
-        raise NotImplementedError(
-            "--strategy factored comes with a later slice (ROADMAP queue 1: "
-            "the factored strategy); train merged adapters")
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:

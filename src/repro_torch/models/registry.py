@@ -30,6 +30,7 @@ from repro_torch.core import peft as peft_mod
 from repro_torch.core.adapter import AdapterSite
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import transformer
+from repro_torch.tree import tree_leaves
 
 
 def add_time_dim(t: torch.Tensor) -> torch.Tensor:
@@ -107,7 +108,10 @@ class Model:
     def join(self, trainable: Dict, frozen: Dict) -> Dict:
         """The params tree from the train step's (trainable, frozen) split:
         trainable adapter leaves join the frozen ones per site, and a
-        trained head replaces `lm_head`."""
+        trained head replaces `lm_head` (`full`: the trainables are the
+        whole base)."""
+        if self.method.trains_base:
+            return {"base": trainable["base"], "peft": {}}
         base = frozen["base"]
         if "head" in trainable:
             base = dict(base)
@@ -215,6 +219,12 @@ class Model:
                                              self.bank_profiles)
 
     def trainable_params(self) -> int:
+        """|Θ|: the adapters' count, or for `full` the base's, from its
+        leaves' shapes (made on the meta device: no memory, no draw)."""
+        if self.method.trains_base:
+            base = transformer.init_params(torch.Generator(), self.cfg,
+                                           "meta")
+            return sum(leaf.numel() for leaf in tree_leaves(base))
         return peft_mod.count_trainable(self.sites, self.peft)
 
 

@@ -9,9 +9,10 @@
   cache.
 - PEFT: the merged strategy (`apply_peft_to_layers` folds every targeted
   ΔW into W before the layer loop) and the factored one (the method's
-  `factored_apply` inside each layer, `make_linear`). Training
+  `factored_apply` inside each layer, `make_linear`). Merged training
   differentiates through the fold: on the card the ΔW kernel's autograd
-  Function gives the coefficients their gradient through the dc kernel.
+  Function gives the coefficients their gradient through the dc kernel;
+  factored training differentiates through the applies.
   After `merge_for_serving` the served model has method `none`, so decode
   does no adapter work.
 - The serving adapter bank: per-request resident rows are gathered ONCE

@@ -123,7 +123,8 @@ class AdapterBank:
         gen.manual_seed(0)        # draws only shapes: every row starts zero
         for mname, prof in profiles.items():
             method = adapter_api.resolve(mname)
-            if not method.has_site_params:
+            if mname not in adapter_api.registered_methods(
+                    site_params_only=True):
                 raise ValueError(f"method {mname!r} has no adapter state")
             if prof.method != mname:
                 prof = prof.replace(method=mname)

@@ -7,7 +7,11 @@ Parameters are split into (trainable, frozen). Gradients are taken with
 `torch.autograd.grad` w.r.t. the trainable leaves only: the frozen base
 needs no gradient of its own, and on the card the merged forward's ΔW
 kernel hands the coefficients theirs through the dc kernel
-(`kernels.ops.FourierDeltaW`).
+(`kernels.ops.FourierDeltaW`). The factored strategy (`peft.strategy ==
+"factored"`) differentiates through each method's `factored_apply` inside
+the layers instead, and materializes no ΔW. The `full` method (the FF
+baseline, `trains_base`) trains the whole base: every base leaf is
+trainable and AdamW holds its state.
 
 Anomaly guard (fault tolerance): a non-finite or exploding loss or gradient
 norm skips the update (parameters and optimizer state keep their old
@@ -32,8 +36,11 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 def split_params(model: Model, params: Dict) -> Tuple[Dict, Dict]:
     """-> (trainable, frozen). frozen = {"base": ..., "peft": ... (frozen
     leaves)}. The trainable/frozen boundary inside each adapter dict comes
-    from the method's `trainable_leaves`; `train_head` moves `lm_head`."""
+    from the method's `trainable_leaves`; `train_head` moves `lm_head`;
+    `full` makes the whole base trainable."""
     peft = model.peft
+    if model.method.trains_base:
+        return {"base": params["base"]}, {"base": {}, "peft": {}}
     trainable: Dict = {"peft": trainable_adapter_tree(params["peft"], peft)}
     frozen_adapters = {
         site: {k: v for k, v in d.items()

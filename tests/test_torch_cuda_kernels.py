@@ -576,3 +576,126 @@ def test_spec_serving_launches_k3_by_window(cuda_device, drafter, paged):
             expected[1] = L * steps * 3
     assert pa.launches_by_w == expected
     assert pa.launches == sum(expected.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pps", [8, 256])
+@pytest.mark.parametrize("H,dh", [(32, 128), (16, 64)])
+def test_paged_attention_at_group_size_one(cuda_device, dtype, H, dh, pps):
+    """K3 at G = 1 (no GQA: each kv-head has one query row per window row)
+    at LLaMA2-7B's (H = K = 32, dh 128) and GPT-2-medium's (H = K = 16,
+    dh 64) geometry, B 8, short and 4096-long contexts: agrees with the
+    plain version and gives the same bits on a second launch."""
+    B = 8
+    q, kp, vp, bt, kv_len = _pages(11, cuda_device, dtype, B=B, H=H, K=H,
+                                   dh=dh, pps=pps, n_pages=B * pps + 4)
+    assert pa.row_groups(H, H, 1, dtype == torch.bfloat16) == (1, 1)
+    kv_len[0] = 1
+    kv_len[1] = pps * 16
+    out = pa.paged_attention(q, kp, vp, bt, kv_len)
+    assert torch.equal(pa.paged_attention(q, kp, vp, bt, kv_len), out)
+    _k3_close(out, _plain32(q, kp, vp, bt, kv_len), pa.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("kind", ["random", "orthogonal"])
+@pytest.mark.parametrize("d,n,L", [(768, 768, 12), (4096, 1000, 2)])
+def test_basis_deltaw_route_matches_plain(cuda_device, kind, d, n, L):
+    """A random/orthogonal-basis site on the card resolves to the
+    torch.matmul route (no hand-written kernel: K1 does not launch), equals
+    the same product in float64 on the same card tensors at the registry
+    tolerance (atol 2e-5 / rtol 1e-4), and hands c its gradient."""
+    from repro_torch.core import adapter as adapter_api
+    from repro_torch.core import basis as basis_mod
+    from repro_torch.core.adapter import AdapterSite
+    from repro_torch.kernels import api
+    m = adapter_api.resolve("fourierft")
+    site = AdapterSite("layers/wq", d, d, L)
+    peft = PEFTConfig(basis=kind, n=n, alpha=300.0)
+    ad = m.init_site(torch.Generator(device=cuda_device).manual_seed(0),
+                     site, peft, cuda_device)
+    op = api.resolve_op("deltaw", m, peft, d, d, device=cuda_device)
+    assert op.fn is adapter_api._basis_deltaw_matmul
+    c = ad["c"].detach().clone().float().requires_grad_(True)
+    before = fdk.launches
+    dw = m.site_delta({**ad, "c": c}, site, peft)
+    assert fdk.launches == before
+    plain = basis_mod.materialize_delta_basis(
+        ad["c"].double(), ad["b1"].double(), ad["b2"].double(), kind, 300.0)
+    np.testing.assert_allclose(dw.detach().cpu().numpy(),
+                               plain.cpu().numpy(), atol=2e-5, rtol=1e-4)
+    torch.sum(dw * dw).backward()
+    assert c.grad is not None and bool(torch.isfinite(c.grad).all())
+
+
+def test_full_step_on_the_card(cuda_device):
+    """The `full` method on a reduced GPT-2-medium (non-gated GELU, no
+    RoPE) on the card: the loss and every base leaf's gradient equal the
+    CPU's (atol 1e-5), and one step moves every base leaf and launches no
+    ΔW kernel."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import step as ts
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = configs.reduced(configs.get("gpt2-medium")).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    model = build(cfg, PEFTConfig(method="full"))
+    params = model.init(0, "cpu")
+    batch = SyntheticLM(vocab=64, batch=4, seq=16).batch_at(0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        trainable, frozen = ts.split_params(
+            model, tree_map(lambda t: t.to(dev), params))
+        loss, g = ts._value_and_grad(ts._loss_for(model), trainable, frozen,
+                                     {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (float(loss), [t.cpu() for t in tree_leaves(g)])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], abs=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    state, frozen = ts.state_from_params(
+        model, tree_map(lambda t: t.to(cuda_device), params))
+    before = (fdk.launches, fdk.dc_launches, ddk.launches)
+    state, m = ts.make_train_step(model, TrainConfig(total_steps=1))(
+        state, frozen, {k: v.to(cuda_device) for k, v in batch.items()})
+    assert (fdk.launches, fdk.dc_launches, ddk.launches) == before
+    assert float(m["loss"]) == pytest.approx(out["cpu"][0], abs=1e-5)
+    for a, a0 in zip(tree_leaves(state["trainable"]["base"]),
+                     tree_leaves(params["base"])):
+        assert not torch.equal(a.cpu(), a0)
+
+
+def test_factored_step_on_the_card(cuda_device):
+    """One factored step of a reduced yi-6b (width 512) on the card
+    launches neither K1 nor K2, and its gradient w.r.t. c equals the
+    merged step's (through K1/K2) within 1e-4 of the gradient's own size
+    (norm-relative, and each entry against max |g|)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import step as ts
+    cfg = configs.reduced(configs.get("yi-6b"), width=512).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    peft = PEFTConfig(n=64, alpha=300.0, strategy="factored")
+    model = build(cfg, peft)
+    merged = build(cfg, peft.replace(strategy="merged"))
+    params = model.init(0, cuda_device)
+    batch = {k: v.to(cuda_device) for k, v in
+             SyntheticLM(vocab=64, batch=4, seq=16).batch_at(0).items()}
+    grads = {}
+    for name, m in (("factored", model), ("merged", merged)):
+        trainable, frozen = ts.split_params(m, params)
+        before = (fdk.launches, fdk.dc_launches)
+        _, g = ts._value_and_grad(ts._loss_for(m), trainable, frozen, batch)
+        launched = (fdk.launches - before[0], fdk.dc_launches - before[1])
+        assert launched == ((0, 0) if name == "factored" else (2, 2))
+        grads[name] = torch.cat([g["peft"][s]["c"].flatten()
+                                 for s in ("layers/wq", "layers/wv")])
+    g = grads["merged"]
+    diff = (grads["factored"] - g).abs()
+    assert float(g.norm()) > 0
+    assert float(diff.norm() / g.norm()) <= 1e-4
+    assert float(diff.max()) <= 1e-4 * float(g.abs().max())
+    state, frozen = ts.state_from_params(model, params)
+    before = (fdk.launches, fdk.dc_launches)
+    state, m = ts.make_train_step(model, TrainConfig(total_steps=1))(
+        state, frozen, batch)
+    assert (fdk.launches, fdk.dc_launches) == before
+    assert np.isfinite(float(m["loss"]))

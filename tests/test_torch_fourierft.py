@@ -149,11 +149,12 @@ class TestRegistry:
                 64, 64, device="cpu")
 
     def test_unsupported_cuda_site_raises_instead_of_degrading(self):
-        peft = PEFTConfig(basis="random")
+        # d2 = 2 x 4099: beyond K1's FFT plan (odd prime factors <= 63)
+        peft = PEFTConfig()
         with pytest.raises(kernel_api.KernelUnavailableError):
-            kernel_api.resolve_op("deltaw", "fourierft", peft, 64, 64,
+            kernel_api.resolve_op("deltaw", "fourierft", peft, 64, 8198,
                                   device="cuda")
-        op = kernel_api.resolve_op("deltaw", "fourierft", peft, 64, 64,
+        op = kernel_api.resolve_op("deltaw", "fourierft", peft, 64, 8198,
                                    device="cpu")
         assert op.backend == "einsum"
 

@@ -75,8 +75,10 @@ def test_unported_paths_are_rejected():
     engine = Engine(model, params, batch_slots=2, max_len=32, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         ContinuousScheduler(engine, tiering=object())
-    with pytest.raises(KeyError, match="later slice"):
-        build(model.cfg, PEFTConfig(method="full"))
+    from repro_torch.train import step as train_step
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        train_step.make_train_step(model,
+                                   TrainConfig(grad_compression="int8_ef"))
     with pytest.raises(NotImplementedError, match="dense"):
         configs.get("olmoe-1b-7b")
     with pytest.raises(ValueError, match="interpret"):

@@ -391,8 +391,10 @@ def test_launcher_runs_on_cpu(capsys, tmp_path):
     assert "done: steps=3" in out and "anomalies=0" in out
     launch_train.main(argv[:4] + ["4"] + argv[5:])
     assert "resumed from 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="factored"):
-        launch_train.main(argv + ["--strategy", "factored"])
+    launch_train.main(argv[:4] + ["2"] + argv[5:-4]
+                      + ["--strategy", "factored"])
+    out = capsys.readouterr().out
+    assert "factored_apply -> einsum" in out and "done: steps=2" in out
 
 
 def test_serving_trained_coefficients_holds_no_graph():
