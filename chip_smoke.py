@@ -185,8 +185,45 @@ no result line:
               max |g|. The phase is `chip_smoke.paper_phase`,
               rehearsable on the CPU at reduced configs with the CUDA
               routes resolved for CPU tensors and counting wrappers.
-15. kernels — one JSON line with each kernel's launches (by path, phase
-              16's included), error and times; printed after phase 16.
+17. tiering — tiered serving, cancellation and the gateway on phase 7's
+              model in f32 (TF32 off), FourierFT merged by K1, page 16,
+              max_len 128. (a) Preempt and resume: two long `batch`
+              requests own a pool of 8 pages (3 slots) and three
+              `interactive` arrivals must preempt them, under mode swap
+              (host pool of 64 pages), recompute and auto: every stream
+              equals the same trace served without tiering on an
+              unconstrained pool, every swap-resume's filled pages equal
+              the pages its preemption gathered, bitwise, read back right
+              after the fill; K3 launches decode steps x layers; no page
+              leaked, no snapshot left; at least one swap, one recompute
+              and one resume over the runs. (b) Host tiers: a shared
+              33-token prompt's two cached chunks demote to the host
+              under page pressure and come back (prefix host hits >= 1),
+              the streams those of an unconstrained run; phase 13's five
+              tenants and None over a bank of capacity 2 with a host tier
+              of 5 rows give the streams of a capacity-5 bank, with at
+              least one host hit and every host reload bitwise its
+              checkpoint. (c) Cost: spill + fill of 8 pages through pinned
+              memory against a prefill of the same 128 tokens, in turns
+              (medians), as the card's counterpart of
+              `TieringConfig.swap_cost_per_token`. (d) The gateway
+              (`GatewayServer` on 127.0.0.1, port 0) over a scheduler
+              built by `launch.api.build_scheduler` from flags (the same
+              model and depth, f32, 4 slots, `--preempt --preempt-mode
+              swap --host-kv-pages 64`), its pump thread driving the card:
+              the launcher's 8-request trace as streaming
+              /v1/completions, then, with every slot decoding, two
+              `interactive` streaming /v1/chat/completions (the stdlib
+              asyncio client): every stream equals an in-process `serve()`
+              of a scheduler built from the same flags; a client that
+              leaves mid-stream is cancelled and no page leaks; /metrics
+              shows the preemptions and the host-tier gauges; K3 launches
+              decode steps x layers, on the pump thread only. The phase
+              is `chip_smoke.tiering_phase`, rehearsable on the CPU at a
+              reduced config with a counting stand-in for K3 and the K1
+              wrapper counted.
+15. kernels — one JSON line with each kernel's launches (by path, phases
+              16's and 17's included), error and times; printed last.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -1369,6 +1406,495 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     return out
 
 
+async def http_request(port: int, method: str, path: str, payload=None,
+                       first_frame_only: bool = False):
+    """One HTTP/1.1 exchange with the gateway on 127.0.0.1 (stdlib asyncio
+    client): (status, body). With `first_frame_only` the client reads the
+    response head and one SSE frame, then closes the socket (a client that
+    walks away mid-stream)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = b"" if payload is None else json.dumps(payload).encode()
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+                  ).encode() + body)
+    await writer.drain()
+    if first_frame_only:
+        head = await reader.readuntil(b"\r\n\r\n")
+        frame = await reader.readuntil(b"\n\n")
+        writer.close()
+        return int(head.split()[1]), frame
+    raw = await reader.read()
+    writer.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), rest
+
+
+def sse_tokens(body: bytes):
+    """SSE body -> (token ids, finish_reason, saw [DONE])."""
+    tokens, finish, done = [], None, False
+    for line in body.split(b"\n"):
+        line = line.strip()
+        if not line.startswith(b"data: "):
+            continue
+        data = line[len(b"data: "):]
+        if data == b"[DONE]":
+            done = True
+            continue
+        choice = json.loads(data)["choices"][0]
+        if "token_id" in choice:
+            tokens.append(int(choice["token_id"]))
+        if choice.get("finish_reason") is not None:
+            finish = choice["finish_reason"]
+    return tokens, finish, done
+
+
+def tiering_phase(dev, cfg, ps: int, sync) -> dict:
+    """Phase 17 (module docstring) on `dev`, over phase 7's model config
+    `cfg` (yi-6b full width, SLICE_LAYERS layers) and page size. `sync`
+    waits for the device. Returns K3's launches by part; raises PhaseError
+    when a check fails."""
+    import argparse
+    import asyncio
+    import gc
+    import shutil
+    import statistics
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import adapters as adapter_ckpt
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.launch import api as launch_api
+    from repro_torch.launch.serve import demo_prompts, demo_trace
+    from repro_torch.models import build
+    from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
+                                   Request, TieringConfig)
+    from repro_torch.serve.gateway import GatewayServer, protocol
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    out = {"k3": {}}
+    fdk.launches = 0
+    model = build(cfg32, PEFTConfig(method="fourierft", n=1000, alpha=300.0))
+    engine = Engine(model, model.init(0, dev), batch_slots=3, max_len=128,
+                    device=dev)
+    if fdk.launches != 2:
+        raise PhaseError(f"tiering: the merge launched K1 {fdk.launches} "
+                         "times, expected one per site (2)")
+    out["k1_merge"] = fdk.launches
+    print(f"[tiering] yi-6b full width, {L} layers, float32 (TF32 off), "
+          "FourierFT n = 1000, alpha = 300 on wq/wv merged by K1; 3 slots, "
+          f"page {ps}, max_len 128")
+
+    # ---- a. preempt and resume under a constrained page pool ---------------
+    # 11 pages: 3 scratch + 8 = 128 rows; each long (prompt + budget - 1 =
+    # 64 rows) owns 4, so the two longs own the pool and every interactive
+    # arrival must preempt one of them
+    def trace():
+        rows = [([(7 * j + 101) % cfg.vocab for j in range(9)], 56, "batch"),
+                ([(11 * j + 203) % cfg.vocab for j in range(6)], 59, "batch")]
+        arrivals = [0.0, 0.0]
+        for i in range(3):
+            rows.append(([301 + i, 302, 303], 6, "interactive"))
+            arrivals.append(5.0 + 9.0 * i)
+        return ([Request(prompt=torch.tensor(p, dtype=torch.int32),
+                         max_new=n, priority=pr) for p, n, pr in rows],
+                arrivals)
+
+    pak.launches = 0
+    base_sched = ContinuousScheduler(engine, page_size=ps)
+    base = trace()[0]
+    base_sched.serve(base, trace()[1])
+    sync()
+    if pak.launches != base_sched.metrics.steps * L:
+        raise PhaseError(f"tiering base run: K3 launched {pak.launches} "
+                         f"times, expected {base_sched.metrics.steps} x {L}")
+    base = [r.out for r in base]
+    del base_sched
+    runs = {}
+    for mode in ("swap", "recompute", "auto"):
+        sched = ContinuousScheduler(
+            engine, page_size=ps, n_pages=11,
+            tiering=TieringConfig(mode=mode,
+                                  host_kv_pages=0 if mode == "recompute"
+                                  else 64))
+        spilled, restored, popping = {}, [], []
+        if sched.host_kv is not None:
+            # hold every swap-resume's fill against the pages its
+            # preemption gathered, read back right after the fill
+            real_put = sched.host_kv.put_snapshot
+            real_pop = sched.host_kv.pop_snapshot
+            real_fill = sched._fill_pages
+
+            def put(rid, k, v, n, real_put=real_put):
+                spilled[rid] = (k.clone(), v.clone(), n)
+                return real_put(rid, k, v, n)
+
+            def pop(rid, real_pop=real_pop):
+                popping.append(rid)
+                return real_pop(rid)
+
+            def fill(k, v, idx, real_fill=real_fill, sched=sched):
+                real_fill(k, v, idx)
+                if not popping:
+                    return                       # a prefix promotion
+                sk, sv, n = spilled.pop(popping.pop())
+                i = torch.as_tensor(idx[:n], dtype=torch.int64, device=dev)
+                if not (torch.equal(sched.cache["pk"].index_select(1, i),
+                                    sk[:, :n])
+                        and torch.equal(sched.cache["pv"].index_select(1, i),
+                                        sv[:, :n])):
+                    raise PhaseError(f"tiering {mode}: the filled pages "
+                                     "differ from the spilled pages")
+                restored.append(n)
+
+            sched.host_kv.put_snapshot = put
+            sched.host_kv.pop_snapshot = pop
+            sched._fill_pages = fill
+        pak.launches = 0
+        reqs, arrivals = trace()
+        sched.serve(reqs, arrivals)
+        sync()
+        # drop the checks' hooks: each closes over its owner, and the cycle
+        # would keep the scheduler's engine alive past the phase
+        sched.__dict__.pop("_fill_pages", None)
+        if sched.host_kv is not None:
+            for name in ("put_snapshot", "pop_snapshot"):
+                sched.host_kv.__dict__.pop(name)
+        outs = [r.out for r in reqs]
+        s = sched.metrics.summary()
+        if outs != base:
+            raise PhaseError(f"tiering {mode}: streams {outs} differ from "
+                             f"the untiered run's {base}")
+        if pak.launches != sched.metrics.steps * L:
+            raise PhaseError(f"tiering {mode}: K3 launched {pak.launches} "
+                             f"times, expected {sched.metrics.steps} x {L}")
+        sched.pager.assert_no_leaks()
+        if sched.host_kv is not None and sched.host_kv._snapshots:
+            raise PhaseError(f"tiering {mode}: snapshots left in the host "
+                             "pool")
+        if s["preemptions_total"] < 1 or s["resumed_total"] < 1:
+            raise PhaseError(f"tiering {mode}: no preempt and resume ({s})")
+        if mode != "recompute" and s["preempt_swap_total"] >= 1 and not (
+                s["kv_pages_spilled_total"] >= 1 and restored
+                and s["kv_pages_filled_total"] >= 1):
+            raise PhaseError(f"tiering {mode}: swaps without pages spilled "
+                             f"and filled back ({s}, {restored})")
+        runs[mode] = {k: s[k + "_total"] for k in (
+            "preemptions", "preempt_swap", "preempt_recompute", "resumed",
+            "kv_pages_spilled", "kv_pages_filled")}
+        runs[mode].update(steps=sched.metrics.steps, k3=pak.launches,
+                          fills_held_bitwise=len(restored))
+        out["k3"][f"preempt_{mode}"] = pak.launches
+        print(f"[tiering] {mode}: streams equal the untiered run's | "
+              f"{runs[mode]} | no page leaked, no snapshot left")
+        del sched
+    if not (sum(r["preempt_swap"] for r in runs.values()) >= 1
+            and sum(r["preempt_recompute"] for r in runs.values()) >= 1):
+        raise PhaseError(f"tiering: the runs made no swap or no recompute "
+                         f"({runs})")
+    out["preempt"] = runs
+
+    # ---- b. host tiers: prefix pages and adapter rows ----------------------
+    # 2 slots, 10 pages (2 scratch + 8): the long middle request needs all
+    # 8, so the shared prompt's two cached chunks demote to the host, and
+    # its return promotes them back
+    engine2 = Engine(engine.model, engine.params, batch_slots=2, max_len=128,
+                     device=dev)
+    shared = [(13 * j + 5) % cfg.vocab for j in range(33)]
+
+    def prefix_trace():
+        return ([Request(prompt=torch.tensor(p, dtype=torch.int32),
+                         max_new=n)
+                 for p, n in ((shared, 4), ([21, 22, 23, 24, 25], 124),
+                              (shared, 4))], [0.0, 20.0, 200.0])
+
+    ref = prefix_trace()[0]
+    ContinuousScheduler(engine2, page_size=ps).serve(ref, prefix_trace()[1])
+    psched = ContinuousScheduler(engine2, page_size=ps, n_pages=10,
+                                 tiering=TieringConfig(host_kv_pages=16))
+    preqs = prefix_trace()[0]
+    psched.serve(preqs, prefix_trace()[1])
+    sync()
+    s = psched.metrics.summary()
+    if [r.out for r in preqs] != [r.out for r in ref]:
+        raise PhaseError("tiering prefix: streams differ from the "
+                         "unconstrained run's")
+    if s["kv_pages_spilled_total"] < 1 or s["prefix_host_hits_total"] < 1:
+        raise PhaseError(f"tiering prefix: no demotion or no host hit ({s})")
+    psched.pager.assert_no_leaks()
+    out["prefix"] = {k: s[k + "_total"] for k in (
+        "kv_pages_spilled", "kv_pages_filled", "prefix_host_hits",
+        "kv_fills_degraded")}
+    out["prefix"]["cold_equals_warm"] = preqs[0].out == preqs[2].out
+    print(f"[tiering] prefix pages: {out['prefix']} | streams equal the "
+          "unconstrained run's")
+    del psched, engine2, ref
+
+    # phase 13's tenants over a bank of capacity 2 with a host tier of 5
+    # rows, against a bank of capacity 5 (no eviction)
+    bmodel = build(cfg32, PEFTConfig(method="none"))
+    bparams = bmodel.init(0, dev)
+    tenant_dir = Path(__file__).resolve().parent / "build" / "smoke_tenants"
+    profiles, tenant_ids = bank_tenants(dev, bmodel, bparams, tenant_dir)
+    prompts8 = demo_prompts(cfg, 8)
+
+    def bank_run(capacity, tiering):
+        bank = AdapterBank(bmodel, profiles, capacity=capacity,
+                           checkpoint_dir=str(tenant_dir), device=dev)
+        eng = Engine(bmodel, bparams, batch_slots=8, max_len=128, bank=bank,
+                     device=dev)
+        sched = ContinuousScheduler(eng, page_size=ps, tiering=tiering)
+        return bank, sched
+
+    _, rsched = bank_run(5, None)
+    rreqs, arrivals = demo_trace(prompts8, 12, 16, 2.0, tenant_ids + [None])
+    rsched.serve(rreqs, arrivals)
+    bank, bsched = bank_run(2, TieringConfig(host_adapter_slots=5,
+                                             preempt=False))
+    checked = []
+    real_host = bank.load_from_host
+
+    def load_from_host(aid, pinned=()):
+        slot = real_host(aid, pinned=pinned)
+        if slot is not None:
+            tree, prof = adapter_ckpt.import_adapter(str(tenant_dir), aid,
+                                                     device=dev)
+            rows = bank.params[prof.method]["sites"]
+            for site, leaves in tree.items():
+                for leaf, v in leaves.items():
+                    if not torch.equal(rows[site][leaf][slot], v):
+                        raise PhaseError(f"tiering bank: {aid} {site}/{leaf}"
+                                         " reloaded from the host differs "
+                                         "from its checkpoint")
+            checked.append(aid)
+        return slot
+
+    bank.load_from_host = load_from_host
+    breqs, _ = demo_trace(prompts8, 12, 16, 2.0, tenant_ids + [None])
+    bsched.serve(breqs, arrivals)
+    sync()
+    del bank.load_from_host
+    s = bsched.metrics.summary()
+    if [r.out for r in breqs] != [r.out for r in rreqs]:
+        raise PhaseError("tiering bank: streams differ from the capacity-5 "
+                         "bank's")
+    if s["adapter_host_hits_total"] < 1 or not checked:
+        raise PhaseError(f"tiering bank: no host hit ({s})")
+    out["bank"] = {"adapter_spills": s["adapter_spills_total"],
+                   "adapter_host_hits": s["adapter_host_hits_total"],
+                   "rows_held_bitwise": len(checked),
+                   "checkpoint_loads": bank.loads - len(checked)}
+    print(f"[tiering] bank of capacity 2, host tier of 5 rows, 5 tenants + "
+          f"None: {out['bank']} | streams equal the capacity-5 bank's, "
+          "every host reload bitwise its checkpoint")
+    del bank, bsched, rsched, bparams, bmodel
+    shutil.rmtree(tenant_dir, ignore_errors=True)
+
+    # ---- c. cost: swap (spill + fill) against recompute (prefill) ---------
+    csched = ContinuousScheduler(engine, page_size=ps,
+                                 tiering=TieringConfig(host_kv_pages=64))
+    n_pages, n_tok = 8, 8 * ps
+    idx = np.arange(3, 3 + n_pages, dtype=np.int64)
+    pool = csched.host_kv
+
+    def swap_once():
+        pool.put_snapshot(0, *csched._spill_pages(idx), n_pages)
+        pool.settle()
+        k, v, _ = pool.pop_snapshot(0)
+        csched._fill_pages(k, v, idx)
+        sync()
+
+    toks = torch.randint(0, cfg.vocab, (1, n_tok), device=dev,
+                         dtype=torch.int32)
+    bt = torch.as_tensor(idx[None].astype(np.int32), device=dev)
+    pbatch = {"tokens": toks, "block_table": bt, "slot": 0,
+              "scratch_page": 0}
+
+    @torch.no_grad()
+    def prefill_once():
+        csched.model.prefill_paged(engine.params, csched.cache, pbatch)
+        sync()
+
+    walls = {"swap": [], "prefill": []}
+    for label in ("swap", "prefill", "prefill", "swap"):
+        fn = swap_once if label == "swap" else prefill_once
+        for _ in range(2):
+            fn()
+        for _ in range(6):
+            t0 = time.perf_counter()
+            fn()
+            walls[label].append(time.perf_counter() - t0)
+    swap_ms = statistics.median(walls["swap"]) * 1e3
+    prefill_ms = statistics.median(walls["prefill"]) * 1e3
+    page_bytes = 2 * L * ps * cfg.n_kv * cfg.head_dim * 4
+    out["cost"] = {
+        "pages": n_pages, "tokens": n_tok, "page_bytes": page_bytes,
+        "swap_ms": swap_ms, "prefill_ms": prefill_ms,
+        "swap_ms_per_page": swap_ms / n_pages,
+        "prefill_ms_per_token": prefill_ms / n_tok,
+        # TieringConfig.swap_cost_per_token: one direction of the move per
+        # token, in recomputed-token units
+        "swap_cost_per_token": (swap_ms / 2) / prefill_ms}
+    print(f"[tiering] cost, {L} layers f32, {n_pages} pages ({n_tok} "
+          f"tokens, {page_bytes} bytes a page): spill + fill "
+          f"{swap_ms:.3f} ms ({swap_ms / n_pages:.4f} ms a page) against a "
+          f"prefill of the same tokens {prefill_ms:.3f} ms "
+          f"({prefill_ms / n_tok * 1e3:.2f} us a token): one direction of "
+          f"the move costs {out['cost']['swap_cost_per_token']:.3f} "
+          "recomputed tokens per token (TieringConfig.swap_cost_per_token "
+          "= 0.125)")
+    del csched, pool
+
+    # ---- d. the gateway over a tiered scheduler from the launcher's flags --
+    flags = ["--arch", "yi-6b", "--layers", str(L), "--dtype", "float32",
+             "--slots", "4", "--max-len", "128", "--page-size", str(ps),
+             "--preempt", "--preempt-mode", "swap", "--host-kv-pages", "64",
+             "--device", dev.type]
+    ap = argparse.ArgumentParser()
+    launch_api.add_model_args(ap)
+    args = ap.parse_args(flags)
+    gsched, _ = launch_api.build_scheduler(args)
+    server = GatewayServer(gsched, max_queue=64)
+    treqs, _ = demo_trace(prompts8, 8, 16, 2.0)
+    batch_payloads = [{"model": "base", "prompt": r.prompt.tolist(),
+                       "max_tokens": r.max_new, "stream": True}
+                      for r in treqs]
+    chat_payloads = [{"model": "base", "stream": True, "max_tokens": 6,
+                      "priority": "interactive",
+                      "messages": [{"role": "user", "content": text}]}
+                     for text in ("tier me", "and me")]
+    threads = set()
+    real_decode = gsched.model.decode_step
+
+    def decode_step(*a, **kw):
+        threads.add(threading.get_ident())
+        return real_decode(*a, **kw)
+
+    gsched.model.decode_step = decode_step
+
+    pump = {}
+
+    async def drive():
+        await server.start("127.0.0.1", 0)
+        port, bridge = server.port, server.bridge
+        pump["ident"] = bridge._thread.ident
+        try:
+            batch = [asyncio.ensure_future(http_request(
+                port, "POST", "/v1/completions", p)) for p in batch_payloads]
+            walker = asyncio.ensure_future(http_request(
+                port, "POST", "/v1/completions",
+                {"model": "base", "prompt": [5, 6, 7], "max_tokens": 40,
+                 "stream": True}, first_frame_only=True))
+            gate, entered = threading.Event(), threading.Event()
+
+            def hold_if_full():
+                # hold the pump between ticks while every slot decodes, so
+                # the interactive requests arrive to a full batch
+                if gsched.metrics.steps < 2 or gsched.slots.free_slots():
+                    return False
+                entered.set()
+                return gate.wait(timeout=60)
+
+            for _ in range(5000):
+                held = bridge.call(hold_if_full)
+                while not entered.is_set() and not held.done():
+                    await asyncio.sleep(0.0005)
+                if entered.is_set():
+                    break
+                await asyncio.sleep(0.001)
+            else:
+                raise PhaseError("tiering gateway: the slots never filled")
+            chats = [asyncio.ensure_future(http_request(
+                port, "POST", "/v1/chat/completions", p))
+                for p in chat_payloads]
+            while bridge._cmds.qsize() < len(chats):
+                await asyncio.sleep(0.0005)
+            gate.set()
+            await held
+            got = await asyncio.gather(*batch, *chats)
+            await walker
+            while await bridge.call(lambda: gsched.slots.any_active()):
+                await asyncio.sleep(0.005)
+            await bridge.call(gsched.pager.assert_no_leaks)
+            state = await bridge.call(lambda: (
+                gsched.metrics.steps, len(gsched.host_kv._snapshots),
+                gsched.metrics.summary()))
+            _, metrics = await http_request(port, "GET", "/metrics")
+            return got, state, metrics.decode()
+        finally:
+            await server.close()
+
+    pak.launches = 0
+    got, (steps, snaps, gs), metrics = asyncio.run(drive())
+    k3_gateway = pak.launches
+    del gsched.model.decode_step
+    streams = []
+    for status, body in got:
+        toks_, finish, done = sse_tokens(body)
+        if status != 200 or not done or finish != "length":
+            raise PhaseError(f"tiering gateway: a stream ended {status} "
+                             f"{finish} {done}")
+        streams.append(toks_)
+    vocab, max_len = cfg.vocab, 128
+    replay = [Request(prompt=r.prompt, max_new=r.max_new) for r in treqs]
+    for p in chat_payloads:
+        preq = protocol.parse_request("chat", p, vocab=vocab,
+                                      max_len=max_len)
+        replay.append(Request(prompt=torch.tensor(preq.prompt,
+                                                  dtype=torch.int32),
+                              max_new=preq.max_new))
+    rsched, _ = launch_api.build_scheduler(args)
+    rsched.serve(replay)
+    if streams != [r.out for r in replay]:
+        raise PhaseError(f"tiering gateway: streams {streams} differ from "
+                         f"the in-process replay {[r.out for r in replay]}")
+    if k3_gateway != steps * L or not k3_gateway:
+        raise PhaseError(f"tiering gateway: K3 launched {k3_gateway} times, "
+                         f"expected {steps} decode steps x {L}")
+    if threads != {pump['ident']}:
+        raise PhaseError("tiering gateway: decode ran off the pump thread")
+    values = dict(ln.rsplit(" ", 1) for ln in metrics.splitlines()
+                  if ln and not ln.startswith("#") and "{" not in ln)
+    need = ("repro_preemptions_total", "repro_preempt_swap_total",
+            "repro_resumed_total", "repro_kv_pages_spilled_total",
+            "repro_host_kv_pages_used", "repro_host_kv_pages_capacity")
+    if any(k not in values for k in need) \
+            or float(values["repro_preemptions_total"]) < 1 \
+            or float(values["repro_host_kv_pages_capacity"]) != 64:
+        raise PhaseError(f"tiering gateway: /metrics lacks the preemptions "
+                         f"or the host-tier gauges: {values}")
+    if gs["requests_cancelled_total"] < 1 or snaps:
+        raise PhaseError("tiering gateway: the disconnect was not cancelled "
+                         "or a snapshot was left")
+    out["gateway"] = {"streams": len(streams), "decode_steps": steps,
+                      "k3": k3_gateway,
+                      **{k: float(values[k]) for k in need},
+                      "cancelled": gs["requests_cancelled_total"]}
+    out["k3"]["gateway"] = k3_gateway
+    print(f"[tiering] gateway (launch.api flags {' '.join(flags)}): "
+          f"{len(streams)} SSE streams (8 /v1/completions of the launcher's "
+          "trace, 2 interactive /v1/chat/completions) equal the in-process "
+          "replay; a client that left mid-stream was cancelled, no page "
+          f"leaked; K3 launched {k3_gateway} = {steps} steps x {L} on the "
+          f"pump thread; /metrics: preemptions "
+          f"{values['repro_preemptions_total']}, swaps "
+          f"{values['repro_preempt_swap_total']}, host KV pages used "
+          f"{values['repro_host_kv_pages_used']} of "
+          f"{values['repro_host_kv_pages_capacity']}")
+    del rsched, server, gsched, engine, model
+    # asyncio's closed loop, transports and protocols form reference cycles
+    # that reach the gateway (and this frame, so every model above) until
+    # the cyclic collector runs
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[tiering] phase 17 took {out['phase_s']:.1f} s")
+    print(json.dumps({"tiering": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2233,6 +2759,8 @@ def main() -> int:
                                           (SLICE_LAYERS, 32))
     except PhaseError as e:
         return fail(str(e))
+    print(f"[memory] after phase 14: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
 
     # ---- 16. paper: the paper's models, Table 1, the bases, full, factored --
     torch.cuda.empty_cache()
@@ -2245,6 +2773,15 @@ def main() -> int:
     except PhaseError as e:
         return fail(str(e))
 
+    # ---- 17. tiering: preempt and resume, host tiers, the gateway ----------
+    torch.cuda.empty_cache()
+    print(f"[memory] before phase 17: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    try:
+        tiering = tiering_phase(dev, cfg, ps, torch.cuda.synchronize)
+    except PhaseError as e:
+        return fail(str(e))
+
     # ---- 15. kernels line (printed last) ------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
@@ -2254,7 +2791,8 @@ def main() -> int:
          "launches": k1_train,
          "launches_by_path": {"train": k1_train, "serve": k1_serve,
                               "paper_train": paper["llama_train"]["K1"],
-                              "paper_merge": paper["llama_serve"]["K1"]},
+                              "paper_merge": paper["llama_serve"]["K1"],
+                              "tiering_merge": tiering["k1_merge"]},
          "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -2286,7 +2824,11 @@ def main() -> int:
          "library_call": "torch.nn.functional.scaled_dot_product_attention",
          "launches_by_path": {"serve": k3_launches, "dct_serve": k3_dct,
                               "bank_serve": k3_bank, **k3_spec,
-                              "paper_serve": paper["llama_serve"]["K3"]},
+                              "paper_serve": paper["llama_serve"]["K3"],
+                              "tiering_serve": sum(
+                                  n for k_, n in tiering["k3"].items()
+                                  if k_ != "gateway"),
+                              "gateway_serve": tiering["k3"]["gateway"]},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

@@ -29,6 +29,16 @@ loop's; in bf16 on the card they can part from it where two logits nearly
 tie. `--dense-cache` serves from the dense per-slot cache instead of the
 paged one.
 
+With `--continuous --preempt` (or a host tier) the scheduler serves tiered
+(serve/tiering): a blocked higher-class request evicts a lower-class slot,
+whose KV pages leave by a snapshot to pinned host memory (`--preempt-mode
+swap`) or are recomputed at resume (`recompute`; `auto` picks by cost);
+`--host-kv-pages` sizes the host tier for snapshots and demoted prefix
+pages, `--host-adapter-slots` the one for evicted bank rows, `--n-pages`
+constrains the device page pool, and `--interactive-every N` marks every
+Nth request of the trace `interactive` (the rest stay `batch`, the JAX
+launcher's trace). The preemption and host-tier counters are printed.
+
     python -m repro_torch.launch.serve --arch yi-6b --continuous
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --device cpu
@@ -40,6 +50,10 @@ paged one.
         --speculative --drafter self --draft-k 4
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --speculative --drafter ngram --dense-cache --device cpu
+    python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
+        --preempt --n-pages 10 --page-size 8 --max-len 64 \
+        --host-kv-pages 16 --interactive-every 3 --arrival-every 1 \
+        --device cpu
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
@@ -59,7 +73,14 @@ from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import resolve_device
 from repro_torch.models import build
 from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
-                               NGramDrafter, Request, SelfDrafter)
+                               NGramDrafter, Request, SelfDrafter,
+                               TieringConfig)
+
+# the tiering counters the launcher prints (ServingMetrics.COUNTERS)
+TIERING_COUNTERS = ("preemptions", "preempt_swap", "preempt_recompute",
+                    "resumed", "kv_pages_spilled", "kv_pages_filled",
+                    "kv_fills_degraded", "prefix_host_hits",
+                    "adapter_spills", "adapter_host_hits")
 from repro_torch.train.step import join_params, split_params
 
 
@@ -71,15 +92,23 @@ def demo_prompts(cfg: ModelConfig, slots: int) -> List[torch.Tensor]:
 
 def demo_trace(prompts: List[torch.Tensor], n: int, max_new: int,
                arrival_every: float,
-               tenants: Sequence[Optional[str]] = ()
+               tenants: Sequence[Optional[str]] = (),
+               interactive_every: int = 0
                ) -> Tuple[List[Request], List[float]]:
     """The JAX launcher's replay trace: request i reuses prompt i mod
     len(prompts), asks for 1 + (5i + 3) mod max_new tokens, arrives at
     step i * arrival_every and, given `tenants`, is served by tenant
-    i mod len(tenants)."""
+    i mod len(tenants). With `interactive_every` N > 0, requests N-1,
+    2N-1, ... are `interactive` and the rest `batch`."""
+    def priority(i):
+        if interactive_every and (i + 1) % interactive_every == 0:
+            return "interactive"
+        return "batch"
+
     reqs = [Request(prompt=prompts[i % len(prompts)],
                     max_new=1 + (5 * i + 3) % max_new,
-                    adapter_id=tenants[i % len(tenants)] if tenants else None)
+                    adapter_id=tenants[i % len(tenants)] if tenants else None,
+                    priority=priority(i))
             for i in range(n)]
     return reqs, [i * arrival_every for i in range(n)]
 
@@ -156,6 +185,24 @@ def main(argv=None):
                     help="--speculative: draft tokens per slot per step")
     ap.add_argument("--n-pages", type=int, default=None,
                     help="--continuous: constrain the device page pool")
+    ap.add_argument("--preempt", action="store_true",
+                    help="--continuous: tiered scheduling — evict "
+                         "lower-class slots under pressure instead of "
+                         "deferring higher-class admissions")
+    ap.add_argument("--preempt-mode", default="auto",
+                    choices=("auto", "swap", "recompute"),
+                    help="--preempt: victim KV disposition (auto = cost "
+                         "estimate)")
+    ap.add_argument("--host-kv-pages", type=int, default=0,
+                    help="--continuous: host-memory KV tier pages (0 off): "
+                         "swap snapshots and demoted prefix pages")
+    ap.add_argument("--host-adapter-slots", type=int, default=0,
+                    help="--continuous: host-memory adapter tier rows (0 "
+                         "off): evicted bank rows reload without a "
+                         "checkpoint read")
+    ap.add_argument("--interactive-every", type=int, default=0,
+                    help="--continuous: every Nth request of the trace is "
+                         "`interactive` (0: all `batch`)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
@@ -195,14 +242,24 @@ def main(argv=None):
         if args.speculative:
             drafter = (SelfDrafter(k=args.draft_k) if args.drafter == "self"
                        else NGramDrafter(k=args.draft_k))
+        tiering = None
+        if args.preempt or args.host_kv_pages or args.host_adapter_slots:
+            tiering = TieringConfig(host_kv_pages=args.host_kv_pages,
+                                    host_adapter_slots=args.host_adapter_slots,
+                                    preempt=args.preempt,
+                                    mode=args.preempt_mode)
         sched = ContinuousScheduler(engine, paged=not args.dense_cache,
                                     page_size=args.page_size,
-                                    n_pages=args.n_pages, drafter=drafter)
+                                    n_pages=args.n_pages, drafter=drafter,
+                                    tiering=tiering)
         reqs, arrivals = demo_trace(prompts, args.trace_n, args.max_new,
-                                    args.arrival_every, tenants)
+                                    args.arrival_every, tenants,
+                                    args.interactive_every)
         sched.serve(reqs, arrivals)
         for i, r in enumerate(reqs):
             tag = f" [{r.adapter_id}]" if r.adapter_id else ""
+            if r.priority != "batch":
+                tag += f" ({r.priority})"
             print(f"request {i}{tag} (arrival {arrivals[i]:g}, "
                   f"max_new {r.max_new}): {r.out}")
         if bank is not None:
@@ -221,6 +278,9 @@ def main(argv=None):
                   f"accept rate {s['spec_accept_rate']:.2f}, "
                   f"{s['spec_drafts_wasted']:.0f} drafts wasted over "
                   f"{s['spec_slot_steps']:.0f} slot-steps")
+        if tiering is not None:
+            print("tiering: " + " ".join(
+                f"{k}={s[k + '_total']:.0f}" for k in TIERING_COUNTERS))
         return
     ids = None
     if bank is not None:

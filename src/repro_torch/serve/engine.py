@@ -101,8 +101,10 @@ class AdapterBank:
     gather it and contribute exactly zero. Slots are global across groups:
     loading a tenant zeroes its slot row in the group of the slot's previous
     occupant, then writes its own method's leaves. Eviction is LRU.
-    `host_tier` (a host-memory tier for evicted rows) comes with tiering, a
-    later slice: it stays None and `load_from_host` misses."""
+
+    `host_tier` (a `serve.tiering.HostAdapterTier`, set by a tiering
+    scheduler): evicted rows spill there and `load_from_host` reloads them
+    without a checkpoint read."""
 
     def __init__(self, model: Model, profiles: Dict[str, PEFTConfig],
                  capacity: int, checkpoint_dir: Optional[str] = None,
@@ -181,6 +183,19 @@ class AdapterBank:
         prof = self.profiles.get(peft.method)
         return prof is not None and \
             self._profile_key(peft) == self._profile_key(prof)
+
+    def _snapshot_to_host(self, adapter_id: str, mname: str,
+                          slot: int) -> None:
+        """Spill one tenant's trainable rows to the host tier before the
+        slot is cleared. `v[slot]` is a view of the row that
+        `_clear_group_slot` zeroes next, so each row is cloned first: the
+        tier's copy to the host (on its side stream on the card) reads the
+        clone, which nothing overwrites."""
+        if self.host_tier is None:
+            return
+        tree = {site: {leaf: v[slot].clone() for leaf, v in leaves.items()}
+                for site, leaves in self.params[mname]["sites"].items()}
+        self.host_tier.put(adapter_id, mname, tree)
 
     def _clear_group_slot(self, mname: str, slot: int) -> None:
         """Zero one slot row in one method group. Only the occupant's own
@@ -262,12 +277,17 @@ class AdapterBank:
                     f"resident tenant is pinned; cannot admit "
                     f"{adapter_id!r} until a pinned tenant drains")
             prev_m, slot = self._resident.pop(victim)
+            self._snapshot_to_host(victim, prev_m, slot)
             self._clear_group_slot(prev_m, slot)
         for site_name, leaf, v in writes:
             rows = group["sites"][site_name][leaf]
             rows[slot].copy_(v.to(device=rows.device, dtype=rows.dtype))
         self._resident[adapter_id] = (peft.method, slot)
         self.loads += 1
+        if self.host_tier is not None:
+            # any successful load supersedes a host copy (it would serve
+            # stale rows if the tenant re-trained); eviction re-spills
+            self.host_tier.drop(adapter_id)
         return slot
 
     def load_from_checkpoint(self, adapter_id: str,
@@ -285,14 +305,25 @@ class AdapterBank:
 
     def evict(self, adapter_id: str) -> None:
         mname, slot = self._resident.pop(adapter_id)
+        self._snapshot_to_host(adapter_id, mname, slot)
         self._clear_group_slot(mname, slot)
         self._free.append(slot)
 
     def load_from_host(self, adapter_id: str,
                        pinned: Sequence[str] = ()) -> Optional[int]:
-        """The host tier's reload path: a miss (None) until tiering is
-        ported, so callers fall back to `load_from_checkpoint`."""
-        return None
+        """Make `adapter_id` resident from the host tier, or return None on
+        a host miss — the caller then falls back to `load_from_checkpoint`.
+        Goes through `load()`, so every validation (profile match, shapes,
+        pinned-victim selection) applies to host reloads as to checkpoint
+        loads."""
+        if self.host_tier is None:
+            return None
+        hit = self.host_tier.get(adapter_id)
+        if hit is None:
+            return None
+        method, tree = hit
+        return self.load(adapter_id, tree, self.profiles[method],
+                         pinned=pinned)
 
     def touch(self, adapter_id: str) -> None:
         self._resident.move_to_end(adapter_id)

@@ -25,17 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Collection, Dict, List, Optional
 
 from repro_torch.serve.engine import Request
-
-# priority classes, best first (copied from the JAX package's
-# serve/tiering/config.py; tiering itself comes with a later slice)
-PRIORITIES = ("interactive", "batch", "best_effort")
-
-_RANK = {p: i for i, p in enumerate(PRIORITIES)}
-
-
-def priority_rank(priority: str) -> int:
-    """Smaller is better; unknown classes sort worst."""
-    return _RANK.get(priority, len(PRIORITIES))
+from repro_torch.serve.tiering.config import priority_rank
 
 
 @dataclass(eq=False)               # identity equality: Request holds

@@ -37,18 +37,38 @@ greedy decoding would have emitted. The window and the scores come back
 in one device-to-host transfer per step; the accepted counts commit to the
 cache's positions with `advance_pos`.
 
-Outputs are exact per request: the same tokens `Engine.generate` gives run
-one request at a time, on either cache. With a drafter that holds in f32
-(TF32 off on the card); in bf16 on the card the verify window's matrix
-products (B·W rows) round differently from decode's (B rows), and a stream
-can part from the plain loop's where two logits nearly tie (PERF.md §6).
+Tiering (`tiering=`, serve/tiering): priority classes, preempt-and-resume
+under page or bank pressure, and host-memory tiers for KV pages and
+adapter-bank rows. A blocked higher-class request evicts a strictly
+lower-class slot: the victim's written pages leave by a snapshot to pinned
+host memory ("swap": a gather into a fresh device tensor, copied to the
+host on a side stream, restored into freshly allocated pages with one
+`index_copy_` at resume) or are dropped for a re-prefill of prompt +
+emitted at resume ("recompute"). Cold prefix pages evicted from the prefix
+cache demote to the host tier and come back for a prompt that shares them;
+an evicted bank tenant spills its rows there and reloads without a
+checkpoint read. `cancel(rid)` aborts a request wherever it is (the
+gateway's disconnect path).
 
-Not ported yet, and rejected by the constructor: tiering (`tiering`,
-ROADMAP queue 1).
+Outputs are exact per request: the same tokens `Engine.generate` gives run
+one request at a time, on either cache, preempted and resumed or not. With
+a drafter, and across a recompute-resume (whose prefill computes rows that
+decode steps wrote before), that holds in f32 (TF32 off on the card); in
+bf16 on the card matrix products over different row counts round
+differently, and a stream can part from the plain loop's where two logits
+nearly tie (PERF.md §6).
+
+The hooks the scheduler hands to objects it owns (the slot manager's
+`on_release`, the prefix cache's `on_evict`, the adapter tier's
+`on_spill`, the drafter's back-reference) hold it weakly, so a dropped
+scheduler frees its page pool at once, without the cyclic garbage
+collector.
 """
 from __future__ import annotations
 
 import time
+import weakref
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,13 +77,25 @@ import torch
 from repro_torch.serve.engine import BankFullError, Engine, Request
 from repro_torch.serve.paging import PagedKVCache, PrefixCache, PrimePlan
 from repro_torch.serve.scheduler.metrics import ServingMetrics
-from repro_torch.serve.scheduler.queue import (
-    PRIORITIES, RequestQueue, ScheduledRequest,
-)
+from repro_torch.serve.scheduler.queue import RequestQueue, ScheduledRequest
 from repro_torch.serve.scheduler.slots import SlotManager
+from repro_torch.serve.tiering import (
+    PRIORITIES, HostAdapterTier, HostPagePool, TieringConfig, VictimInfo,
+    choose_mode, choose_victim, priority_rank,
+)
+from repro_torch.serve.tiering.host_pool import HostCopy
 
 Event = Tuple  # ("admit", rid, slot, t) | ("token", rid, tok, t)
-               # | ("done", rid, toks, t)
+               # | ("done", rid, toks, t) | ("preempt", rid, slot, t)
+               # | ("resume", rid, slot, t)
+
+
+@dataclass
+class ResumeState:
+    """How a preempted request comes back (ScheduledRequest.resume):
+    "swap" restores the host snapshot of its KV pages; "recompute"
+    re-prefills prompt + everything already emitted."""
+    mode: str
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -74,26 +106,30 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
+def _weak_method(method):
+    """A callable that forwards to bound `method` without keeping its
+    object alive (a no-op once the object is gone)."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        fn = ref()
+        if fn is not None:
+            return fn(*args)
+    return call
+
+
 class _HostFlag:
     """A device bool vector copied to the host without blocking: the copy is
     queued behind the work that produced the flag, and `ready_any()` waits
     only for that copy, not for work queued after it."""
 
     def __init__(self, flag: torch.Tensor):
-        if flag.device.type == "cuda":
-            self._host = torch.empty(flag.shape, dtype=flag.dtype,
-                                     pin_memory=True)
-            self._host.copy_(flag, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(flag.device))
-        else:
-            self._host = flag.clone()
-            self._event = None
+        stream = (torch.cuda.current_stream(flag.device)
+                  if flag.device.type == "cuda" else None)
+        self._copy = HostCopy([flag], stream)
 
     def ready_any(self) -> bool:
-        if self._event is not None:
-            self._event.synchronize()
-        return bool(self._host.any())
+        return bool(self._copy.wait()[0].any())
 
 
 class ContinuousScheduler:
@@ -112,20 +148,23 @@ class ContinuousScheduler:
              zero-sharing worst case plus prefix-cache headroom).
     drafter: a `serve.spec.Drafter` switches the decode loop to
              draft-then-verify speculative decoding.
+    tiering: a `serve.tiering.TieringConfig` — priority classes,
+             preempt-and-resume under page or bank pressure, and host
+             tiers for KV pages and bank rows. Preemption and the KV tier
+             need the paged cache; the adapter tier works either way.
 
-    `events()` yields ("admit", rid, slot, t), ("token", rid, token, t) and
-    ("done", rid, tokens, t) tuples; `serve(requests, arrivals)` replays a
-    trace and returns the requests with `.out` filled; `metrics`
-    accumulates TTFT / occupancy / tokens-per-s (ServingMetrics)."""
+    `events()` yields ("admit", rid, slot, t), ("token", rid, token, t),
+    ("done", rid, tokens, t), ("preempt", rid, slot, t) and ("resume",
+    rid, slot, t) tuples; `serve(requests, arrivals)` replays a trace and
+    returns the requests with `.out` filled; `metrics` accumulates TTFT /
+    occupancy / tokens-per-s (ServingMetrics)."""
 
     def __init__(self, engine: Engine, eos_id: Optional[int] = None,
                  policy: str = "fcfs", bucket: bool = True,
                  paged: bool = True, page_size: int = 16,
                  n_pages: Optional[int] = None, drafter=None,
-                 eos_sync_every: int = 4, tiering=None):
-        if tiering is not None:
-            raise NotImplementedError("tiering: comes with a later slice "
-                                      "(ROADMAP queue 1)")
+                 eos_sync_every: int = 4,
+                 tiering: Optional[TieringConfig] = None):
         self.engine = engine
         self.bank = engine.bank
         self.model = engine.model
@@ -141,7 +180,7 @@ class ContinuousScheduler:
                                       page_size=page_size, n_pages=n_pages,
                                       device=self.device)
         self.slots = SlotManager(self.n_slots, eos_id=eos_id,
-                                 on_release=self._release_pages)
+                                 on_release=_weak_method(self._release_pages))
         self.metrics = ServingMetrics()
         self.t = 0.0                           # decode-step clock
         if paged:
@@ -170,6 +209,32 @@ class ContinuousScheduler:
         self.drafter = drafter
         if drafter is not None:
             drafter.bind(self)
+        # tiering: host pools and the page-pool moves. The copies to the
+        # host run on one side stream, resolved here once (on the CPU the
+        # tiers keep the gathered tensors themselves)
+        self.tiering = tiering
+        self.host_kv: Optional[HostPagePool] = None
+        self.host_adapters: Optional[HostAdapterTier] = None
+        self._no_admit: set = set()        # preempted this admission round
+        copy_stream = (torch.cuda.Stream(self.device)
+                       if tiering is not None and self.device.type == "cuda"
+                       else None)
+        if tiering is not None and self.pager is not None \
+                and tiering.host_kv_pages > 0:
+            self.host_kv = HostPagePool(tiering.host_kv_pages,
+                                        stream=copy_stream)
+            # touch (not just probe): planned fill keys become MRU so the
+            # same plan's demotions displace older entries first
+            self.pager.host_has = self.host_kv.touch_prefix
+            self.pager.prefix_cache.on_evict = _weak_method(
+                self._demote_prefix_page)
+        if tiering is not None and tiering.host_adapter_slots > 0 \
+                and self.bank is not None:
+            self.host_adapters = HostAdapterTier(
+                tiering.host_adapter_slots,
+                on_spill=_weak_method(self._on_adapter_spill),
+                stream=copy_stream)
+            self.bank.host_tier = self.host_adapters
 
     # ---- submission -------------------------------------------------------
     def submit(self, request: Request, arrival: float = 0.0) -> int:
@@ -199,10 +264,22 @@ class ContinuousScheduler:
         self.metrics.queue_depth = len(self.queue)
         return rid
 
+    def reset_metrics(self) -> None:
+        """Fresh per-run metrics AND a rewound decode-step clock for a new
+        trace replay. Only meaningful between drains. The monotonic
+        cumulative counters (ServingMetrics.COUNTERS) carry over: a
+        /metrics scrape must never see them dip."""
+        if self.slots.any_active() or len(self.queue):
+            raise RuntimeError("reset_metrics with requests in flight")
+        self.metrics = ServingMetrics(carry=self.metrics)
+        self.t = 0.0
+
     # ---- admission --------------------------------------------------------
     def _ensure_resident(self, sr: ScheduledRequest) -> bool:
-        """Make the request's tenant bank-resident (admission side effect).
-        False defers it: the bank is full of pinned (live) tenants."""
+        """Make the request's tenant bank-resident (admission side effect):
+        from the host tier when it holds the tenant, else from its
+        checkpoint. False defers it: the bank is full of pinned (live)
+        tenants."""
         aid = sr.request.adapter_id
         if aid is None:
             return True
@@ -211,32 +288,69 @@ class ContinuousScheduler:
             return True
         pinned = [a for a in self.slots.adapter_ids() if a is not None]
         try:
-            if self.bank.load_from_host(aid, pinned=pinned) is None:
-                self.bank.load_from_checkpoint(aid, pinned=pinned)
+            if self.bank.load_from_host(aid, pinned=pinned) is not None:
+                self.metrics.on_adapter_host_hit()
+                return True
+            self.bank.load_from_checkpoint(aid, pinned=pinned)
         except BankFullError:
             return False
         return True
+
+    def _on_adapter_spill(self) -> None:
+        """HostAdapterTier on_spill hook; reads self.metrics at call time,
+        so the counter survives reset_metrics() swapping the object."""
+        self.metrics.on_adapter_spill()
+
+    def _effective(self, sr: ScheduledRequest) -> Tuple[np.ndarray, int]:
+        """(prompt on the host, max_new) as the admission path sees them. A
+        resumed request re-enters with prompt + everything already emitted
+        as its effective prompt and only its remaining budget left — the
+        page totals and slot invariants of an unpreempted run at the same
+        point."""
+        prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu(),
+                            np.int32)
+        if sr.resume is None:
+            return prompt, sr.request.max_new
+        done = self._outs[sr.rid]
+        return (np.concatenate([prompt, np.asarray(done, np.int32)]),
+                sr.request.max_new - len(done))
 
     def _try_admit(self, sr: ScheduledRequest) -> bool:
         """Admission callback for the queue: bank residency first, then the
         page plan — match the prompt against the prefix cache and allocate
         the slot's worst-case pages up front, so decode never allocates.
-        False defers the request without head-of-line blocking the
-        queue."""
+        False defers the request without head-of-line blocking the queue.
+
+        Resumes ride the same path: a swap-resume allocates all its pages
+        privately (`plan_resume` — the snapshot holds the exact KV); a
+        recompute-resume plans its EFFECTIVE prompt through the ordinary
+        prefix-matching admission, so it may share cached prefix pages."""
+        if sr.rid in self._no_admit:
+            return False       # just preempted: re-admitting it this round
+                               # would thrash it against its preemptor
         if not self._ensure_resident(sr):
             return False
         if self.pager is None:
             return True
+        if sr.resume is not None and sr.resume.mode == "swap":
+            prompt, max_new = self._effective(sr)
+            total = -(-(int(prompt.shape[0]) + max_new - 1)
+                      // self.pager.page_size)
+            plan = self.pager.plan_resume(self.slots.free_slots()[0], total)
+            if plan is None:
+                return False
+            self._plans[sr.rid] = plan
+            return True
         memo = self._prefix_keys.get(sr.rid)
         if memo is None:                     # hash + host-copy once;
-            prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu())
-            memo = (prompt, PrefixCache.chain_keys(   # deferred requests
-                prompt, self.pager.page_size,         # are re-offered
-                sr.request.adapter_id))               # every cycle
+            prompt, max_new = self._effective(sr)     # deferred requests
+            memo = (prompt, max_new, PrefixCache.chain_keys(  # are re-
+                prompt, self.pager.page_size,         # offered every cycle
+                sr.request.adapter_id))
             self._prefix_keys[sr.rid] = memo
-        prompt, keys = memo
+        prompt, max_new, keys = memo
         plan = self.pager.plan_admit(
-            self.slots.free_slots()[0], prompt, sr.request.max_new,
+            self.slots.free_slots()[0], prompt, max_new,
             adapter_id=sr.request.adapter_id, keys=keys)
         if plan is None:
             return False
@@ -263,15 +377,85 @@ class ContinuousScheduler:
                                            device=self.device)
         return batch
 
+    # ---- page moves (tiering) ---------------------------------------------
+    def _spill_pages(self, idx: np.ndarray
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather pages `idx` of both pools into fresh device tensors
+        (advanced indexing copies): queued on the compute stream BEFORE the
+        pages can be freed, so the gather reads their old contents even if
+        a later prime reuses them."""
+        i = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        return (self.cache["pk"].index_select(1, i),
+                self.cache["pv"].index_select(1, i))
+
+    def _fill_pages(self, k: torch.Tensor, v: torch.Tensor,
+                    idx: np.ndarray) -> None:
+        """Copy host pages k/v (L, P, page, K, hd) into pool pages `idx`.
+        The host-to-device copy is queued on the compute stream (from
+        pinned memory, without blocking the host), so it lands before the
+        prime or decode that reads those pages."""
+        i = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        for key, h in (("pk", k), ("pv", v)):
+            pool = self.cache[key]
+            pool.index_copy_(1, i, h.to(pool.device, non_blocking=True))
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        """A zeroed host staging tensor, pinned when the cache is on the
+        card (the host allocator then keeps it until its copy lands)."""
+        return torch.zeros(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _promote_fills(self, plan: PrimePlan, prompt: np.ndarray) -> None:
+        """Copy the plan's host-matched chunks back into their owned device
+        pages before the prime (one batched host-to-device copy and one
+        `index_copy_`; padded rows land in the slot's scratch page). The
+        entries stay host-resident — the LRU ages them out.
+
+        A fill can vanish between plan and promote: `plan_admit`'s own
+        eviction demotes device prefix pages into the host pool, and when
+        the pool is full those demotions displace its LRU entries. The
+        chain shares from the front, so everything past the first missing
+        chunk is unusable: truncate the fills there and extend the tail
+        back over the lost chunks — the prime recomputes them into the
+        already-owned pages, keeping the stream exact at a recompute
+        cost."""
+        n = len(plan.fills)
+        width = _bucket(n, lo=1)
+        k = v = idx = None
+        filled = 0
+        for i, (c, key) in enumerate(plan.fills):
+            hit = self.host_kv.get_prefix(key)
+            if hit is None:
+                self.metrics.on_kv_fill_degraded(n - i)
+                plan.prefix_len = c * self.pager.page_size
+                plan.tail = np.asarray(prompt)[plan.prefix_len:]
+                del plan.fills[i:]
+                break
+            hk, hv = hit
+            if k is None:
+                shape = (hk.shape[0], width) + tuple(hk.shape[2:])
+                k = self._host_buffer(shape, hk.dtype)
+                v = self._host_buffer(shape, hk.dtype)
+                idx = np.full((width,), plan.scratch_page, np.int64)
+            k[:, i], v[:, i] = hk[:, 0], hv[:, 0]
+            idx[i] = plan.block_row[c]
+            filled += 1
+        if not filled:
+            return
+        self._fill_pages(k, v, idx)
+        self.metrics.on_kv_fill(filled)
+        self.metrics.on_prefix_host_hit(filled)
+
     def _prime(self, sr: ScheduledRequest, slot: int,
                prompt: np.ndarray) -> int:
-        """In-flight prefill of `prompt` (the request's, on the host);
-        returns the first generated token. Paged: run
-        the UNSHARED TAIL of the prompt through a batch-1 paged prefill
-        that writes its KV into the slot's pages; reused prefix pages enter
-        the tail's attention through the block-table window, after the COW
-        clone when the plan calls for one. Dense: prefill the prompt into a
-        batch-1 cache and splice it into the slot's row."""
+        """In-flight prefill of `prompt` (on the host: the request's, or
+        prompt + emitted for a recompute-resume); returns the next token.
+        Paged: run the UNSHARED TAIL of the prompt through a batch-1 paged
+        prefill that writes its KV into the slot's pages; reused prefix
+        pages enter the tail's attention through the block-table window,
+        after the COW clone, or the promotion of host-tier pages, when the
+        plan calls for one. Dense: prefill the prompt into a batch-1 cache
+        and splice it into the slot's row."""
         t0 = time.perf_counter()
         params, extra = self.engine._batch_extra([sr.request.adapter_id],
                                                  batch=1)
@@ -290,6 +474,8 @@ class ContinuousScheduler:
         plan = self._plans.pop(sr.rid)
         if plan.cow is not None:
             self.cache = self.model.copy_page(self.cache, *plan.cow)
+        if plan.fills:
+            self._promote_fills(plan, prompt)
         batch = self._bucketed_prompt(np.asarray(plan.tail, np.int32))
         batch.update(block_table=torch.as_tensor(plan.block_row[None],
                                                  device=self.device),
@@ -314,25 +500,81 @@ class ContinuousScheduler:
         return tok
 
     def _admit_ready(self) -> Iterator[Event]:
-        while len(self.queue) and self.slots.free_slots():
-            sr = self.queue.pop_next(self.t, self._try_admit)
-            if sr is None:
-                return          # every arrived request deferred on pages
-            yield from self._admit_one(sr)
+        self._no_admit = set()
+        try:
+            while len(self.queue):
+                resident = self.bank.resident_ids if self.bank else ()
+                sr = None
+                if self.slots.free_slots():
+                    sr = self.queue.pop_next(self.t, self._try_admit,
+                                             resident=resident)
+                if sr is not None:
+                    yield from self._admit_one(sr)
+                    continue
+                # blocked: no free slot, or every arrived request deferred
+                # on pages or the bank. With preemption on, evict a
+                # strictly-lower-class victim for the head-of-policy-order
+                # candidate and retry.
+                if (self.tiering is None or not self.tiering.preempt
+                        or self.pager is None):
+                    return
+                cand = self.queue.peek_next(self.t, resident=resident)
+                if cand is None or cand.rid in self._no_admit:
+                    return
+                evs = self._preempt_for(cand)
+                if evs is None:
+                    return
+                yield from evs
+                if not any(e[0] in ("preempt", "done") for e in evs):
+                    return    # drained tokens only: nothing was freed, so
+                              # retrying admission would spin
+        finally:
+            self._no_admit = set()
 
     def _admit_one(self, sr: ScheduledRequest) -> Iterator[Event]:
-        """Acquire + prime one accepted request."""
+        """Acquire + prime one accepted request (fresh or resumed)."""
+        resume = sr.resume
+        prompt, max_new = self._effective(sr)
         plan = self._plans.get(sr.rid)
-        slot = self.slots.acquire(sr.rid, budget=sr.request.max_new,
+        slot = self.slots.acquire(sr.rid, budget=max_new,
                                   adapter_id=sr.request.adapter_id,
-                                  prompt_len=int(sr.request.prompt.shape[0]),
+                                  prompt_len=int(prompt.shape[0]),
                                   slot=plan.slot if plan else None)
         self._sr[slot] = sr
-        self.metrics.on_admit(sr.rid, self.t)
-        prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu(),
-                            np.int32)
+        if resume is not None and resume.mode == "swap":
+            # restore the snapshot: no prefill, no token — the slot picks
+            # up exactly where the victim stopped (pos = S_eff - 1, next
+            # input = the last emitted token), so the next decode emits the
+            # token an unpreempted run would have
+            sr.resume = None
+            plan = self._plans.pop(sr.rid)
+            k, v, n_used = self.host_kv.pop_snapshot(sr.rid)
+            idx = np.full((k.shape[1],), plan.scratch_page, np.int64)
+            idx[:n_used] = plan.block_row[:n_used]
+            self._fill_pages(k, v, idx)
+            self.cache["pos"][slot] = int(prompt.shape[0]) - 1
+            self.metrics.on_kv_fill(n_used)
+            tok = self._outs[sr.rid][-1]
+            self._last[slot] = tok
+            if self._toks_dev is not None:
+                self._toks_dev[slot, 0] = tok
+            if self.drafter is not None:
+                self.drafter.on_prime(slot, prompt[:-1], tok)
+            self.metrics.on_resume(sr.rid, self.t)
+            yield ("resume", sr.rid, slot, self.t)
+            return
+        if resume is not None:
+            sr.resume = None
+            self.metrics.on_resume(sr.rid, self.t)
+        else:
+            self.metrics.on_admit(sr.rid, self.t)
         tok = self._prime(sr, slot, prompt)
-        self._outs[sr.rid] = [tok]
+        if resume is None:
+            self._outs[sr.rid] = [tok]
+        else:
+            # recompute-resume: the prime re-prefilled prompt + emitted and
+            # produced the NEXT token of the stream
+            self._outs[sr.rid].append(tok)
         self._last[slot] = tok
         if self._toks_dev is not None:
             # mid-buffer admission: in-flight slots' next tokens live only
@@ -342,10 +584,85 @@ class ContinuousScheduler:
             self.drafter.on_prime(slot, prompt, tok)
         self.metrics.on_token(sr.rid, self.t)
         self.queue.note_usage(sr.request.adapter_id, 1)
-        yield ("admit", sr.rid, slot, self.t)
+        yield (("resume" if resume is not None else "admit"),
+               sr.rid, slot, self.t)
         yield ("token", sr.rid, tok, self.t)
         if self.slots.note_token(slot, tok):
             yield self._finish(slot)
+
+    def _demote_prefix_page(self, key: bytes, page: int) -> None:
+        """PrefixCache on_evict hook: instead of dropping a cold prefix
+        page, gather its KV (queued BEFORE the page returns to the free
+        list) and hand the fresh copy to the host tier, which copies it to
+        the host."""
+        if self.host_kv.put_prefix(key, *self._spill_pages(
+                np.array([page], np.int64))):
+            self.metrics.on_kv_spill(1)
+
+    def _preempt_for(self, cand: ScheduledRequest) -> Optional[List[Event]]:
+        """Evict one strictly-lower-class victim slot so `cand` can admit.
+        Returns the events produced (the pre-evict drain may finish
+        slots), or None when nothing is eligible. The victim's KV leaves by
+        snapshot to the host ("swap") or is dropped for re-prefill at
+        resume ("recompute"), per the cost estimate; either way it
+        re-enters the queue with its rid, arrival and emitted tokens
+        intact, and resumes with the same stream."""
+        # drain first: the host view of emitted tokens must be current
+        # before sizing or snapshotting a victim, and a buffered completion
+        # may free a slot outright — then just retry admission (a slot that
+        # was ALREADY free means the candidate is blocked on pages or the
+        # bank, and eviction below is still the right move)
+        free_before = len(self.slots.free_slots())
+        evs = list(self._drain())
+        if len(self.slots.free_slots()) > free_before:
+            return evs
+        crank = priority_rank(cand.request.priority)
+        occupants = []
+        for slot in self.slots.active_slots():
+            vsr = self._sr[slot]
+            if vsr is None:
+                continue
+            st = self.slots.state(slot)
+            occupants.append(VictimInfo(
+                slot=slot,
+                rank=priority_rank(vsr.request.priority),
+                prompt_len=int(vsr.request.prompt.shape[0]),
+                emitted=len(self._outs[vsr.rid]),
+                # rows actually written: pos = prompt_len + taken - 1
+                used_pages=-(-(st.prompt_len + st.taken - 1)
+                             // self.pager.page_size)))
+        victim = choose_victim(crank, occupants)
+        if victim is None:
+            return evs if evs else None
+        vsr = self._sr[victim.slot]
+        mode = choose_mode(self.tiering, victim, self.pager.page_size,
+                           host_can_swap=self.host_kv is not None)
+        if mode == "swap":
+            # gather the victim's used pages (padded to a pow2 width with
+            # its scratch page — harmless dirt both ways) and pin the copy
+            # in the host pool; a pool too full of other snapshots degrades
+            # to recompute, never to waiting
+            n_used = victim.used_pages
+            idx = np.full((_bucket(n_used, lo=1),), victim.slot, np.int64)
+            idx[:n_used] = self.pager.block_tables[victim.slot][:n_used]
+            if self.host_kv.put_snapshot(vsr.rid, *self._spill_pages(idx),
+                                         n_used):
+                self.metrics.on_kv_spill(n_used)
+            else:
+                mode = "recompute"
+        vsr.resume = ResumeState(mode)
+        self._sr[victim.slot] = None
+        self._last[victim.slot] = 0
+        self.slots.release(victim.slot)   # frees pages via on_release —
+        self._stale.add(victim.slot)      # AFTER the spill gather above
+        if self.drafter is not None:
+            self.drafter.on_release(victim.slot)
+        self._prefix_keys.pop(vsr.rid, None)   # resume re-hashes eff prompt
+        self.metrics.on_preempt(vsr.rid, self.t, mode)
+        self.queue.requeue(vsr)
+        self._no_admit.add(vsr.rid)
+        evs.append(("preempt", vsr.rid, victim.slot, self.t))
+        return evs
 
     def _finish(self, slot: int, t: Optional[float] = None) -> Event:
         t = self.t if t is None else t
@@ -360,6 +677,47 @@ class ContinuousScheduler:
         sr.request.out = toks
         self.metrics.on_finish(sr.rid, t)
         return ("done", sr.rid, toks, t)
+
+    # ---- cancellation ------------------------------------------------------
+    @torch.no_grad()
+    def cancel(self, rid: int) -> bool:
+        """Abort request `rid` wherever it is — the client-disconnect path.
+        A queued request is withdrawn (and a preempted one's host snapshot
+        dropped); an ACTIVE one releases its slot THIS step: the release
+        hook frees its KV pages, its tenant's bank row unpins the moment
+        the slot leaves `slots.adapter_ids()`, and its not-yet-drained
+        buffered tokens are discarded by the drain's occupancy check.
+        Returns True iff the request was found live; its `.out` holds the
+        tokens emitted before the abort."""
+        sr = self.queue.remove(rid)
+        if sr is not None:       # still queued: never admitted, or waiting
+            self._prefix_keys.pop(rid, None)   # to resume after preemption
+            if self.host_kv is not None:
+                self.host_kv.drop_snapshot(rid)
+            sr.request.out = self._outs.pop(rid, [])
+            self.metrics.on_cancel(rid, self.t)
+            self.metrics.queue_depth = len(self.queue)
+            return True
+        for slot in self.slots.active_slots():
+            sr = self._sr[slot]
+            if sr is None or sr.rid != rid:
+                continue
+            self._sr[slot] = None              # buffered overshoot for this
+            self._last[slot] = 0               # slot now drains to nowhere
+            self.slots.release(slot)           # frees pages via on_release
+            self._stale.add(slot)
+            if self.drafter is not None:
+                self.drafter.on_release(slot)
+            sr.request.out = self._outs.pop(rid, [])
+            if not self.slots.any_active():
+                # nothing left to drain for: drop the buffered-decode state
+                # instead of carrying dead device work into the next round
+                self._pending.clear()
+                self._flag_dev = None
+                self._flag_prev = None
+            self.metrics.on_cancel(rid, self.t)
+            return True
+        return False
 
     # ---- decode -----------------------------------------------------------
     def _flush_stale(self) -> None:
@@ -499,14 +857,21 @@ class ContinuousScheduler:
         self.cache = self.model.advance_pos(self.cache, deltas)
 
     def resource_gauges(self) -> Dict[str, float]:
-        """Occupancy gauges: bank residency and, paged, prefix-cache and
-        page-pool fill."""
+        """Occupancy gauges for the gateway's /metrics scrape: bank
+        residency, prefix-cache and page-pool fill, and host-tier occupancy
+        when tiering is on."""
         out: Dict[str, float] = {}
         if self.bank is not None:
             out["bank_resident_adapters"] = float(len(self.bank.resident_ids))
         if self.pager is not None:
             out["prefix_cache_pages"] = float(len(self.pager.prefix_cache))
             out["kv_pages_free"] = float(self.pager.allocator.free_count())
+        if self.host_kv is not None:
+            out["host_kv_pages_used"] = float(self.host_kv.used_pages)
+            out["host_kv_pages_capacity"] = float(self.host_kv.capacity_pages)
+        if self.host_adapters is not None:
+            out["host_adapter_rows"] = float(len(self.host_adapters))
+            out["host_adapter_capacity"] = float(self.host_adapters.capacity)
         return out
 
     # ---- main loop --------------------------------------------------------
@@ -515,8 +880,12 @@ class ContinuousScheduler:
         """ONE scheduler round — admit every admissible arrived request,
         then (if anything is decoding) one decode or verify step —
         returning the round's events. Returns [] when there is nothing to
-        do right now (the round idle-skips the clock to the next arrival).
-        Every prefill, decode and verify runs here, without autograd."""
+        do right now (the round idle-skips the clock to the next arrival),
+        or every arrived request is deferred on resources: unlike
+        `events()`, tick() never raises on an un-admittable backlog, since
+        under live traffic a later round can free what admission waits on
+        (the gateway pumps it from its own thread). Every prefill, decode
+        and verify runs here, without autograd."""
         evs: List[Event] = list(self._admit_ready())
         if self.slots.any_active():
             if self.drafter is not None:
@@ -527,6 +896,13 @@ class ContinuousScheduler:
             nxt = self.queue.next_arrival()
             if nxt is not None and nxt > self.t:
                 self.t = nxt           # idle: skip to the next arrival
+        if self.host_kv is not None:
+            # wait for the round's copies to the host now that its decode
+            # work is queued (the copies overlapped it); holding them
+            # longer would keep their device sources allocated
+            self.host_kv.settle()
+        if self.host_adapters is not None:
+            self.host_adapters.settle()
         self.metrics.queue_depth = len(self.queue)
         return evs
 

@@ -27,6 +27,7 @@ from the plain loop's where two logits nearly tie.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List
 
 import numpy as np
@@ -38,12 +39,14 @@ class Drafter:
     scheduler (`bind`), proposes an (n_slots, k) int32 token block per step
     (`propose`: a device tensor or a host array; rows of free slots are
     ignored), and sees the slot lifecycle through `on_prime`, `on_tokens`
-    and `on_release`."""
+    and `on_release`. The scheduler owns its drafter, so the drafter holds
+    only a weak proxy of it: a dropped scheduler frees its cache without
+    waiting for the cyclic garbage collector."""
 
     k: int = 4
 
     def bind(self, sched) -> None:
-        self._sched = sched
+        self._sched = None if sched is None else weakref.proxy(sched)
 
     def propose(self):
         raise NotImplementedError

@@ -699,3 +699,132 @@ def test_factored_step_on_the_card(cuda_device):
         state, frozen, batch)
     assert (fdk.launches, fdk.dc_launches) == before
     assert np.isfinite(float(m["loss"]))
+
+
+# ---- tiering: pinned host tiers and the side stream -------------------------
+def _tiered(device, **tiering):
+    """A reduced yi-6b (head_dim 128, f32) scheduler on `device` with a
+    TieringConfig, 3 slots, page 8, a pool of 9 pages (two long requests
+    own it)."""
+    from repro_torch.serve import TieringConfig
+    cfg = configs.reduced(configs.get("yi-6b"), width=512).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    model = build(cfg, PEFTConfig(method="none"))
+    engine = Engine(model, model.init(0, device), batch_slots=3, max_len=48,
+                    device=device)
+    return cfg, ContinuousScheduler(engine, page_size=8, n_pages=9,
+                                    tiering=TieringConfig(**tiering))
+
+
+def test_pinned_spill_fill_round_trip_bitwise(cuda_device):
+    """Pages gathered, copied to pinned host memory on the side stream, a
+    decode step queued that overwrites those very pages before the copy is
+    waited on, then restored into other pages: the host copy is pinned,
+    and host copy and restored pages are bitwise the pages as gathered."""
+    cfg, sched = _tiered(cuda_device, mode="swap", host_kv_pages=16)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    for key in ("pk", "pv"):
+        sched.cache[key].copy_(torch.randn(sched.cache[key].shape,
+                                           generator=gen, device=cuda_device))
+    idx = np.array([3, 4], np.int64)
+    before = {key: sched.cache[key][:, idx].clone() for key in ("pk", "pv")}
+    assert sched.host_kv.put_snapshot(7, *sched._spill_pages(idx), 2)
+    # slot 0 writes its next row into page 3 (pos 0, block-table row [3, 4,
+    # ..]); the gather was queued first, so the copy reads the old rows
+    bt = torch.full((3, 6), 0, dtype=torch.int32, device=cuda_device)
+    bt[0, :2] = torch.tensor([3, 4])
+    batch = {"tokens": torch.ones((3, 1), dtype=torch.int32,
+                                  device=cuda_device),
+             "block_table": bt, "scratch_pages": torch.arange(
+                 3, dtype=torch.int32, device=cuda_device)}
+    with torch.no_grad():
+        sched.model.decode_step(sched.engine.params, sched.cache, batch)
+    assert not torch.equal(sched.cache["pk"][:, idx], before["pk"])
+    sched.host_kv.settle()
+    k, v, n = sched.host_kv.pop_snapshot(7)
+    assert n == 2 and k.is_pinned() and v.is_pinned()
+    assert torch.equal(k, before["pk"].cpu())
+    assert torch.equal(v, before["pv"].cpu())
+    dst = np.array([5, 6], np.int64)
+    sched._fill_pages(k, v, dst)
+    torch.cuda.synchronize()
+    assert torch.equal(sched.cache["pk"][:, dst], before["pk"])
+    assert torch.equal(sched.cache["pv"][:, dst], before["pv"])
+
+
+def test_bank_host_spill_not_zeroed_by_the_clear(cuda_device):
+    """An evicted tenant's rows reach the host tier as they were, not as
+    the zeros `_clear_group_slot` writes into the slot right after the
+    spill (the bank clones each row on the compute stream first), and
+    reload bitwise."""
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.serve import AdapterBank
+    from repro_torch.serve.tiering import HostAdapterTier
+    cfg = configs.reduced(configs.get("yi-6b"), width=512).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    model = build(cfg, PEFTConfig(method="none"))
+    prof = PEFTConfig(method="lora", lora_r=4)
+    bank = AdapterBank(model, {"lora": prof}, capacity=1, device=cuda_device)
+    bank.host_tier = HostAdapterTier(2, stream=torch.cuda.Stream(cuda_device))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    trees = {}
+    for tid in ("a", "b"):
+        tree = peft_mod.init_adapters(gen, model.sites, prof, cuda_device)
+        trees[tid] = {s: {k: torch.randn(v.shape, generator=gen,
+                                         device=cuda_device)
+                          for k, v in d.items()} for s, d in tree.items()}
+        bank.load(tid, trees[tid], prof)            # "b" evicts "a"
+    bank.host_tier.settle()
+    _, host = bank.host_tier.get("a")
+    for site, leaves in trees["a"].items():
+        for leaf, v in leaves.items():
+            assert host[site][leaf].is_pinned()
+            assert torch.equal(host[site][leaf], v.cpu()), (site, leaf)
+    slot = bank.load_from_host("a")
+    for site, leaves in trees["a"].items():
+        for leaf, v in leaves.items():
+            assert torch.equal(bank.params["lora"]["sites"][site][leaf][slot],
+                               v)
+
+
+def test_cancel_frees_pages_while_a_spill_is_in_flight(cuda_device):
+    """A swap preemption's copy to the host is left unsettled while its
+    request is cancelled from the queue: the snapshot is dropped, the
+    victim's pages are already free (they were freed right after the
+    gather), the trace drains leak-free, and the other streams are the
+    untiered run's."""
+    cfg, sched = _tiered(cuda_device, mode="swap", host_kv_pages=32)
+    rows = [([1, 2, 3, 4, 5], 20, "batch"), ([7, 8, 9], 18, "batch"),
+            ([11, 12], 4, "interactive")]
+
+    def reqs():
+        return [Request(prompt=torch.tensor(p, dtype=torch.int32),
+                        max_new=n, priority=pr) for p, n, pr in rows]
+
+    plain = reqs()
+    ContinuousScheduler(sched.engine, page_size=8).serve(plain,
+                                                         [0.0, 0.0, 3.0])
+    real_settle = sched.host_kv.settle
+    sched.host_kv.settle = lambda: None
+    tiered = reqs()
+    for r, at in zip(tiered, (0.0, 0.0, 3.0)):
+        sched.submit(r, arrival=at)
+    victim = None
+    for _ in range(40):
+        victim = next((ev[1] for ev in sched.tick() if ev[0] == "preempt"),
+                      None)
+        if victim is not None:
+            break
+    assert victim is not None and sched.host_kv.has_snapshot(victim)
+    assert sched.cancel(victim)
+    assert not sched.host_kv.has_snapshot(victim)
+    for _ in sched.events():
+        pass
+    real_settle()
+    torch.cuda.synchronize()
+    sched.pager.assert_no_leaks()
+    for i, (r, p) in enumerate(zip(tiered, plain)):
+        if i != victim:
+            assert r.out == p.out, i

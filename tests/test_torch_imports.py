@@ -3,7 +3,8 @@
 An AST walk of every module of `src/repro_torch`, of `chip_smoke.py` and of
 the port's scripts under `tools/` finds no import of jax, jaxlib, ml_dtypes or the JAX package `repro`; the
 entry points built without a device raise when there is no CUDA device; the
-port's configs resolve only what it implements."""
+port's configs resolve only what it implements, and the paths it has not
+ported refuse with a message."""
 import ast
 from pathlib import Path
 
@@ -68,13 +69,18 @@ def test_entry_points_raise_without_cuda():
         launch_train.main(["--arch", "yi-6b", "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_step.init_state(model, TrainConfig(), 0)
+    from repro_torch.launch import api as launch_api
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_api.main(["--arch", "yi-6b", "--reduced", "--port", "0"])
 
 
 def test_unported_paths_are_rejected():
     model, params = _tiny()
     engine = Engine(model, params, batch_slots=2, max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ContinuousScheduler(engine, tiering=object())
+    from repro_torch.launch import api as launch_api
+    with pytest.raises(SystemExit, match="no mesh"):
+        launch_api.main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
+                         "--model-parallel", "2"])
     from repro_torch.train import step as train_step
     with pytest.raises(NotImplementedError, match="distributed slice"):
         train_step.make_train_step(model,

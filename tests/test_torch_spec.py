@@ -47,7 +47,7 @@ from repro_torch.models import build
 from repro_torch.models import transformer as tf
 from repro_torch.serve import (
     AdapterBank, ContinuousScheduler, Engine, NGramDrafter, Request,
-    SelfDrafter,
+    SelfDrafter, TieringConfig,
 )
 from repro_torch.serve.scheduler.slots import SlotManager
 
@@ -630,8 +630,11 @@ def test_constructor_takes_drafter_and_dense_cache_not_tiering(world):
     assert dense.pager is None and "k" in dense.cache
     assert dense.cache["pos"].shape == (2,)
     assert "kv_pages_free" not in dense.resource_gauges()
-    with pytest.raises(NotImplementedError, match="tiering"):
-        ContinuousScheduler(eng, tiering=object())
+    # tiering is ported; the dense cache takes no KV host tier (preemption
+    # and the page tier need the paged cache)
+    tiered = ContinuousScheduler(eng, paged=False,
+                                 tiering=TieringConfig(host_kv_pages=4))
+    assert tiered.host_kv is None and tiered.pager is None
 
 
 def test_launcher_speculative_ngram_dense_cache(capsys):
