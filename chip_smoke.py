@@ -15,15 +15,21 @@ no result line:
               slices' shapes (yi-6b wq 4096x4096 and wv 4096x512, n = 1000,
               stacked over L = 2), one ragged shape and two shapes off the
               main path (qwen2.5-32b wq 5120x5120, radix 5; yi-6b's MLP
-              4096x11008, radix 43), and phase 16a's LLaMA2-7B q/v stack
-              (4096x4096 over L = 32; held, not summed into the kernels
-              line), atol 2e-4 in f32 with TF32 off, the
+              4096x11008, radix 43), phase 16a's LLaMA2-7B q/v stack
+              (4096x4096 over L = 32) and phase 18's families' q/v stacks
+              (olmoe-1b-7b 2048x2048 over L = 16, phi3.5-moe's wv
+              4096x1024 over L = 4, musicgen-medium 1536x1536 over L = 48,
+              radix 3, qwen2-vl-72b 8192x8192 and 8192x1024 over L = 2;
+              each held, not summed into the kernels line, the families'
+              listed in its `family_shapes`), atol 2e-4 in f32 with TF32
+              off, the
               same bits on a second launch; kernel, plain, `torch.fft.ifft2`
               (the paper's Algorithm 1, the library call for the same
               function) and one-`torch.matmul` times, the kernel's time as
               a multiple of its bound and of the library call.
 4. K2       — the dc kernel (K1's VJP) against its plain version at the
-              same shapes, atol 2e-3 / rtol 1e-4 (the JAX suite's dc
+              same shapes (`family_shapes` too), atol 2e-3 / rtol 1e-4
+              (the JAX suite's dc
               tolerance), f32 with TF32 off, the same bits on a second
               launch; kernel, plain and `torch.fft.fft2` (gathered at the
               entries) times and multiples as for K1.
@@ -39,7 +45,10 @@ no result line:
               1024 and to 4096, B 8 at 4096, B 32 at 2048 and a verify
               window W 5 at 4096; then at group size G = 1, LLaMA2-7B's
               (H = K = 32, dh 128) and GPT-2-medium's (H = K = 16, dh 64)
-              geometry, B 8 at kv_len <= 128 and at 4096; bf16 and f32
+              geometry, B 8 at kv_len <= 128 and at 4096, and the MoE
+              families' serving heads: olmoe-1b-7b (H = K = 16, dh 128,
+              G = 1) and phi3.5-moe (H 32, K 8, G = 4), each at kv_len
+              <= 128 (phase 18's serving) and 4096; bf16 and f32
               against the plain version
               in f32 on the same inputs (f32 atol = rtol = 1e-5; bf16 2e-2
               of each output vector's largest |value|, never beyond atol =
@@ -222,8 +231,50 @@ no result line:
               is `chip_smoke.tiering_phase`, rehearsable on the CPU at a
               reduced config with a counting stand-in for K3 and the K1
               wrapper counted.
+18. families — long sequences and the transformer's other families.
+              (a) Attention alone at yi-6b's heads (H 32, K 4, dh 128), B 1,
+              S 4096, bf16 and f32: `flash_attention`'s forward and its
+              recomputing backward, and `chunked_attention`, against
+              float64 `direct_attention` on the same inputs under
+              autograd: f32 at the CPU suite's tolerances (forward 3e-6,
+              each gradient 5e-5, chunked 2e-5); bf16 each tensor against
+              its own size (every output vector within 6e-3 of its largest
+              |value|, flash's and chunked's; each gradient ||diff|| / ||g||
+              <= 2.5e-3 and max |diff| / max |g| <= 2e-2), the same
+              readings against the f32 problem before the bf16 rounding
+              printed as the control the limits must stay below; ms per
+              call and
+              peak memory above the inputs for flash, chunked, direct and
+              SDPA (the library call for the same causal GQA product, not
+              on the port's path), forward and forward+backward; flash's
+              peak must be below direct's. (b) olmoe-1b-7b at full size
+              (16 layers, d 2048, 64 experts top-8, bf16, FourierFT
+              n = 1000, alpha = 300 on wq/wv): 3 merged train steps at
+              B 1 x S 4096 through flash (K1/K2 at L 16, 2048x2048; losses
+              finite, no anomaly, c moved, K1/K2 2 a step, flash once a
+              layer a step), flash's share of the warm step, then the
+              merge (K1 2) and 6 requests through ContinuousScheduler on
+              the paged cache (K3 at G = 1, decode steps x 16); on a
+              2-layer full-width f32 copy the kernel path's streams equal
+              the plain path's. (c) phi3.5-moe at full width cut to 4 of
+              its 32 layers (84 GB in bf16 does not fit one card): 3 steps
+              at S 2048, then the same serving with K3 at G = 4. (d)
+              musicgen-medium at full size (48 layers): 3 steps on
+              4-codebook batches (B 2 x S 2048, K1/K2 at 1536x1536, radix
+              3), the merge, and lockstep Engine.generate of (16, 4)
+              streams. (e) qwen2-vl-72b at full width cut to 2 of its 80
+              layers: 2 steps on an embeds batch with (3, B, S) M-RoPE
+              positions at S 2048 (flash; K1/K2 at 8192x8192 and
+              8192x1024), the merge, a prefill of the embeddings and one
+              decode_step. Each of (b)-(e) prints its warm ms per step,
+              tokens/s and peak memory. The phase is
+              `chip_smoke.families_phase`, rehearsable on the CPU at
+              reduced configs (S 1536) with the CUDA routes resolved for
+              CPU tensors, counting wrappers and the memory readers
+              stubbed.
 15. kernels — one JSON line with each kernel's launches (by path, phases
-              16's and 17's included), error and times; printed last.
+              16's, 17's and 18's included), error and times; printed
+              last.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -293,6 +344,66 @@ def merged_within_one_ulp(w, a, b):
 
 class PhaseError(RuntimeError):
     """A check of a phase failed: the message says which."""
+
+
+def zero_counts():
+    """Sets every kernel wrapper's launch count to 0 (K3's by window width
+    too)."""
+    from repro_torch.kernels import dct_deltaw as ddk
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    fdk.launches = fdk.dc_launches = ddk.launches = ddk.dc_launches = 0
+    pak.launches, pak.launches_by_w = 0, {}
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the last `zero_counts()`."""
+    from repro_torch.kernels import dct_deltaw as ddk
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    return {"K1": fdk.launches, "K2": fdk.dc_launches, "K3": pak.launches,
+            "K4": ddk.launches, "K5": ddk.dc_launches}
+
+
+def synthetic_batches(dev, cfg, B: int, S: int, n: int) -> list:
+    """The first n `SyntheticLM` batches of B x S tokens (over
+    cfg.n_codebooks codebooks when it has them), on `dev`."""
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(vocab=cfg.vocab, batch=B, seq=S, seed=0, task_seed=7,
+                       codebooks=cfg.n_codebooks)
+    return [{k: t.to(dev) for k, t in data.batch_at(i).items()}
+            for i in range(n)]
+
+
+def checked_steps(model, tcfg, params, bs, label: str, sync):
+    """(state, frozen, losses, seconds per step) of len(bs) steps through
+    make_train_step, each ending in the loss's read and `sync()`; raises
+    PhaseError, naming `label`, on a non-finite loss or an anomalous
+    step."""
+    from repro_torch.train import step as train_step
+    state, frozen = train_step.state_from_params(model, params)
+    step = train_step.make_train_step(model, tcfg)
+    losses, secs = [], []
+    for b in bs:
+        t0 = time.perf_counter()
+        state, metrics = step(state, frozen, b)
+        losses.append(float(metrics["loss"]))
+        sync()
+        secs.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        raise PhaseError(f"{label}: non-finite loss {losses}")
+    if int(state["anomalies"]) != 0:
+        raise PhaseError(f"{label}: {int(state['anomalies'])} anomalous "
+                         "steps")
+    return state, frozen, losses, secs
+
+
+def c_moved(state, params) -> bool:
+    """Whether every site's coefficients in the train state differ from
+    the ones it started from."""
+    import torch
+    return all(not torch.equal(state["trainable"]["peft"][s_]["c"], ad["c"])
+               for s_, ad in params["peft"].items())
 
 
 def device_ms(fn, n: int):
@@ -1008,8 +1119,6 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     from repro_torch.configs.base import PEFTConfig, TrainConfig
     from repro_torch.core import basis as basis_mod
     from repro_torch.core import peft as peft_mod
-    from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.launch.serve import demo_trace
@@ -1025,46 +1134,7 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     # device memory still held by the earlier phases (the figures below
     # count from it)
     earlier = torch.cuda.memory_allocated() / 2 ** 30
-
-    def zero_counts():
-        fdk.launches = fdk.dc_launches = ddk.launches = ddk.dc_launches = 0
-        pak.launches, pak.launches_by_w = 0, {}
-
-    def counts():
-        return {"K1": fdk.launches, "K2": fdk.dc_launches,
-                "K3": pak.launches, "K4": ddk.launches,
-                "K5": ddk.dc_launches}
-
-    def batches(cfg, n):
-        data = SyntheticLM(vocab=cfg.vocab, batch=B, seq=S, seed=0,
-                           task_seed=7)
-        return [{k: t.to(dev) for k, t in data.batch_at(i).items()}
-                for i in range(n)]
-
-    def train(model, tcfg, params, bs):
-        """(state, frozen, losses, seconds per step) of len(bs) steps
-        through make_train_step, each ending in the loss's read."""
-        state, frozen = train_step.state_from_params(model, params)
-        step = train_step.make_train_step(model, tcfg)
-        losses, secs = [], []
-        for b in bs:
-            t0 = time.perf_counter()
-            state, metrics = step(state, frozen, b)
-            losses.append(float(metrics["loss"]))
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        if not all(math.isfinite(x) for x in losses):
-            raise PhaseError(f"paper {model.cfg.name}: non-finite loss "
-                             f"{losses}")
-        if int(state["anomalies"]) != 0:
-            raise PhaseError(f"paper {model.cfg.name}: "
-                             f"{int(state['anomalies'])} anomalous steps")
-        return state, frozen, losses, secs
-
-    def c_moved(state, params):
-        return all(not torch.equal(state["trainable"]["peft"][s_]["c"],
-                                   ad["c"])
-                   for s_, ad in params["peft"].items())
+    sync = torch.cuda.synchronize
 
     # ---- a. LLaMA2-7B at full size: accounting, train, merge, serve --------
     cfg = cfgs["llama"]
@@ -1100,10 +1170,11 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     torch.cuda.reset_peak_memory_stats()
     tcfg = TrainConfig(learning_rate=1e-2, total_steps=4, warmup_steps=1,
                        microbatch=mb)
-    bs = batches(cfg, 4)
+    bs = synthetic_batches(dev, cfg, B, S, 4)
     zero_counts()
-    state, frozen, losses, secs = train(model, tcfg, params, bs)
-    got = counts()
+    state, frozen, losses, secs = checked_steps(
+        model, tcfg, params, bs, f"paper {cfg.name}", sync)
+    got = launch_counts()
     expected = len(bs) * mb * 2
     if got["K1"] != expected or got["K2"] != expected:
         raise PhaseError(f"paper {cfg.name} train: K1 launched {got['K1']}, "
@@ -1289,7 +1360,7 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
                     f"differs from the float64 product by "
                     f"{float(diff.max()):.3e} (atol 2e-5, rtol 1e-4)")
         merged_model, merged = merge_for_serving(bmodel, bparams)
-        mk = counts()
+        mk = launch_counts()
         if mk["K1"] or mk["K2"] or merged_model.peft.method != "none":
             raise PhaseError(f"paper {kind}: merge launched {mk} or left "
                              f"method {merged_model.peft.method}")
@@ -1297,9 +1368,10 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
         tcfg = TrainConfig(learning_rate=1e-2, total_steps=3,
                            warmup_steps=1)
         zero_counts()
-        state, _, losses_b, secs_b = train(bmodel, tcfg, bparams,
-                                           batches(rcfg, 3))
-        got = counts()
+        state, _, losses_b, secs_b = checked_steps(
+            bmodel, tcfg, bparams, synthetic_batches(dev, rcfg, B, S, 3),
+            f"paper {rcfg.name}", sync)
+        got = launch_counts()
         if got["K1"] or got["K2"]:
             raise PhaseError(f"paper {kind} train: launched {got}, expected "
                              "no K1 or K2")
@@ -1326,9 +1398,10 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     tcfg = TrainConfig(learning_rate=1e-2, total_steps=3, warmup_steps=1)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    state, _, losses_g, secs_g = train(gmodel, tcfg, gparams,
-                                       batches(gcfg, 3))
-    got = counts()
+    state, _, losses_g, secs_g = checked_steps(
+        gmodel, tcfg, gparams, synthetic_batches(dev, gcfg, B, S, 3),
+        f"paper {gcfg.name}", sync)
+    got = launch_counts()
     if any(got.values()):
         raise PhaseError(f"paper full: launched {got}, expected no kernel")
     after = tree_leaves(state["trainable"]["base"])
@@ -1353,11 +1426,12 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     factored = fpeft.replace(strategy="factored")
     fmodel = build(fcfg, factored)
     fparams = fmodel.init(0, dev)
-    bs = batches(fcfg, 3)
+    bs = synthetic_batches(dev, fcfg, B, S, 3)
     tcfg = TrainConfig(learning_rate=1e-2, total_steps=3, warmup_steps=1)
     zero_counts()
-    state, _, losses_f, secs_f = train(fmodel, tcfg, fparams, bs)
-    got = counts()
+    state, _, losses_f, secs_f = checked_steps(
+        fmodel, tcfg, fparams, bs, f"paper {fcfg.name}", sync)
+    got = launch_counts()
     if any(got.values()):
         raise PhaseError(f"paper factored train: launched {got}, expected "
                          "no kernel")
@@ -1895,6 +1969,518 @@ def tiering_phase(dev, cfg, ps: int, sync) -> dict:
     return out
 
 
+def long_attention_phase(dev, geometry, timed_ms, sync) -> dict:
+    """Phase 18a (module docstring) on `dev` at `geometry` (H, K, dh, S).
+    Returns each dtype's readings, times and peak memory; raises
+    PhaseError when a check fails."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+    gib = 2 ** 30
+
+    def peak_above(fn):
+        """(result, peak device memory above what was allocated before,
+        GiB)."""
+        sync()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        sync()
+        return res, (torch.cuda.max_memory_allocated() - before) / gib
+
+    def flash(q_, k_, v_):
+        return attn.flash_attention(q_, k_, v_, True, 512)
+
+    def chunked(q_, k_, v_):
+        return attn.chunked_attention(q_, k_, v_, causal=True)
+
+    def direct(q_, k_, v_):
+        return attn.direct_attention(q_, k_, v_, causal=True)
+
+    def vec_rel(a, b):
+        """max over output vectors (row, head) of max |a - b| over the
+        vector's largest |b|."""
+        return float(((a - b).abs().amax(-1)
+                      / b.abs().amax(-1).clamp_min(1e-30)).max())
+
+    def tensor_rel(a, b):
+        """(max |a - b| / max |b|, ||a - b|| / ||b||) of each pair."""
+        return ([float((x - y).abs().max() / y.abs().max())
+                 for x, y in zip(a, b)],
+                [float((x - y).norm() / y.norm()) for x, y in zip(a, b)])
+
+    def worst_abs(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+    H, K, dh, S = geometry
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        q32 = torch.randn((1, S, H, dh), generator=gen, device=dev)
+        k32 = torch.randn((1, S, K, dh), generator=gen, device=dev)
+        v32 = torch.randn((1, S, K, dh), generator=gen, device=dev)
+        cot32 = torch.randn((1, S, H, dh), generator=gen, device=dev)
+        q, k, v, cot = (x.to(dtype) for x in (q32, k32, v32, cot32))
+
+        def grads(fn, xs=(q, k, v), dt=None, c=cot):
+            """(output, gradients of sum(output * c)) of fn on xs (cast to
+            `dt` when given), in float64."""
+            xs = [x.detach().to(dt or x.dtype).requires_grad_(True)
+                  for x in xs]
+            with torch.enable_grad():
+                o = fn(*xs)
+                g_ = torch.autograd.grad((o * c.to(o.dtype)).sum(), xs)
+            return o.detach().double(), [x.double() for x in g_]
+
+        # every path against the exact value of the function on these
+        # inputs and this cotangent (in `dtype`): direct attention in
+        # float64. (f32 direct itself strays from it by up to 1.2e-4 in dv
+        # at this length on the card, beyond the 5e-5 the CPU suite holds
+        # flash to against it at S 512, so an f32-to-f32 comparison would
+        # test direct's rounding, not flash.)
+        o64, g64 = grads(direct, dt=torch.float64)
+        of, gf = grads(flash)
+        od, gd = grads(direct)
+        with torch.no_grad():
+            oc = chunked(q, k, v).double()
+        rec = {"max_grad": [float(g.abs().max()) for g in g64],
+               "grad_abs": worst_abs(gf, g64),
+               "direct_grad_abs": worst_abs(gd, g64)}
+        rec["grad_rel"], rec["grad_norm"] = tensor_rel(gf, g64)
+        rec["direct_grad_rel"], rec["direct_grad_norm"] = tensor_rel(gd, g64)
+        if dtype == torch.float32:
+            # the CPU suite's tolerances: forward 3e-6, gradients 5e-5
+            # (every tensor), chunked 2e-5
+            rec.update(fwd=worst_abs([of], [o64])[0],
+                       chunked=worst_abs([oc], [o64])[0],
+                       direct_fwd=worst_abs([od], [o64])[0])
+            limits = {"fwd": 3e-6, "chunked": 2e-5}
+            ok = (rec["fwd"] <= 3e-6 and rec["chunked"] <= 2e-5
+                  and max(rec["grad_abs"]) <= 5e-5)
+            what = (f"forward {rec['fwd']:.3e} (limit 3e-6), chunked "
+                    f"{rec['chunked']:.3e} (2e-5), dq/dk/dv "
+                    f"{[f'{x:.3e}' for x in rec['grad_abs']]} (5e-5 each)")
+        else:
+            # bf16, each tensor against its own size: every output vector
+            # within 6e-3 of its largest |value| (the bf16 cast alone is
+            # within 2^-8 = 3.9e-3), every gradient ||diff|| / ||g||
+            # <= 2.5e-3 and max |diff| / max |g| <= 2e-2. The control: the
+            # same outputs against the f32 problem before the inputs were
+            # rounded to bf16 (float64 direct on the f32 inputs and
+            # cotangent), which a sound bf16 flash cannot reach; its
+            # reading must stay above the limits for them to mean anything
+            rec.update(fwd=vec_rel(of, o64), chunked=vec_rel(oc, o64),
+                       direct_fwd=vec_rel(od, o64))
+            o64c, g64c = grads(direct, (q32, k32, v32), torch.float64, cot32)
+            rec["control_fwd"] = vec_rel(of, o64c)
+            rec["control_grad_rel"], rec["control_grad_norm"] = tensor_rel(
+                gf, g64c)
+            del o64c, g64c
+            limits = {"fwd": 6e-3, "chunked": 6e-3, "grad_norm": 2.5e-3,
+                      "grad_rel": 2e-2}
+            ok = (rec["fwd"] <= 6e-3 and rec["chunked"] <= 6e-3
+                  and max(rec["grad_norm"]) <= 2.5e-3
+                  and max(rec["grad_rel"]) <= 2e-2)
+            what = (f"forward {rec['fwd']:.3e} of each vector's largest "
+                    f"(limit 6e-3; control {rec['control_fwd']:.3e}), "
+                    f"chunked {rec['chunked']:.3e} (6e-3), dq/dk/dv "
+                    f"||diff||/||g|| "
+                    f"{[f'{x:.3e}' for x in rec['grad_norm']]} (2.5e-3; "
+                    f"control "
+                    f"{[f'{x:.3e}' for x in rec['control_grad_norm']]}), "
+                    f"max |diff|/max |g| "
+                    f"{[f'{x:.3e}' for x in rec['grad_rel']]} (2e-2)")
+        rec["limits"] = limits
+        del o64, g64, of, gf, od, gd, oc
+        if not ok:
+            raise PhaseError(f"families attention {dname} S {S}: flash "
+                             f"against float64 direct_attention: {what}")
+        # SDPA, the library call for the same causal GQA product (not on
+        # the port's path): GQA through enable_gqa where this torch takes
+        # it, else heads expanded inside the timed call
+        try:
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+            sdpa_gqa, sdpa_how = True, "enable_gqa"
+        except (RuntimeError, TypeError):
+            sdpa_gqa, sdpa_how = False, "expanded heads"
+
+        def sdpa_fn(q_, k_, v_, gqa=sdpa_gqa):
+            if not gqa:
+                k_, v_ = (x.repeat_interleave(H // K, dim=2)
+                          for x in (k_, v_))
+            kw = {"enable_gqa": True} if gqa else {}
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                is_causal=True, **kw).transpose(1, 2)
+
+        rec["sdpa"] = sdpa_how
+        iters = 3
+        for label, fn in (("flash", flash), ("chunked", chunked),
+                          ("direct", direct), ("sdpa", sdpa_fn)):
+            with torch.no_grad():
+                _, mem = peak_above(lambda: fn(q, k, v))
+                rec[f"{label}_ms"] = timed_ms(lambda: fn(q, k, v), iters)
+            rec[f"{label}_peak_gib"] = mem
+            if label != "chunked":       # autograd keeps every block there
+                _, mem_b = peak_above(lambda: grads(fn))
+                rec[f"{label}_fwd_bwd_ms"] = timed_ms(lambda: grads(fn),
+                                                      iters)
+                rec[f"{label}_fwd_bwd_peak_gib"] = mem_b
+        res[dname] = rec
+        print(f"[families] attention {dname} B 1 S {S} H {H} K {K} dh {dh}, "
+              f"causal, against float64 direct: {what}; max |g| "
+              f"{[round(x, 2) for x in rec['max_grad']]}; direct in {dname}: "
+              f"forward {rec['direct_fwd']:.2e}, gradients "
+              f"{[f'{x:.2e}' for x in rec['direct_grad_abs']]} abs, "
+              f"{[f'{x:.2e}' for x in rec['direct_grad_norm']]} in norm "
+              f"| forward ms: flash {rec['flash_ms']:.3f}, chunked "
+              f"{rec['chunked_ms']:.3f}, direct {rec['direct_ms']:.3f}, "
+              f"sdpa {rec['sdpa_ms']:.3f} ({sdpa_how}) | forward+backward "
+              f"ms: flash {rec['flash_fwd_bwd_ms']:.3f}, direct "
+              f"{rec['direct_fwd_bwd_ms']:.3f}, sdpa "
+              f"{rec['sdpa_fwd_bwd_ms']:.3f} | peak GiB above the inputs, "
+              f"forward: flash {rec['flash_peak_gib']:.3f}, chunked "
+              f"{rec['chunked_peak_gib']:.3f}, direct "
+              f"{rec['direct_peak_gib']:.3f}, sdpa {rec['sdpa_peak_gib']:.3f}"
+              f"; forward+backward: flash {rec['flash_fwd_bwd_peak_gib']:.3f}"
+              f", direct {rec['direct_fwd_bwd_peak_gib']:.3f}, sdpa "
+              f"{rec['sdpa_fwd_bwd_peak_gib']:.3f}")
+        if rec["flash_fwd_bwd_peak_gib"] >= rec["direct_fwd_bwd_peak_gib"]:
+            raise PhaseError(f"families attention {dname}: flash's peak "
+                             "memory is not below direct's")
+        del q, k, v, cot, q32, k32, v32, cot32
+        torch.cuda.empty_cache()
+    return res
+
+
+def families_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
+    """Phase 18 (module docstring) on `dev`. `cfgs` maps each part to its
+    model config ("olmoe", "olmoe2" the 2-layer copy held against the
+    plain path, "phi", "musicgen", "qwen2vl"); `sizes` holds the
+    attention geometry of 18a ("attn": (H, K, dh, S)) and each part's
+    training (B, S) ("olmoe", "phi", "musicgen", "qwen2vl"). `timed_ms(fn,
+    iters)` times on the card; `sync` waits for it. Returns the launch
+    counts of each part's run by kernel and the part's figures; raises
+    PhaseError when a check fails."""
+    import torch
+    from repro_torch.configs.base import PEFTConfig, TrainConfig
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.launch.serve import demo_prompts, demo_trace
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build
+    from repro_torch.serve import ContinuousScheduler, Engine
+    from repro_torch.serve import merge_for_serving
+    from repro_torch.tree import tree_leaves
+    fpeft = PEFTConfig(method="fourierft", n=1000, alpha=300.0)
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+    gib = 2 ** 30
+
+    # ---- a. attention alone at yi-6b's heads, S 4096 ------------------------
+    out["attention"] = long_attention_phase(dev, sizes["attn"], timed_ms,
+                                            sync)
+
+    # ---- shared: train steps, serving, counting the attention branch -----
+    flash_calls = [0]
+    flash_fn = attn.flash_attention
+
+    def counting_flash(*a, **kw):
+        flash_calls[0] += 1
+        return flash_fn(*a, **kw)
+
+    def train(name, model, params, bs):
+        """checked_steps with the launches and flash calls counted; checks
+        them and that c moved, and returns (state, frozen, figures)."""
+        L = model.cfg.num_layers
+        tcfg = TrainConfig(learning_rate=1e-2, total_steps=len(bs),
+                           warmup_steps=1)
+        zero_counts()
+        flash_calls[0] = 0
+        attn.flash_attention = counting_flash
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state, frozen, losses, secs = checked_steps(
+                model, tcfg, params, bs, f"families {name} train", sync)
+        finally:
+            attn.flash_attention = flash_fn
+        got = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / gib
+        ref = bs[0].get("tokens", bs[0].get("embeds"))
+        B, S_ = int(ref.shape[0]), int(ref.shape[1])
+        want_flash = len(bs) * L if S_ > 1024 and S_ % 512 == 0 else 0
+        if not c_moved(state, params):
+            raise PhaseError(f"families {name} train: c never moved")
+        if got["K1"] != 2 * len(bs) or got["K2"] != 2 * len(bs):
+            raise PhaseError(f"families {name} train: K1 launched "
+                             f"{got['K1']}, K2 {got['K2']} times; expected "
+                             f"{len(bs)} steps x 2 sites")
+        if flash_calls[0] != want_flash:
+            raise PhaseError(f"families {name} train: flash_attention ran "
+                             f"{flash_calls[0]} times, expected {want_flash}")
+        warm = secs[1:] or secs
+        warm_ms = 1e3 * sum(warm) / len(warm)
+        fig = {"losses": losses, "cold_ms": secs[0] * 1e3,
+               "warm_ms": warm_ms, "tokens_per_s": B * S_ / warm_ms * 1e3,
+               "peak_gib": peak, "batch": B, "seq": S_,
+               "flash_calls": flash_calls[0]}
+        out["launches"][name + "_train"] = got
+        print(f"[families] {name} train: {len(bs)} steps of batch {B} x "
+              f"seq {S_}: losses {[round(x, 4) for x in losses]} | K1 "
+              f"{got['K1']}, K2 {got['K2']} launches, flash_attention "
+              f"{flash_calls[0]} calls | cold {secs[0] * 1e3:.1f} ms, warm "
+              f"{warm_ms:.1f} ms/step ({fig['tokens_per_s']:.0f} tokens/s) "
+              f"| peak device memory {peak:.2f} GiB")
+        return state, frozen, fig
+
+    def serve(name, model, params, slots, n_req, page=16, max_len=128):
+        """Merge (K1) and the launcher's trace through the continuous
+        paged scheduler (K3): every request completes, K3 launches decode
+        steps x layers. Returns (engine, requests, figures)."""
+        L = model.cfg.num_layers
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = Engine(model, params, batch_slots=slots, max_len=max_len,
+                        device=dev)
+        sync()
+        merge_s = time.perf_counter() - t0
+        k1 = fdk.launches
+        sched = ContinuousScheduler(engine, page_size=page)
+        reqs, arrivals = demo_trace(demo_prompts(model.cfg, slots), n_req,
+                                    16, 2.0)
+        pak.launches = 0
+        sched.serve(reqs, arrivals)
+        sync()
+        k3, steps = pak.launches, sched.metrics.steps
+        for i, r in enumerate(reqs):
+            if r.out is None or len(r.out) != r.max_new:
+                raise PhaseError(f"families {name} serve: request {i} "
+                                 f"emitted {r.out!r}, budget {r.max_new}")
+        if k1 != 2 or k3 != steps * L:
+            raise PhaseError(f"families {name} serve: K1 launched {k1} "
+                             f"times (expected 2), K3 {k3} (expected "
+                             f"{steps} decode steps x {L})")
+        s_ = sched.metrics.summary()
+        out["launches"][name + "_serve"] = {"K1": k1, "K3": k3}
+        print(f"[families] {name} serve: merge {merge_s:.3f} s (K1 {k1}), "
+              f"{len(reqs)} requests, {s_['total_tokens']:.0f} tokens in "
+              f"{steps} decode steps, {s_['tokens_per_s']:.1f} tok/s | K3 "
+              f"launches {k3} (H {model.cfg.n_heads}, K {model.cfg.n_kv}: "
+              f"G = {model.cfg.n_heads // model.cfg.n_kv})")
+        return engine, reqs, {"merge_s": merge_s, "decode_steps": steps,
+                              "serve_tokens_per_s": s_["tokens_per_s"]}
+
+    def describe(name, cfg, params, cut=""):
+        n_base = sum(t.numel() for t in tree_leaves(params["base"]))
+        moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+               f"{cfg.moe.d_ff_expert}" if cfg.moe is not None else "")
+        print(f"[families] {name}: {cfg.name}, {cfg.num_layers} layers{cut}, "
+              f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv} of "
+              f"{cfg.head_dim}{moe}, vocab {cfg.vocab}, {cfg.dtype}; "
+              f"{n_base:,} base parameters, "
+              f"{torch.cuda.memory_allocated() / gib:.2f} GiB held")
+        return n_base
+
+    # ---- b. olmoe-1b-7b at full size --------------------------------------
+    cfg = cfgs["olmoe"]
+    model = build(cfg, fpeft)
+    params = model.init(0, dev)
+    n_base = describe("olmoe", cfg, params)
+    B, S_ = sizes["olmoe"]
+    state, frozen, fig = train("olmoe", model, params,
+                               synthetic_batches(dev, cfg, B, S_, 3))
+    fig["base_params"] = n_base
+    # flash's share of the step: its forward and backward alone at the
+    # step's attention shapes, times the layers, against the warm step
+    qa = torch.randn((B, S_, cfg.n_heads, cfg.head_dim), device=dev,
+                     dtype=torch.bfloat16)
+    ka = torch.randn((B, S_, cfg.n_kv, cfg.head_dim), device=dev,
+                     dtype=torch.bfloat16)
+    va = torch.randn_like(ka)
+
+    def flash_fb():
+        xs = [x.detach().requires_grad_(True) for x in (qa, ka, va)]
+        with torch.enable_grad():
+            o = attn.flash_attention(*xs, True, 512)
+            return torch.autograd.grad(o.float().sum(), xs)
+
+    fig["flash_fwd_bwd_ms_per_layer"] = timed_ms(flash_fb, 3)
+    fig["flash_share"] = (fig["flash_fwd_bwd_ms_per_layer"]
+                          * cfg.num_layers / fig["warm_ms"])
+    print(f"[families] olmoe: flash forward+backward alone "
+          f"{fig['flash_fwd_bwd_ms_per_layer']:.2f} ms a layer x "
+          f"{cfg.num_layers} = {fig['flash_share']:.1%} of the warm step")
+    del qa, ka, va
+    params = model.join(state["trainable"], frozen)
+    del state, frozen
+    torch.cuda.empty_cache()
+    engine, _, sfig = serve("olmoe", model, params, 4, 6)
+    fig.update(sfig)
+    out["olmoe"] = fig
+    del engine, params, model
+    torch.cuda.empty_cache()
+    # the kernel path's streams against the plain path's on a 2-layer
+    # full-width f32 copy (TF32 off): K1's merge and K3 differ from the
+    # plain versions only by f32 rounding
+    cfg2 = cfgs["olmoe2"]
+    model2 = build(cfg2, fpeft)
+    params2 = model2.init(1, dev)
+    streams = {}
+    for backend in ("auto", "einsum"):
+        m = build(cfg2, fpeft.replace(kernel_backend=backend))
+        zero_counts()
+        engine = Engine(m, params2, batch_slots=4, max_len=128, device=dev)
+        sched = ContinuousScheduler(engine, page_size=16)
+        reqs, arrivals = demo_trace(demo_prompts(cfg2, 4), 6, 16, 2.0)
+        sched.serve(reqs, arrivals)
+        sync()
+        streams[backend] = ([r.out for r in reqs], launch_counts())
+        del engine, sched
+    if streams["auto"][0] != streams["einsum"][0]:
+        raise PhaseError("families olmoe f32 2-layer: the kernel path's "
+                         "streams differ from the plain path's")
+    if streams["einsum"][1]["K1"] or streams["einsum"][1]["K3"] \
+            or not streams["auto"][1]["K3"]:
+        raise PhaseError(f"families olmoe f32: launches {streams}")
+    print(f"[families] olmoe f32, 2 layers at full width: the kernel path's "
+          f"{sum(len(s_) for s_ in streams['auto'][0])} tokens equal the "
+          f"plain path's (K1 {streams['auto'][1]['K1']}, K3 "
+          f"{streams['auto'][1]['K3']} launches against none)")
+    del model2, params2
+    torch.cuda.empty_cache()
+
+    # ---- c. phi3.5-moe at full width, cut in depth ------------------------
+    cfg = cfgs["phi"]
+    model = build(cfg, fpeft)
+    params = model.init(0, dev)
+    n_base = describe("phi3.5-moe", cfg, params,
+                      " (cut from 32: 84 GB in bf16 does not fit one card)")
+    B, S_ = sizes["phi"]
+    state, frozen, fig = train("phi35", model, params,
+                               synthetic_batches(dev, cfg, B, S_, 3))
+    fig["base_params"] = n_base
+    params = model.join(state["trainable"], frozen)
+    del state, frozen
+    torch.cuda.empty_cache()
+    engine, _, sfig = serve("phi35", model, params, 4, 6)
+    fig.update(sfig)
+    out["phi35"] = fig
+    del engine, params, model
+    torch.cuda.empty_cache()
+
+    # ---- d. musicgen-medium at full size ----------------------------------
+    cfg = cfgs["musicgen"]
+    model = build(cfg, fpeft)
+    params = model.init(0, dev)
+    n_base = describe("musicgen", cfg, params)
+    B, S_ = sizes["musicgen"]
+    state, frozen, fig = train("musicgen", model, params,
+                               synthetic_batches(dev, cfg, B, S_, 3))
+    fig["base_params"] = n_base
+    params = model.join(state["trainable"], frozen)
+    del state, frozen
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    engine = Engine(model, params, batch_slots=2, max_len=64, device=dev)
+    sync()
+    merge_s = time.perf_counter() - t0
+    prompts = demo_prompts(cfg, 2)
+    t0 = time.perf_counter()
+    gens = engine.generate(prompts, max_new=16)
+    sync()
+    gen_s = time.perf_counter() - t0
+    got = launch_counts()
+    if got["K1"] != 2 or got["K3"]:
+        raise PhaseError(f"families musicgen serve: launches {got}; "
+                         "expected K1 2 (the merge) and no K3 (lockstep)")
+    if any(tuple(g.shape) != (16, cfg.n_codebooks) for g in gens) or any(
+            int(g.min()) < 0 or int(g.max()) >= cfg.vocab for g in gens):
+        raise PhaseError(f"families musicgen serve: streams "
+                         f"{[tuple(g.shape) for g in gens]}")
+    with torch.no_grad():
+        logits = engine.model.forward(engine.params,
+                                      {"tokens": prompts[1][None].to(dev)})
+    if tuple(logits.shape) != (1, prompts[1].shape[0], cfg.n_codebooks,
+                               cfg.vocab) or not torch.isfinite(
+                                   logits.float()).all():
+        raise PhaseError(f"families musicgen: logits "
+                         f"{tuple(logits.shape)} not finite")
+    out["launches"]["musicgen_serve"] = {"K1": got["K1"], "K3": 0}
+    fig.update({"merge_s": merge_s, "generate_s": gen_s,
+                "generate_tokens_per_s": 2 * 16 / gen_s})
+    print(f"[families] musicgen serve: merge {merge_s:.3f} s (K1 "
+          f"{got['K1']}), lockstep Engine.generate of 2 prompts -> "
+          f"{[tuple(g.shape) for g in gens]} codebook streams in "
+          f"{gen_s:.3f} s ({2 * 16 / gen_s:.1f} frames/s); first frames "
+          f"{[g[0].tolist() for g in gens]}")
+    out["musicgen"] = fig
+    del engine, params, model, logits
+    torch.cuda.empty_cache()
+
+    # ---- e. qwen2-vl-72b at full width, cut in depth ----------------------
+    cfg = cfgs["qwen2vl"]
+    model = build(cfg, fpeft)
+    params = model.init(0, dev)
+    n_base = describe("qwen2-vl", cfg, params,
+                      " (cut from 80: the full model is 145 GB in bf16)")
+    B, S_ = sizes["qwen2vl"]
+    t = torch.arange(S_, device=dev, dtype=torch.int32)
+    pos = torch.stack([t, t // 2, t % 7])[:, None, :].expand(3, B, S_)
+    vbatches = []
+    for i in range(2):
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(i)
+        vbatches.append({
+            "embeds": (torch.randn((B, S_, cfg.d_model), generator=g_,
+                                   device=dev) * 0.5).to(torch.bfloat16),
+            "positions": pos.contiguous(),
+            "labels": torch.randint(0, cfg.vocab, (B, S_), generator=g_,
+                                    device=dev, dtype=torch.int32)})
+    state, frozen, fig = train("qwen2vl", model, params, vbatches)
+    fig["base_params"] = n_base
+    params = model.join(state["trainable"], frozen)
+    del state, frozen
+    torch.cuda.empty_cache()
+    zero_counts()
+    merged_model, merged = merge_for_serving(model, params)
+    k1 = fdk.launches
+    with torch.no_grad():
+        cache = merged_model.init_cache(B, S_ + 8, torch.bfloat16, dev)
+        prompt = {k_: v_ for k_, v_ in vbatches[0].items()
+                  if k_ != "labels"}
+        nt, cache = merged_model.prefill(merged, cache, prompt)
+        step = {"embeds": vbatches[1]["embeds"][:, :1],
+                "positions": torch.full((3, B, 1), S_, dtype=torch.int32,
+                                        device=dev)}
+        t0 = time.perf_counter()
+        logits, cache = merged_model.decode_logits(merged, cache, step)
+        sync()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+    if k1 != 2 or tuple(logits.shape) != (B, 1, cfg.vocab) \
+            or not torch.isfinite(logits.float()).all() \
+            or cache["pos"] != S_ + 1 or tuple(nt.shape) != (B,):
+        raise PhaseError(f"families qwen2-vl decode: K1 {k1}, logits "
+                         f"{tuple(logits.shape)}, pos {cache['pos']}")
+    out["launches"]["qwen2vl_merge"] = {"K1": k1}
+    fig.update({"decode_ms": dec_ms})
+    print(f"[families] qwen2-vl: merged (K1 {k1}), prefill of {S_} "
+          f"embeddings with (3, B, S) M-RoPE positions through flash, one "
+          f"decode_step {dec_ms:.2f} ms, logits {tuple(logits.shape)} "
+          f"finite, next tokens {nt.tolist()}")
+    out["qwen2vl"] = fig
+    del merged_model, merged, params, model, cache, logits, vbatches
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[families] phase 18 took {out['phase_s']:.1f} s")
+    print(json.dumps({"families": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1966,9 +2552,18 @@ def main() -> int:
               (300, 520, 37, 1, False), (5120, 5120, 1000, 1, False),
               (4096, 11008, 1000, 1, False))
     llama_qv = (4096, 4096, 1000, 32, False)
+    # the families' q/v stacks (phase 18's paths), held and listed in the
+    # kernels line's `family_shapes`, not summed: olmoe-1b-7b 2048x2048
+    # (L 16), phi3.5-moe's wv 4096x1024 (L 4, phase 18c's cut; its wq is
+    # yi-6b's 4096x4096), musicgen-medium 1536x1536 (L 48, radix 3),
+    # qwen2-vl-72b 8192x8192 and 8192x1024 (L 2, phase 18e's cut)
+    family_qv = ((2048, 2048, 1000, 16, False), (4096, 1024, 1000, 4, False),
+                 (1536, 1536, 1000, 48, False), (8192, 8192, 1000, 2, False),
+                 (8192, 1024, 1000, 2, False))
+    k1_family, k2_family = [], []
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "matmul_ms": 0.0,
           "err": 0.0, "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
-    for d1, d2, n, L, main_path in shapes + (llama_qv,):
+    for d1, d2, n, L, main_path in shapes + (llama_qv,) + family_qv:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         c = torch.zeros((L, u.shape[0]), dtype=torch.float32, device=dev)
@@ -2013,6 +2608,11 @@ def main() -> int:
               f"{ms / b_ms:.1f}x its bound, {ms / lib_ms:.2f}x ifft2 | "
               "bit-identical on a second launch")
         k1["err"] = max(k1["err"], err)
+        if (d1, d2, n, L, main_path) in family_qv:
+            k1_family.append({"d1": d1, "d2": d2, "n": n, "L": L,
+                              "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": b_ms, "bound_by": b_by})
         if main_path:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("matmul_ms", mm_ms),
@@ -2032,7 +2632,7 @@ def main() -> int:
     # ---- 4. K2 ---------------------------------------------------------------
     k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
           "flops": 0.0, "direct_flops": 0.0, "bytes": 0.0}
-    for d1, d2, n, L, main_path in shapes + (llama_qv,):
+    for d1, d2, n, L, main_path in shapes + (llama_qv,) + family_qv:
         entries = sample_entries(d1, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         g = torch.randn((L, d1, d2), generator=gen, device=dev)
@@ -2066,6 +2666,11 @@ def main() -> int:
               f"{ms / b_ms:.1f}x its bound, {ms / lib_ms:.2f}x fft2 | "
               "bit-identical on a second launch")
         k2["err"] = max(k2["err"], err)
+        if (d1, d2, n, L, main_path) in family_qv:
+            k2_family.append({"d1": d1, "d2": d2, "n": n, "L": L,
+                              "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": b_ms, "bound_by": b_by})
         if main_path:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("flops", flops),
@@ -2089,13 +2694,16 @@ def main() -> int:
     # window W 5 at 4096. Then group size G = 1 (no GQA: one query row per
     # kv-head and window row, 8x yi-6b's K/V bytes per slot) at LLaMA2-7B's
     # geometry (H = K = 32, dh 128) and GPT-2-medium's (H = K = 16, dh 64),
-    # B 8 at kv_len <= 128 and at 4096. Each in bf16 and f32 against the
+    # B 8 at kv_len <= 128 and at 4096; and phase 18's MoE serving heads,
+    # olmoe-1b-7b (H = K = 16, G = 1) and phi3.5-moe (H 32, K 8, G = 4),
+    # dh 128, at the same two contexts. Each in bf16 and f32 against the
     # plain version in f32 on the same inputs, within pak.agreement_limit
     # (f32 atol = rtol = 1e-5; bf16 2e-2 of each output vector's largest
     # |value|, as long contexts make outputs of a few 1e-2), the same bits
     # on a second launch.
     ps, pps = 16, 8
     yi, llama, gpt2m = (32, 4, 128), (32, 32, 128), (16, 16, 64)
+    olmoe, phi35 = (16, 16, 128), (32, 8, 128)
     short = [1, 128, 16, 37, 64, 5, 100, 77]
     k3_shapes = (
         ("b8_kv128", 8, 1, 8, short, yi),
@@ -2110,6 +2718,10 @@ def main() -> int:
         ("llama2_b8_kv4096", 8, 1, 256, [4096] * 8, llama),
         ("gpt2m_b8_kv128", 8, 1, 8, short, gpt2m),
         ("gpt2m_b8_kv4096", 8, 1, 256, [4096] * 8, gpt2m),
+        ("olmoe_b8_kv128", 8, 1, 8, short, olmoe),
+        ("olmoe_b8_kv4096", 8, 1, 256, [4096] * 8, olmoe),
+        ("phi35_b8_kv128", 8, 1, 8, short, phi35),
+        ("phi35_b8_kv4096", 8, 1, 256, [4096] * 8, phi35),
     )
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -2782,6 +3394,36 @@ def main() -> int:
     except PhaseError as e:
         return fail(str(e))
 
+    # ---- 18. families and long sequences -----------------------------------
+    torch.cuda.empty_cache()
+    print(f"[memory] before phase 18: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    olmoe_cfg = configs.get("olmoe-1b-7b")
+    try:
+        fam = families_phase(
+            dev, {"olmoe": olmoe_cfg,
+                  "olmoe2": olmoe_cfg.replace(num_layers=2, dtype="float32",
+                                              param_dtype="float32"),
+                  "phi": configs.get("phi3.5-moe-42b-a6.6b").replace(
+                      num_layers=4),
+                  "musicgen": configs.get("musicgen-medium"),
+                  "qwen2vl": configs.get("qwen2-vl-72b").replace(
+                      num_layers=2)},
+            {"attn": (32, 4, 128, 4096), "olmoe": (1, 4096),
+             "phi": (1, 2048), "musicgen": (2, 2048), "qwen2vl": (1, 2048)},
+            timed_ms, torch.cuda.synchronize)
+    except PhaseError as e:
+        return fail(str(e))
+    fl = fam["launches"]
+    fam_k1_train = sum(v_["K1"] for k_, v_ in fl.items()
+                       if k_.endswith("_train"))
+    fam_k2_train = sum(v_["K2"] for k_, v_ in fl.items()
+                       if k_.endswith("_train"))
+    fam_k1_merge = sum(v_["K1"] for k_, v_ in fl.items()
+                       if not k_.endswith("_train"))
+    fam_k3 = sum(v_.get("K3", 0) for k_, v_ in fl.items()
+                 if k_.endswith("_serve"))
+
     # ---- 15. kernels line (printed last) ------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
@@ -2792,7 +3434,10 @@ def main() -> int:
          "launches_by_path": {"train": k1_train, "serve": k1_serve,
                               "paper_train": paper["llama_train"]["K1"],
                               "paper_merge": paper["llama_serve"]["K1"],
-                              "tiering_merge": tiering["k1_merge"]},
+                              "tiering_merge": tiering["k1_merge"],
+                              "families_train": fam_k1_train,
+                              "families_merge": fam_k1_merge},
+         "family_shapes": k1_family,
          "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -2805,7 +3450,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/fourier_deltaw.py:130",
          "launches": k2_train,
          "launches_by_path": {"train": k2_train,
-                              "paper_train": paper["llama_train"]["K2"]},
+                              "paper_train": paper["llama_train"]["K2"],
+                              "families_train": fam_k2_train},
+         "family_shapes": k2_family,
          "max_abs_err": k2["err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -2828,7 +3475,8 @@ def main() -> int:
                               "tiering_serve": sum(
                                   n for k_, n in tiering["k3"].items()
                                   if k_ != "gateway"),
-                              "gateway_serve": tiering["k3"]["gateway"]},
+                              "gateway_serve": tiering["k3"]["gateway"],
+                              "families_serve": fam_k3},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

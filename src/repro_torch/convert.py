@@ -8,7 +8,10 @@ and viewed as `torch.bfloat16` (exact). The dtype is detected by name, so
 this module needs no `ml_dtypes` import. Integer leaves (FourierFT
 `entries`) and f32 leaves (`c`, the random/orthogonal bases `b1`/`b2`)
 carry over as they are, and so does a `full` run's base, every leaf of
-which trains.
+which trains. The other families' leaves need nothing of their own: the
+MoE's f32 `router` stays f32, the (L, E, d, f) experts and the codebook
+model's (CB, V, d) embedding and (CB, d, V) head keep their shapes, and a
+vlm tree has no `embed`.
 
 The same walk carries the serving adapter bank's state: a tenant tree
 `{site: {leaf: array}}` of any method (`c`, `lora_a`/`lora_b`, `kernel`,

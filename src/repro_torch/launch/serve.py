@@ -1,9 +1,10 @@
 """Serving launcher: `python -m repro_torch.launch.serve --arch <id> [...]`.
 
-Builds a dense decoder with an adapter on q/v (`--method`, FourierFT by
-default) from a seed, optionally restores trained coefficients from a
-`launch.train` checkpoint (`--adapters <ckpt dir>`), merges every ΔW into
-the base (on the card through the method's hand-written ΔW kernel), and
+Builds a decoder (dense, moe, or audio with codebooks) with an adapter on
+q/v (`--method`, FourierFT by default) from a seed, optionally restores
+trained coefficients from a `launch.train` checkpoint (`--adapters <ckpt
+dir>`), merges every ΔW into the base (on the card through the method's
+hand-written ΔW kernel), and
 decodes demo prompts through the slot engine. With `--continuous` it
 replays a staggered-arrival, mixed-`max_new` trace through the
 continuous-batching scheduler over the paged KV cache (decode attention
@@ -85,9 +86,13 @@ from repro_torch.train.step import join_params, split_params
 
 
 def demo_prompts(cfg: ModelConfig, slots: int) -> List[torch.Tensor]:
-    """The JAX launcher's demo prompts: slot i gets 4 + i tokens."""
-    return [(torch.arange(4 + i, dtype=torch.int32) + 3 * i) % cfg.vocab
-            for i in range(slots)]
+    """The JAX launcher's demo prompts: slot i gets 4 + i tokens, tiled
+    over the codebooks ((4 + i, CB)) for a codebook model."""
+    prompts = [(torch.arange(4 + i, dtype=torch.int32) + 3 * i) % cfg.vocab
+               for i in range(slots)]
+    if cfg.n_codebooks:
+        prompts = [p[:, None].repeat(1, cfg.n_codebooks) for p in prompts]
+    return prompts
 
 
 def demo_trace(prompts: List[torch.Tensor], n: int, max_new: int,
@@ -208,8 +213,12 @@ def main(argv=None):
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = configs.get(args.arch)
+    if not cfg.embed_inputs:
+        raise SystemExit(f"{cfg.name} takes embeddings (batch['embeds']), "
+                         "and this launcher has no embeddings source: it "
+                         "serves token prompts only")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))
     # bank-only serving runs over the clean base: random-init adapters of a

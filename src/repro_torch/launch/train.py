@@ -1,7 +1,8 @@
 """Training launcher: `python -m repro_torch.launch.train --arch <id> [...]`.
 
-Fine-tunes a dense decoder with any registered method (`--method`) through
-the train step and the fault-tolerant loop. With the merged strategy (the
+Fine-tunes a decoder (dense, moe, or audio with codebooks) with any
+registered method (`--method`) through the train step and the
+fault-tolerant loop. With the merged strategy (the
 default) on the card, every FourierFT or `dct` step's forward materializes
 ΔW with the method's hand-written ΔW kernel (K1 or K4) and its backward
 takes the coefficients' gradient with its hand-written dc kernel (K2 or
@@ -48,6 +49,7 @@ def main(argv=None):
                     choices=adapter_api.registered_methods())
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--alpha", type=float, default=300.0)
+    ap.add_argument("--lora-r", type=int, default=8)
     ap.add_argument("--strategy", default="merged",
                     choices=["merged", "factored"])
     ap.add_argument("--steps", type=int, default=100)
@@ -65,12 +67,16 @@ def main(argv=None):
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = configs.get(args.arch)
+    if not cfg.embed_inputs:
+        raise SystemExit(f"{cfg.name} takes embeddings (batch['embeds']), "
+                         "and this launcher has no embeddings source: its "
+                         "synthetic data is tokens")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))
     peft = PEFTConfig(method=args.method, n=args.n, alpha=args.alpha,
-                      strategy=args.strategy)
+                      lora_r=args.lora_r, strategy=args.strategy)
     model = build(cfg, peft, remat=args.remat)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 10, 1),

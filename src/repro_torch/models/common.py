@@ -1,5 +1,8 @@
-"""Shared model building blocks: norms, RoPE, inits, cross-entropy."""
+"""Shared model building blocks: norms, RoPE (incl. M-RoPE), inits,
+cross-entropy."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -17,7 +20,7 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (the M-RoPE variant comes with the vlm family)
+# Rotary embeddings
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -26,12 +29,29 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, N, head_dim). positions: (B, S) int."""
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL's split of the rotary half-dim among the (t, h, w) position
+    streams: (16, 24, 24) for head_dim 128."""
+    half = head_dim // 2
+    hw = (3 * half) // 8
+    return (half - 2 * hw, hw, hw)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope: bool = False) -> torch.Tensor:
+    """x: (B, S, N, head_dim). positions: (B, S) int, or (3, B, S) for
+    M-RoPE (rotary dim i takes its angle from the stream its section
+    names)."""
     half = x.shape[-1] // 2
     inv = rope_freqs(x.shape[-1], theta, x.device)          # (half,)
-    angles = positions.to(torch.float32)[..., None] * inv   # (B, S, half)
+    if mrope:
+        idx = torch.cat([torch.full((s,), i, dtype=torch.int64,
+                                    device=x.device)
+                         for i, s in enumerate(mrope_sections(x.shape[-1]))])
+        pos = positions.to(torch.float32).index_select(0, idx)  # (half,B,S)
+        angles = torch.einsum("hbs,h->bsh", pos, inv)       # (B, S, half)
+    else:
+        angles = positions.to(torch.float32)[..., None] * inv  # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :]                  # (B, S, 1, half)
     sin = torch.sin(angles)[:, :, None, :]
     xf1 = x[..., :half].to(torch.float32)

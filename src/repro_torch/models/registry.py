@@ -1,5 +1,8 @@
 """Model registry: `build(cfg, peft)` returns a `Model` facade over the
-dense transformer (the JAX package's `models/registry.py`, dense family).
+transformer's families — dense, moe, audio (codebooks) and vlm (embedding
+inputs, M-RoPE) — as the JAX package's `models/registry.py` does. The
+pure-SSM and hybrid families are not ported yet: building one raises
+NotImplementedError.
 
     model.init(seed, device)                -> {"base": ..., "peft": ...}
     model.forward(params, batch)            -> logits
@@ -34,7 +37,8 @@ from repro_torch.tree import tree_leaves
 
 
 def add_time_dim(t: torch.Tensor) -> torch.Tensor:
-    """Re-add the time dim to per-step tokens: (B,) -> (B, 1)."""
+    """Re-add the time dim to per-step tokens: (B,) -> (B, 1); codebook
+    tokens (B, CB) -> (B, 1, CB)."""
     return t[:, None]
 
 
@@ -63,10 +67,10 @@ class Model:
         if self.remat not in transformer.REMAT_MODES:
             raise ValueError(f"unknown remat {self.remat!r}; one of "
                              f"{transformer.REMAT_MODES}")
-        if self.cfg.family != "dense":
+        if self.cfg.family not in transformer.FAMILIES:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} ({self.cfg.name}) is not ported "
-                "yet (ROADMAP queue 1: the other architecture families)")
+                "yet (ROADMAP queue 1: the SSM/hybrid slice)")
         # unknown methods and kernel backends fail here, at build
         self.method = adapter_api.resolve(self.peft.method)
         kernel_api.requested_backend(self.peft)
@@ -95,10 +99,12 @@ class Model:
 
     # ---- forward / decode ---------------------------------------------------
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The logits (`transformer.forward` also returns the MoE aux
+        loss, which only the training loss reads)."""
         return transformer.forward(params["base"], params["peft"], batch,
                                    self.cfg, self.peft, self.sites,
                                    remat=self.remat,
-                                   **self._bank_kwargs(params))
+                                   **self._bank_kwargs(params))[0]
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         return transformer.loss_fn(params["base"], params["peft"], batch,
@@ -181,9 +187,26 @@ class Model:
             return None
         return self.paged_attention(cache["pk"].device, cache["pk"].dtype)
 
+    @property
+    def supports_slot_cache(self) -> bool:
+        """True when the family has the per-slot cache (ragged per-slot
+        kv_len over one cache, dense or paged, with the write_slot /
+        reset_slots / advance_pos lifecycle): the token-input families
+        without codebooks, as in the JAX package. Codebook streams decode
+        lockstep only; vlm feeds embeddings, which no slot path carries."""
+        return self.cfg.embed_inputs and not self.cfg.n_codebooks
+
     def init_cache(self, batch: int, max_len: int, dtype, device,
                    per_slot: bool = False, paged: bool = False,
                    page_size: int = 16, n_pages: Optional[int] = None) -> Dict:
+        """Dense lockstep, dense per-slot or paged; a family without the
+        per-slot path (`supports_slot_cache`) has only the lockstep cache,
+        so every per-slot and paged call starts from a refusal here."""
+        if (paged or per_slot) and not self.supports_slot_cache:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} ({self.cfg.name}) has no "
+                "per-slot cache path: continuous batching covers the "
+                "token-input transformer families without codebooks")
         if paged:
             if n_pages is None:
                 raise ValueError("paged cache needs n_pages (the runtime "

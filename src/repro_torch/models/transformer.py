@@ -1,8 +1,18 @@
-"""Decoder-only LM for the dense family (the JAX package's
-`models/transformer.py`, dense path).
+"""Decoder-only LM for the dense, moe, audio and vlm families (the JAX
+package's `models/transformer.py`).
 
 - Params are nested dicts with the JAX key paths and layouts: stacked
   (L, d_in, d_out) weights applied as `x @ W`.
+- Families: moe replaces the MLP by the top-k expert FFN (`models/moe.py`;
+  an f32 router, experts `we_i/we_g/we_o`) and adds its load-balance loss
+  to the training loss; audio (`n_codebooks`) sums one embedding per
+  codebook and predicts every codebook with its own head, so tokens are
+  (B, S, CB) and greedy decoding returns (B, CB); vlm
+  (`embed_inputs=False`) takes batch["embeds"] (B, S, d) and M-RoPE
+  positions (3, B, S) instead of tokens.
+- Full-sequence attention (training forward, prefill) goes through
+  `attention.attention`: direct up to 1024 rows, then the blocked flash or
+  chunked path.
 - `lax.scan` over layers becomes a Python loop over layers. The KV caches
   and page pools are written IN PLACE, layer by layer (the JAX version
   donates them to the same effect), so a decode step allocates no second
@@ -41,6 +51,7 @@ from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_rope, cross_entropy, dense_init,
                                        rms_norm)
 
@@ -171,10 +182,13 @@ def _effective(params: Dict, adapters: Dict, sites, peft: PEFTConfig,
 # Parameter init
 # ---------------------------------------------------------------------------
 
+# the families this decoder builds (the JAX package builds ssm and hybrid
+# models in modules of their own)
+FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     from repro_torch.core.adapter import torch_dtype
-    if cfg.family != "dense" or cfg.n_codebooks or not cfg.embed_inputs:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dtype = torch_dtype(cfg.param_dtype)
     d, L = cfg.d_model, cfg.num_layers
 
@@ -202,22 +216,46 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     if cfg.qk_norm:
         layers["q_norm"] = ones((L, cfg.head_dim))
         layers["k_norm"] = ones((L, cfg.head_dim))
-    layers["wi"] = init((L, d, cfg.d_ff))
-    if cfg.gated_mlp:
-        layers["wg"] = init((L, d, cfg.d_ff))
-    layers["wo_mlp"] = init((L, cfg.d_ff, d))
-    return {"layers": layers, "final_norm": ones((d,)),
-            "embed": init((cfg.vocab, d)), "lm_head": init((d, cfg.vocab))}
+    if cfg.moe is not None:
+        e, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        layers["router"] = dense_init(gen, (L, d, e), torch.float32, device)
+        layers["we_i"] = init((L, e, d, f))
+        layers["we_g"] = init((L, e, d, f))
+        layers["we_o"] = init((L, e, f, d))
+    else:
+        layers["wi"] = init((L, d, cfg.d_ff))
+        if cfg.gated_mlp:
+            layers["wg"] = init((L, d, cfg.d_ff))
+        layers["wo_mlp"] = init((L, cfg.d_ff, d))
+    params = {"layers": layers, "final_norm": ones((d,))}
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    if cfg.embed_inputs:
+        params["embed"] = init(cb + (cfg.vocab, d))
+    params["lm_head"] = init(cb + (d, cfg.vocab))
+    return params
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    emb = params["embed"]
+def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return emb.index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, emb.shape[-1])
+
+
+def _embed(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """(B, S, d): the token embeddings; for codebooks (tokens (B, S, CB))
+    the sum of the per-codebook embeddings; for vlm batch["embeds"]."""
+    if not cfg.embed_inputs:
+        return batch["embeds"].to(adapter_api.torch_dtype(cfg.dtype))
+    tokens = batch["tokens"]
+    if cfg.n_codebooks:
+        x = _lookup(params["embed"][0], tokens[..., 0])
+        for cb in range(1, cfg.n_codebooks):
+            x = x + _lookup(params["embed"][cb], tokens[..., cb])
+        return x
+    return _lookup(params["embed"], tokens)
 
 
 def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear, positions):
@@ -230,8 +268,8 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear, positions):
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     if cfg.rope_theta:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     return q, k, v
 
 
@@ -259,9 +297,14 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
     return x + out, new_kv
 
 
-def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
-               linear) -> torch.Tensor:
+def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """-> (x + the MLP's output, the layer's MoE aux loss; None without
+    experts, so the dense path launches nothing for it)."""
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.moe is not None:
+        y, aux = moe_mod.moe_ffn(h, lp, cfg.moe, gated=cfg.gated_mlp)
+        return x + y, aux
     hi = linear(lp, "wi", h)
     if cfg.gated_mlp:
         hg = linear(lp, "wg", h)
@@ -269,14 +312,19 @@ def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         hi = torch.nn.functional.gelu(hi.to(torch.float32),
                                       approximate="tanh").to(hi.dtype)
-    return x + linear(lp, "wo_mlp", hi)
+    return x + linear(lp, "wo_mlp", hi), None
 
 
 def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    """(B, S, V), or (B, S, CB, V) with one head per codebook."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.n_codebooks:
+        return torch.einsum("bsd,cdv->bscv", x, params["lm_head"])
+    return x @ params["lm_head"]
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Next tokens after the last position: (B,), or (B, CB)."""
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
@@ -316,12 +364,14 @@ def _remat(fn, mode: str):
 
 def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
             peft: PEFTConfig, sites, *, remat: str = "none", bank=None,
-            bank_profiles=None) -> torch.Tensor:
-    """Causal forward over batch["tokens"] (B, S). Returns logits (B, S, V).
-    The merge (and the bank's gather, with batch["adapter_slots"]) runs
-    once, outside the per-layer checkpoints (as in JAX, where it precedes
-    the scanned body)."""
-    x = _embed(params, batch["tokens"])
+            bank_profiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal forward over the batch (`_embed`; batch["positions"], when
+    given, are the RoPE positions: (B, S), or (3, B, S) for M-RoPE).
+    Returns (logits (B, S, V) or (B, S, CB, V), the MoE aux loss averaged
+    over layers). The merge (and the bank's gather, with
+    batch["adapter_slots"]) runs once, outside the per-layer checkpoints
+    (as in JAX, where it precedes the scanned body)."""
+    x = _embed(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -334,27 +384,36 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
         return _mlp_block(lp, x, cfg, linear)
 
     body = _remat(body, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        x = body(lp, x)
-    return _logits(params, x, cfg)
+        x, aux_l = body(lp, x)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return _logits(params, x, cfg), aux / cfg.num_layers
 
 
 def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
             peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
     """Mean token cross-entropy of the causal forward against
-    batch["labels"] (B, S), f32."""
-    logits = forward(params, adapters, batch, cfg, peft, sites, remat=remat)
-    return cross_entropy(logits, batch["labels"])
+    batch["labels"] (B, S) or (B, S, CB), f32, plus the MoE aux loss
+    weighted by `aux_loss_weight`."""
+    logits, moe_aux = forward(params, adapters, batch, cfg, peft, sites,
+                              remat=remat)
+    ce = cross_entropy(logits, batch["labels"])
+    if cfg.moe is not None:
+        ce = ce + cfg.moe.aux_loss_weight * moe_aux
+    return ce
 
 
 def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
             cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
             bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
-    """Process a (B, S) prompt against a fresh dense cache (pos 0), writing
-    its KV in place. Returns (next tokens after the last prompt token, cache
-    at pos S). batch["true_len"] (B,), optional: per-row real prompt length
-    of right-padded prompts — next tokens are read at true_len - 1."""
-    x = _embed(params, batch["tokens"])
+    """Process a (B, S[, CB]) prompt against a fresh dense cache (pos 0),
+    writing its KV in place. Returns (next tokens after the last prompt
+    token, (B,) or (B, CB); cache at pos S). batch["true_len"] (B,),
+    optional: per-row real prompt length of right-padded prompts — next
+    tokens are read at true_len - 1."""
+    x = _embed(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -366,7 +425,7 @@ def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         x, (k, v) = _attn_block(lp, x, cfg, linear, positions)
         ck_all[li, :, :S] = k.to(ck_all.dtype)
         cv_all[li, :, :S] = v.to(cv_all.dtype)
-        x = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, x, cfg, linear)
     true_len = batch.get("true_len")
     if true_len is None:
         x = x[:, -1:]
@@ -481,7 +540,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
       adapter_slots         the bank's gather rows (with a bank)
 
     Returns (next_tokens (1,), cache) like `prefill`."""
-    x = _embed(params, batch["tokens"])
+    x = _embed(params, cfg, batch)
     B, T = x.shape[0], x.shape[1]
     dev = x.device
     wt = batch.get("window_table")
@@ -522,7 +581,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         # pad rows may collide inside the scratch page — dirt either way
         pk[w_page, w_off] = k[0].to(pk.dtype)
         pv[w_page, w_off] = v[0].to(pv.dtype)
-        x = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, x, cfg, linear)
     x = x[:, tlen - 1][:, None]
     next_tokens = _greedy(_logits(params, x, cfg))
     pos = cache["pos"]
@@ -546,8 +605,10 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites,
                   paged_attention=None, bank=None,
                   bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
-    """One token for every sequence: batch["tokens"] (B, 1). Returns
-    (logits (B, 1, V), cache with pos + 1); the cache is written in place.
+    """One token for every sequence: batch["tokens"] (B, 1) ((B, 1, CB) for
+    codebooks; vlm: batch["embeds"] (B, 1, d) and batch["positions"]
+    (3, B, 1)). Returns (logits (B, 1, V) or (B, 1, CB, V), cache with
+    pos + 1); the cache is written in place.
 
     A per-slot cache (a (B,) `pos`, dense or paged) decodes as a
     `verify_logits` window of one row and then advances `pos`; a paged
@@ -559,15 +620,17 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                                       peft, sites, paged_attention, bank,
                                       bank_profiles)
         return logits, {**cache, "pos": pos + 1}
-    x = _embed(params, batch["tokens"])
-    positions = _positions(x.shape[0], 1, x.device, pos)
+    x = _embed(params, cfg, batch)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _positions(x.shape[0], 1, x.device, pos)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
                                 bank_profiles)
     for li, lp in enumerate(layers):
         x, _ = _attn_block(lp, x, cfg, linear, positions,
                            cache_kv=(cache["k"][li], cache["v"][li]),
                            cache_pos=pos)
-        x = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, x, cfg, linear)
     return _logits(params, x, cfg), {"k": cache["k"], "v": cache["v"],
                                      "pos": pos + 1}
 
@@ -576,7 +639,8 @@ def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 cfg: ModelConfig, peft: PEFTConfig, sites,
                 paged_attention=None, bank=None,
                 bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
-    """Greedy `decode_logits`: (next_tokens (B,) int32, cache)."""
+    """Greedy `decode_logits`: (next_tokens (B,) or (B, CB) int32,
+    cache)."""
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
                                   sites, paged_attention, bank, bank_profiles)
     return _greedy(logits), cache
@@ -606,7 +670,7 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     Dense cache: rows past max_len are dropped, attention is
     `windowed_decode_attention`. `decode_logits` on a per-slot cache is
     this function at W = 1."""
-    x = _embed(params, batch["tokens"])
+    x = _embed(params, cfg, batch)
     B, W = x.shape[0], x.shape[1]
     dev = x.device
     pos = cache["pos"]
@@ -657,7 +721,7 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                     c[rows, own_col] = t[rows, own].to(c.dtype)
             att = attn_mod.windowed_decode_attention(q, ck, cv, kv_len)
         x = x + linear(lp, "wo", att.reshape(B, W, cfg.attn_dim))
-        x = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, x, cfg, linear)
     return _logits(params, x, cfg), {kk: cache[kk], vk: cache[vk],
                                      "pos": pos}
 

@@ -431,10 +431,11 @@ class Engine:
         return params, extra
 
     def _padded_tokens(self, prompts: Sequence) -> torch.Tensor:
-        """(batch_slots, longest prompt) int32, each prompt left-aligned."""
+        """(batch_slots, longest prompt[, CB]) int32, each prompt
+        left-aligned."""
         plen = max(int(p.shape[0]) for p in prompts)
-        toks = torch.zeros((self.batch, plen), dtype=torch.int32,
-                           device=self.device)
+        toks = torch.zeros((self.batch, plen) + tuple(prompts[0].shape[1:]),
+                           dtype=torch.int32, device=self.device)
         for i, p in enumerate(prompts):
             toks[i, :p.shape[0]] = torch.as_tensor(p, device=self.device)
         return toks
@@ -445,7 +446,8 @@ class Engine:
                  ) -> List[torch.Tensor]:
         """Greedy-decode a batch of prompts (padded to the longest; the
         padded prefill keeps every slot's KV cache consistent). Returns one
-        (max_new,) int32 tensor per prompt.
+        (max_new,) int32 tensor per prompt; codebook prompts (S, CB) give
+        (max_new, CB) streams.
 
         adapter_ids: per-prompt bank tenant (None = the bare base); the
         whole heterogeneous batch runs through the same calls."""
@@ -481,7 +483,7 @@ class Engine:
                                                 {"tokens": cur, **extra})
             outs.append(nxt)
             cur = add_time_dim(nxt)
-        gen = torch.stack(outs, dim=1)                    # (B, max_new)
+        gen = torch.stack(outs, dim=1)               # (B, max_new[, CB])
         return [gen[i] for i in range(len(prompts))]
 
     def generate_requests(self, requests: List[Request],

@@ -165,6 +165,10 @@ class ContinuousScheduler:
                  n_pages: Optional[int] = None, drafter=None,
                  eos_sync_every: int = 4,
                  tiering: Optional[TieringConfig] = None):
+        if not engine.model.supports_slot_cache:
+            raise NotImplementedError(
+                f"{engine.model.cfg.name}: continuous batching needs the "
+                "per-slot cache path (token-input transformer families)")
         self.engine = engine
         self.bank = engine.bank
         self.model = engine.model

@@ -110,6 +110,14 @@ def _value_and_grad(loss_f: Callable, trainable: Dict, frozen: Dict,
     return loss.detach(), tree_unflatten(trainable, grads)
 
 
+def _microbatch(key: str, x: torch.Tensor, k: int, i: int) -> torch.Tensor:
+    """Microbatch i of k of one batch entry, split along the batch axis:
+    axis 1 of the (3, B, S) M-RoPE positions, axis 0 of everything else."""
+    if key == "positions" and x.ndim == 3:
+        return x.reshape((3, k, x.shape[1] // k) + x.shape[2:])[:, i]
+    return x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+
+
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     """-> train_step(state, frozen, batch) -> (state, metrics). The first
     call checks that every targeted (site, op) of the model resolves to a
@@ -125,10 +133,10 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
             return _value_and_grad(loss_f, trainable, frozen, batch)
         # k contiguous slices of the batch; losses and f32 gradients are
         # summed in order, then scaled by 1/k (JAX's scan over microbatches)
-        mbs = [{key: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
-                for key, x in batch.items()} for i in range(k)]
-        loss = torch.zeros((), dtype=torch.float32,
-                           device=batch["tokens"].device)
+        mbs = [{key: _microbatch(key, x, k, i) for key, x in batch.items()}
+               for i in range(k)]
+        ref = batch.get("tokens", batch.get("embeds"))
+        loss = torch.zeros((), dtype=torch.float32, device=ref.device)
         grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                          trainable)
         for mb in mbs:

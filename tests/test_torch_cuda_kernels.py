@@ -390,7 +390,8 @@ def test_served_slice_runs_both_kernels(cuda_device):
         engine = Engine(build(cfg, peft.replace(kernel_backend=backend)),
                         params, batch_slots=2, max_len=32, device=cuda_device)
         sched = ContinuousScheduler(engine, page_size=8)
-        reqs = [Request(prompt=p, max_new=3 + i) for i, p in enumerate(prompts)]
+        reqs = [Request(prompt=p, max_new=3 + i)
+                for i, p in enumerate(prompts)]
         sched.serve(reqs, [0.0, 1.0, 2.0, 3.0])
         outs[backend] = [r.out for r in reqs]
         if backend == "auto":
@@ -828,3 +829,143 @@ def test_cancel_frees_pages_while_a_spill_is_in_flight(cuda_device):
     for i, (r, p) in enumerate(zip(tiered, plain)):
         if i != victim:
             assert r.out == p.out, i
+
+
+# ---------------------------------------------------------------------------
+# Long sequences and the other transformer families
+# ---------------------------------------------------------------------------
+
+# the families' q/v stacks: olmoe-1b-7b 2048x2048 (L 16), phi3.5-moe's wv
+# 4096x1024, musicgen-medium 1536x1536 (radix 3, L 48), qwen2-vl-72b's wq
+# 8192x8192 and wv 8192x1024
+FAMILY_QV = [(2048, 2048, 1000, 16), (4096, 1024, 1000, 4),
+             (1536, 1536, 1000, 48), (8192, 8192, 1000, 2),
+             (8192, 1024, 1000, 2)]
+
+
+@pytest.mark.parametrize("d1,d2,n,L", FAMILY_QV)
+def test_family_qv_shapes_k1_k2_match_plain(cuda_device, d1, d2, n, L):
+    """K1 at atol 2e-4 and K2 at atol 2e-3 / rtol 1e-4 against their plain
+    versions at the families' q/v shapes, one launch each."""
+    E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
+    rng = np.random.default_rng(8)
+    c = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32)).to(
+        cuda_device)
+    before = fdk.launches
+    out = ops.fourier_deltaw_forward(c, E, d1, d2, 300.0)
+    assert fdk.launches == before + 1
+    plain = fourierft.materialize_delta(c, E, d1, d2, 300.0)
+    torch.testing.assert_close(out, plain, atol=2e-4, rtol=0)
+    del out, plain
+    g = torch.from_numpy(rng.normal(size=(L, d1, d2)).astype(
+        np.float32)).to(cuda_device)
+    npad = -(-n // fdk.NC) * fdk.NC
+    e = torch.zeros((2, npad), dtype=torch.int32, device=cuda_device)
+    e[:, :n] = E
+    u, v = e[0].contiguous(), e[1].contiguous()
+    before = fdk.dc_launches
+    got = fdk.dc(g, u, v, d1, d2, 300.0)
+    assert fdk.dc_launches == before + 1
+    torch.testing.assert_close(got, fdk.dc_reference(g, u, v, d1, d2, 300.0),
+                               atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_on_the_card_matches_direct(cuda_device, causal):
+    """yi-6b's heads at S 4096 in f32: flash's forward within 3e-6 and its
+    recomputing backward within 5e-5 of the function's exact value
+    (direct attention in float64 under autograd), at a fraction of f32
+    direct's peak memory. (f32 direct strays from the exact gradient by
+    up to 1e-4 at this length on the card, so it is not the yardstick.)"""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    q = torch.randn((1, 4096, 32, 128), generator=g, device=cuda_device)
+    k = torch.randn((1, 4096, 4, 128), generator=g, device=cuda_device)
+    v = torch.randn((1, 4096, 4, 128), generator=g, device=cuda_device)
+    cot = torch.randn(q.shape, generator=g, device=cuda_device)
+
+    def run(fn, dtype):
+        xs = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = fn(*xs)
+        grads = torch.autograd.grad((o * cot.to(dtype)).sum(), xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return o.detach().double(), [x.double() for x in grads], peak
+
+    def flash(*x):
+        return attn.flash_attention(*x, causal, 512)
+
+    def direct(*x):
+        return attn.direct_attention(*x, causal=causal)
+
+    fo, fg, flash_peak = run(flash, torch.float32)
+    _, _, direct_peak = run(direct, torch.float32)
+    ro, rg, _ = run(direct, torch.float64)
+    torch.testing.assert_close(fo, ro, atol=3e-6, rtol=0)
+    for a, b in zip(fg, rg):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=0)
+    assert flash_peak * 8 < direct_peak
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_model_serves_through_the_kernels(cuda_device, arch):
+    """A reduced MoE model at head_dim 128 (olmoe G = 1, phi3.5 G = 4)
+    served through the scheduler in f32: the merge launches K1, every
+    decode layer K3, and the streams equal the plain versions'."""
+    cfg = configs.reduced(configs.get(arch), width=512).replace(
+        vocab=64, param_dtype="float32", dtype="float32")
+    peft = PEFTConfig(n=64)
+    params = build(cfg, peft).init(0, cuda_device)
+    prompts = [torch.arange(5 + i, dtype=torch.int32) % 64 for i in range(4)]
+    outs = {}
+    for backend in ("auto", "einsum"):
+        fdk.launches = pa.launches = 0
+        engine = Engine(build(cfg, peft.replace(kernel_backend=backend)),
+                        params, batch_slots=2, max_len=32, device=cuda_device)
+        sched = ContinuousScheduler(engine, page_size=8)
+        reqs = [Request(prompt=p, max_new=3 + i)
+                for i, p in enumerate(prompts)]
+        sched.serve(reqs, [0.0, 1.0, 2.0, 3.0])
+        outs[backend] = [r.out for r in reqs]
+        if backend == "auto":
+            assert fdk.launches == 2
+            assert pa.launches == sched.metrics.steps * cfg.num_layers
+        else:
+            assert fdk.launches == pa.launches == 0
+    assert outs["auto"] == outs["einsum"]
+
+
+def test_codebook_model_trains_and_generates_on_the_card(cuda_device):
+    """A reduced musicgen-medium: a merged train step at S 1536 through
+    flash launches K1 and K2 once per site, and lockstep generation gives
+    (T, 4) streams equal to the plain path's (f32)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import step as ts
+    cfg = configs.reduced(configs.get("musicgen-medium")).replace(
+        param_dtype="float32", dtype="float32")
+    peft = PEFTConfig(n=64)
+    model = build(cfg, peft)
+    params = model.init(0, cuda_device)
+    batch = {k: t.to(cuda_device) for k, t in SyntheticLM(
+        vocab=cfg.vocab, batch=2, seq=1536, codebooks=4).batch_at(0).items()}
+    state, frozen = ts.state_from_params(model, params)
+    fdk.launches = fdk.dc_launches = 0
+    state, metrics = ts.make_train_step(model, TrainConfig())(state, frozen,
+                                                              batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert fdk.launches == fdk.dc_launches == 2
+    prompts = [torch.arange(4 + i, dtype=torch.int32)[:, None].repeat(1, 4)
+               for i in range(2)]
+    outs = {}
+    for backend in ("auto", "einsum"):
+        engine = Engine(build(cfg, peft.replace(kernel_backend=backend)),
+                        params, batch_slots=2, max_len=32, device=cuda_device)
+        outs[backend] = [o.tolist() for o in engine.generate(prompts,
+                                                              max_new=6)]
+    assert outs["auto"] == outs["einsum"]
+    assert [np.asarray(o).shape for o in outs["auto"]] == [(6, 4)] * 2

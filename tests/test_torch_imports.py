@@ -43,6 +43,14 @@ def test_no_jax_and_no_reference_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_walk_covers_the_family_modules():
+    walked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("models/moe.py", "models/attention.py", "models/common.py",
+                "configs/olmoe_1b_7b.py", "configs/phi3_5_moe.py",
+                "configs/musicgen_medium.py", "configs/qwen2_vl_72b.py"):
+        assert f"src/repro_torch/{rel}" in walked
+
+
 def _tiny():
     cfg = configs.reduced(configs.get("yi-6b")).replace(
         vocab=64, param_dtype="float32", dtype="float32")
@@ -85,8 +93,9 @@ def test_unported_paths_are_rejected():
     with pytest.raises(NotImplementedError, match="distributed slice"):
         train_step.make_train_step(model,
                                    TrainConfig(grad_compression="int8_ef"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        configs.get("olmoe-1b-7b")
+    for arch in ("zamba2-7b", "mamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="SSM/hybrid"):
+            configs.get(arch)
     with pytest.raises(ValueError, match="interpret"):
         build(model.cfg, PEFTConfig(kernel_backend="interpret"))
     with pytest.raises(ValueError, match="device"):

@@ -397,6 +397,27 @@ def test_launcher_runs_on_cpu(capsys, tmp_path):
     assert "factored_apply -> einsum" in out and "done: steps=2" in out
 
 
+@pytest.mark.parametrize("rank", [4, 8])
+def test_launcher_lora_rank_matches_jax(capsys, rank):
+    """`--lora-r` reaches PEFTConfig in both launchers: the same argv trains
+    the same number of parameters."""
+    from repro.launch import train as jax_launch_train
+    argv = ["--arch", "yi-6b", "--reduced", "--method", "lora", "--lora-r",
+            str(rank), "--steps", "2", "--batch", "2", "--seq", "16"]
+
+    def trainable(out):
+        line = next(ln for ln in out.splitlines() if "trainable=" in ln)
+        return int(line.split("trainable=")[1].split()[0].replace(",", ""))
+
+    jax_launch_train.main(argv)
+    theirs = trainable(capsys.readouterr().out)
+    launch_train.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    # 2 layers of r x (d_in + d_out) at wq (64x64) and wv (64x16)
+    assert trainable(out) == theirs == 2 * rank * ((64 + 64) + (64 + 16))
+    assert "done: steps=2" in out
+
+
 def test_serving_trained_coefficients_holds_no_graph():
     """Coefficients that require grad (as training leaves them) merge into
     weights that do not, and the scheduler serves them."""
