@@ -1,10 +1,9 @@
 """Architecture configs: `get(arch_id)`, `reduced(cfg)` for smoke tests.
 
-Copies of the JAX package's configs of the transformer families (dense,
-moe, audio, vlm) and of the paper's own models (`PAPER_MODELS`, reached
-through `get` as in the JAX package; the launchers' `--arch` choices stay
-`ARCHS`). The pure-SSM and hybrid families are not ported yet: asking for
-one raises NotImplementedError (ROADMAP queue 1, the SSM/hybrid slice).
+Copies of the JAX package's configs of every family it registers (dense,
+moe, audio, vlm, the pure-SSM mamba2-2.7b and the hybrid zamba2-7b) and of
+the paper's own models (`PAPER_MODELS`, reached through `get` as in the
+JAX package; the launchers' `--arch` choices stay `ARCHS`).
 """
 from __future__ import annotations
 
@@ -12,9 +11,9 @@ import dataclasses
 
 from repro_torch.configs.base import (ModelConfig, MoEConfig, PEFTConfig,
                                       TrainConfig)
-from repro_torch.configs import (musicgen_medium, olmoe_1b_7b, phi3_5_moe,
-                                 qwen2_5_32b, qwen2_vl_72b, qwen3_4b, yi_6b,
-                                 yi_9b)
+from repro_torch.configs import (mamba2_2_7b, musicgen_medium, olmoe_1b_7b,
+                                 phi3_5_moe, qwen2_5_32b, qwen2_vl_72b,
+                                 qwen3_4b, yi_6b, yi_9b, zamba2_7b)
 from repro_torch.configs.paper_models import PAPER_MODELS
 
 ARCHS = {
@@ -26,11 +25,9 @@ ARCHS = {
     "qwen2-vl-72b": qwen2_vl_72b.CONFIG,
     "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
     "phi3.5-moe-42b-a6.6b": phi3_5_moe.CONFIG,
+    "zamba2-7b": zamba2_7b.CONFIG,
+    "mamba2-2.7b": mamba2_2_7b.CONFIG,
 }
-
-# registered by the JAX package, not ported yet (the ssm and hybrid
-# families)
-UNPORTED_ARCHS = ("zamba2-7b", "mamba2-2.7b")
 
 ARCH_IDS = tuple(ARCHS)
 
@@ -40,11 +37,6 @@ def get(arch: str) -> ModelConfig:
         return ARCHS[arch]
     if arch in PAPER_MODELS:
         return PAPER_MODELS[arch]
-    if arch in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is a pure-SSM or hybrid model; the port covers "
-            "the transformer families (dense, moe, audio, vlm) so far "
-            "(ROADMAP queue 1: the SSM/hybrid slice)")
     raise KeyError(f"unknown arch {arch!r}; known: "
                    f"{sorted(ARCHS) + sorted(PAPER_MODELS)}")
 
@@ -52,7 +44,8 @@ def get(arch: str) -> ModelConfig:
 def reduced(cfg: ModelConfig, *, layers: int = 2, width: int = 64,
             vocab: int = 256) -> ModelConfig:
     """Shrink a config to smoke-test size, preserving its structural family
-    (GQA ratio, MoE top-k, codebooks, qk-norm, QKV bias, ...)."""
+    (GQA ratio, MoE top-k, SSM shape, hybrid wiring, codebooks, qk-norm,
+    QKV bias, ...)."""
     kw = dict(
         name=cfg.name + "-smoke",
         num_layers=layers,

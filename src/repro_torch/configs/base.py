@@ -155,7 +155,7 @@ class TrainConfig:
     anomaly_threshold: float = 1e4
     seed: int = 0
     # gradient all-reduce compression: none | int8_ef (int8_ef comes with
-    # the distributed slice, ROADMAP queue 9)
+    # the distributed slice, ROADMAP queue 1: Distributed)
     grad_compression: str = "none"
 
     def replace(self, **kw) -> "TrainConfig":

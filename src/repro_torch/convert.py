@@ -9,9 +9,12 @@ this module needs no `ml_dtypes` import. Integer leaves (FourierFT
 `entries`) and f32 leaves (`c`, the random/orthogonal bases `b1`/`b2`)
 carry over as they are, and so does a `full` run's base, every leaf of
 which trains. The other families' leaves need nothing of their own: the
-MoE's f32 `router` stays f32, the (L, E, d, f) experts and the codebook
-model's (CB, V, d) embedding and (CB, d, V) head keep their shapes, and a
-vlm tree has no `embed`.
+(L, E, d, f) experts and the codebook model's (CB, V, d) embedding and
+(CB, d, V) head keep their shapes, a vlm tree has no `embed`, and the
+hybrid's `shared` block is one more subtree. The leaves JAX keeps in f32
+whatever `param_dtype` is (`F32_LEAVES`: the MoE `router`, the mamba
+blocks' `dt_bias`, `A_log` and `Dp`) stay f32 even when `dtype=` casts
+the rest.
 
 The same walk carries the serving adapter bank's state: a tenant tree
 `{site: {leaf: array}}` of any method (`c`, `lora_a`/`lora_b`, `kernel`,
@@ -41,13 +44,20 @@ def array_to_torch(a, device, dtype: Optional[torch.dtype] = None
     return t.to(device)
 
 
+# leaves the JAX package makes in f32 whatever param_dtype is
+F32_LEAVES = ("router", "dt_bias", "A_log", "Dp")
+
+
 def from_jax_params(tree: Dict, device, dtype: Optional[torch.dtype] = None
                     ) -> Dict:
     """Nested dict of arrays -> nested dict of torch tensors on `device`.
     `dtype`, when given, casts the floating leaves (integer leaves keep
-    theirs)."""
+    theirs, and `F32_LEAVES` stay f32)."""
     if isinstance(tree, dict):
-        return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
+        return {k: (array_to_torch(v, device) if k in F32_LEAVES
+                    and not isinstance(v, dict)
+                    else from_jax_params(v, device, dtype))
+                for k, v in tree.items()}
     return array_to_torch(tree, device, dtype)
 
 

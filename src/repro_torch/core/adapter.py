@@ -382,7 +382,7 @@ def dct_bases(entries: torch.Tensor, d1: int, d2: int):
     reduced exactly in int64 before the float conversion, as the CUDA
     kernels reduce it, so cos sees arguments in [0, 2π) at any dimension.
     (The JAX package forms (2j+1)·u in float32, inexact once it passes 2^24:
-    ROADMAP queue 3.)"""
+    ROADMAP's notes on the reference.)"""
     dev = entries.device
     u = entries[0].to(torch.int64)
     v = entries[1].to(torch.int64)

@@ -19,7 +19,8 @@ and the gateway's streams must equal it token for token.
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`. The weights are random, made from
 `--seed`. `--model-parallel` and `--sharding-plan` (the JAX launcher's
-mesh flags) are refused: the port has no mesh yet (ROADMAP queue 1).
+mesh flags) are refused: the port has no mesh yet (ROADMAP queue 1:
+Distributed).
 
     python -m repro_torch.launch.api --arch yi-6b --reduced \\
         --export-demo-bank /tmp/demo --device cpu
@@ -145,10 +146,15 @@ def build_scheduler(args):
 
     if args.model_parallel is not None or args.sharding_plan is not None:
         raise SystemExit("--model-parallel/--sharding-plan: the port has no "
-                         "mesh yet (ROADMAP queue 1, distributed)")
+                         "mesh yet (ROADMAP queue 1: Distributed)")
     device = resolve_device(args.device)
     cfg = _model_cfg(args)
     model = build(cfg, PEFTConfig(method="none"))
+    if not model.supports_slot_cache:
+        raise SystemExit(
+            f"{cfg.name} ({cfg.family}) has no per-slot cache path, which "
+            "the gateway's continuous scheduler needs: serve it lockstep "
+            "with repro_torch.launch.serve")
     params = model.init(args.seed, device)
     bank, tenant_ids = None, []
     if args.bank_dir:

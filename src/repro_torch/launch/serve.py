@@ -1,7 +1,8 @@
 """Serving launcher: `python -m repro_torch.launch.serve --arch <id> [...]`.
 
-Builds a decoder (dense, moe, or audio with codebooks) with an adapter on
-q/v (`--method`, FourierFT by default) from a seed, optionally restores
+Builds a model of any token-input family (dense, moe, audio with
+codebooks, mamba2, zamba2) with an adapter on its default targets
+(`--method`, FourierFT by default) from a seed, optionally restores
 trained coefficients from a `launch.train` checkpoint (`--adapters <ckpt
 dir>`), merges every ΔW into the base (on the card through the method's
 hand-written ΔW kernel), and
@@ -28,7 +29,9 @@ each window in one forward (on the card the paged-attention kernel at
 W = k+1 rows). In f32 (TF32 off on the card) the streams are the plain
 loop's; in bf16 on the card they can part from it where two logits nearly
 tie. `--dense-cache` serves from the dense per-slot cache instead of the
-paged one.
+paged one. The recurrent families (mamba2, zamba2) and codebook models
+have no per-slot cache: they serve lockstep, and `--continuous` is refused
+before any weight is made.
 
 With `--continuous --preempt` (or a host tier) the scheduler serves tiered
 (serve/tiering): a blocked higher-class request evicts a lower-class slot,
@@ -228,6 +231,10 @@ def main(argv=None):
     else:
         peft = PEFTConfig(method=args.method, n=args.n, alpha=args.alpha)
     model = build(cfg, peft)
+    if args.continuous and not model.supports_slot_cache:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) has no per-slot cache path, which "
+            "--continuous needs: serve it lockstep (without --continuous)")
     params = model.init(args.seed, device)
     if args.adapters:
         state, at = ckpt.restore(args.adapters, device=device)

@@ -1,8 +1,11 @@
 """Training launcher: `python -m repro_torch.launch.train --arch <id> [...]`.
 
-Fine-tunes a decoder (dense, moe, or audio with codebooks) with any
+Fine-tunes a model of any token-input family (dense, moe, audio with
+codebooks, the pure-SSM mamba2-2.7b and the hybrid zamba2-7b) with any
 registered method (`--method`) through the train step and the
-fault-tolerant loop. With the merged strategy (the
+fault-tolerant loop. mamba2's default targets are its in/out projections
+(wx / wo_ssm); zamba2 adapts the shared block's q/v, applied factored once
+per application. With the merged strategy (the
 default) on the card, every FourierFT or `dct` step's forward materializes
 ΔW with the method's hand-written ΔW kernel (K1 or K4) and its backward
 takes the coefficients' gradient with its hand-written dc kernel (K2 or
@@ -19,11 +22,13 @@ resumes.
         --steps 20 --ckpt-dir /tmp/dct
     python -m repro_torch.launch.train --arch yi-6b --reduced --steps 3 \
         --strategy factored --device cpu
+    python -m repro_torch.launch.train --arch mamba2-2.7b --reduced \
+        --steps 3 --device cpu
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`. The mesh, FSDP, gradient-compression and
 sharding-plan flags of the JAX launcher come with the distributed slice
-(ROADMAP queue 9).
+(ROADMAP queue 1: Distributed).
 """
 from __future__ import annotations
 

@@ -1,0 +1,268 @@
+"""Mamba2 mixer via SSD (state-space duality, arXiv:2405.21060), the JAX
+package's `models/mamba2.py`.
+
+The chunked algorithm serves training and full-sequence forwards
+(intra-chunk quadratic form, per-chunk states, then the inter-chunk
+recurrence, which JAX runs as a `lax.scan` and this module as a loop over
+chunks); the decode step carries an O(1) state. The SSD scan is not a
+Pallas kernel in the JAX package (XLA computes it), so it stays plain
+PyTorch here.
+
+Layout: x (B, S, H, P) with H = expand·d_model / head_dim, P = head_dim;
+separate projections wz/wx/wbc/wdt instead of one fused in_proj, as in the
+JAX package. The scan computes in f32 for bf16 and f32 inputs, as JAX
+does, and in float64 for float64 inputs (the oracle the tests and the
+chip smoke hold it to).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init, rms_norm
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, heads, head_dim, groups)."""
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    return d_inner, d_inner // ssm.head_dim, ssm.head_dim, ssm.n_groups
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: out[b,s,c] = b_c + Σ_i x[b, s-w+1+i, c]·w[c,i],
+    each tap accumulated in f32. x (B, S, C), w (C, width), b (C,)."""
+    width = w.shape[1]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + S, :].to(torch.float32) \
+            * w[:, i].to(torch.float32)
+    return (out + b.to(torch.float32)).to(x.dtype)
+
+
+def _segsum(dta: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: out[..., i, j] = Σ_{j < m <= i} dta[..., m], -inf
+    for j > i. dta (..., Q). The difference is formed before the mask, as
+    in JAX; the masked entries get no gradient through `where`."""
+    Q = dta.shape[-1]
+    cs = torch.cumsum(dta, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(Q, device=dta.device)
+    mask = i[:, None] >= i[None, :]
+    return torch.where(mask, diff, torch.full((), -math.inf, dtype=diff.dtype,
+                                              device=diff.device))
+
+
+def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
+    """SSD forward. x (b, S, H, P); dt (b, S, H) (after softplus); A (H,)
+    negative; B, C (b, S, G, N); D (H,). Returns y (b, S, H, P) in x's
+    dtype and the final state (b, H, P, N) in the compute dtype."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    assert S % chunk == 0, (S, chunk)
+    nc = S // chunk
+    rep = H // G
+    ct = _compute_dtype(x)
+
+    xc = x.reshape(b, nc, chunk, H, P).to(ct)
+    dtc = dt.reshape(b, nc, chunk, H).to(ct)
+    Bc = B.reshape(b, nc, chunk, G, N).to(ct)
+    Cc = C.reshape(b, nc, chunk, G, N).to(ct)
+
+    dta = dtc * A.to(ct)                               # (b, nc, Q, H)
+    dtx = xc * dtc[..., None]                          # dt-weighted inputs
+
+    # intra-chunk (quadratic within the chunk)
+    Lmat = torch.exp(_segsum(dta.movedim(3, 2)))       # (b, nc, H, Q, Q)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)
+    if G != H:                                         # head h: group h // rep
+        scores = torch.repeat_interleave(scores, rep, dim=2)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores * Lmat, dtx)
+
+    # chunk states
+    cum = torch.cumsum(dta, dim=2)                     # (b, nc, Q, H)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    Bh = torch.repeat_interleave(Bc, rep, dim=3) if G != H else Bc
+    states = torch.einsum("bcqhn,bcqhp->bchpn",
+                          Bh * decay_to_end[..., None], dtx)
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(torch.sum(dta, dim=2))     # (b, nc, H)
+    s = torch.zeros((b, H, P, N), dtype=ct, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)             # (b, nc, H, P, N)
+
+    # inter-chunk output
+    in_decay = torch.exp(cum)
+    Ch = torch.repeat_interleave(Cc, rep, dim=3) if G != H else Cc
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp", Ch * in_decay[..., None],
+                         prev_states)
+
+    y = (y_diag + y_off).reshape(b, S, H, P)
+    y = y + x.to(ct) * D.to(ct)[None, None, :, None]
+    return y.to(x.dtype), s
+
+
+def ssd_recurrent_oracle(x, dt, A, B, C, D):
+    """The per-token recurrence (test oracle): `ssd_chunked`'s signature and
+    semantics, one state update per token."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    ct = _compute_dtype(x)
+    Bh = torch.repeat_interleave(B, rep, dim=2).to(ct)
+    Ch = torch.repeat_interleave(C, rep, dim=2).to(ct)
+    dtf = dt.to(ct)
+    xf = x.to(ct)
+    Af = A.to(ct)
+    state = torch.zeros((b, H, P, N), dtype=ct, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)                 # (b, H)
+        state = (state * decay[:, :, None, None]
+                 + torch.einsum("bhn,bhp,bh->bhpn", Bh[:, t], xf[:, t],
+                                dtf[:, t]))
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], state))
+    y = torch.stack(ys, dim=1) + xf * D.to(ct)[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def init_mamba_params(gen: torch.Generator, cfg: ModelConfig, stack: int,
+                      dtype, device) -> Dict:
+    """One mamba2 block's params, stacked over `stack` layers (none when
+    0). dt_bias, A_log and Dp are f32 whatever `dtype` is, as in JAX."""
+    d = cfg.d_model
+    ssm = cfg.ssm
+    d_inner, H, P, G = dims(cfg)
+    conv_ch = d_inner + 2 * G * ssm.state
+    L = (stack,) if stack else ()
+    f32 = torch.float32
+    u = torch.rand(L + (H,), generator=gen, device=device, dtype=f32)
+    dt0 = torch.exp(u * (math.log(ssm.dt_max) - math.log(ssm.dt_min))
+                    + math.log(ssm.dt_min))
+    return {
+        "norm": torch.ones(L + (d,), dtype=dtype, device=device),
+        "wz": dense_init(gen, L + (d, d_inner), dtype, device),
+        "wx": dense_init(gen, L + (d, d_inner), dtype, device),
+        "wbc": dense_init(gen, L + (d, 2 * G * ssm.state), dtype, device),
+        "wdt": dense_init(gen, L + (d, H), dtype, device),
+        "conv_w": dense_init(gen, L + (conv_ch, ssm.d_conv), dtype, device,
+                             0.2),
+        "conv_b": torch.zeros(L + (conv_ch,), dtype=dtype, device=device),
+        "dt_bias": torch.log(torch.expm1(dt0)),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=f32,
+                                          device=device))
+        * torch.ones(L + (H,), dtype=f32, device=device),
+        "Dp": torch.ones(L + (H,), dtype=f32, device=device),
+        "gnorm": torch.ones(L + (d_inner,), dtype=dtype, device=device),
+        "wo_ssm": dense_init(gen, L + (d_inner, d), dtype, device),
+    }
+
+
+def _plain_linear(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    return x @ p[name]
+
+
+def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                linear_fn=None) -> torch.Tensor:
+    """One pre-norm mamba2 block over a sequence. x (B, S, d).
+    `linear_fn(p, name, x)` lets the PEFT layer intercept the wz, wx and
+    wo_ssm projections. softplus is torch's, which is the identity above
+    20 where JAX's is not (they differ by less than 3e-9 there)."""
+    ssm = cfg.ssm
+    d_inner, H, P, G = dims(cfg)
+    linear_fn = linear_fn or _plain_linear
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    z = linear_fn(p, "wz", h)
+    xin = linear_fn(p, "wx", h)
+    bc = h @ p["wbc"]
+    dt_raw = h @ p["wdt"]
+    conv_out = conv1d_causal(torch.cat([xin, bc], dim=-1), p["conv_w"],
+                             p["conv_b"])
+    conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)
+    xin = conv_out[..., :d_inner]
+    bc = conv_out[..., d_inner:]
+    B, S, _ = x.shape
+    Bmat = bc[..., :G * ssm.state].reshape(B, S, G, ssm.state)
+    Cmat = bc[..., G * ssm.state:].reshape(B, S, G, ssm.state)
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, _ = ssd_chunked(xin.reshape(B, S, H, P), dt, A, Bmat, Cmat, p["Dp"],
+                       chunk=min(ssm.chunk, S))
+    y = y.reshape(B, S, d_inner)
+    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["gnorm"],
+                 cfg.norm_eps)
+    return x + linear_fn(p, "wo_ssm", y)
+
+
+def init_mamba_cache(cfg: ModelConfig, stack: int, batch: int, dtype,
+                     device) -> Dict:
+    """conv (stack, B, d_conv - 1, C) in `dtype`; ssm (stack, B, H, P, N)
+    in f32."""
+    ssm = cfg.ssm
+    d_inner, H, P, G = dims(cfg)
+    conv_ch = d_inner + 2 * G * ssm.state
+    return {
+        "conv": torch.zeros((stack, batch, ssm.d_conv - 1, conv_ch),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((stack, batch, H, P, ssm.state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode_step(p: Dict, cache: Dict, x: torch.Tensor,
+                      cfg: ModelConfig, linear_fn=None):
+    """One token. x (B, 1, d); cache {conv (B, w-1, C), ssm (B, H, P, N)}
+    (one layer's slices, read only). Returns (y (B, 1, d), new cache); the
+    conv history keeps the cache's dtype."""
+    ssm = cfg.ssm
+    d_inner, H, P, G = dims(cfg)
+    linear_fn = linear_fn or _plain_linear
+    B = x.shape[0]
+    h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]            # (B, d)
+    z = linear_fn(p, "wz", h)
+    xin = linear_fn(p, "wx", h)
+    bc = h @ p["wbc"]
+    dt_raw = h @ p["wdt"]
+    conv_in = torch.cat([xin, bc], dim=-1)                    # (B, C)
+    hd = torch.promote_types(cache["conv"].dtype, conv_in.dtype)
+    hist = torch.cat([cache["conv"].to(hd), conv_in[:, None, :].to(hd)],
+                     dim=1)
+    conv_out = torch.einsum("bwc,cw->bc", hist.to(torch.float32),
+                            p["conv_w"].to(torch.float32)) \
+        + p["conv_b"].to(torch.float32)
+    conv_out = F.silu(conv_out).to(x.dtype)
+    new_conv = hist[:, 1:, :].to(cache["conv"].dtype)
+    xin = conv_out[..., :d_inner].reshape(B, H, P)
+    bc = conv_out[..., d_inner:]
+    Bmat = bc[..., :G * ssm.state].reshape(B, G, ssm.state)
+    Cmat = bc[..., G * ssm.state:].reshape(B, G, ssm.state)
+    rep = H // G
+    Bh = torch.repeat_interleave(Bmat, rep, dim=1).to(torch.float32)
+    Ch = torch.repeat_interleave(Cmat, rep, dim=1).to(torch.float32)
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (B, H)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dt * A)
+    xf = xin.to(torch.float32)
+    state = (cache["ssm"] * decay[:, :, None, None]
+             + torch.einsum("bhn,bhp,bh->bhpn", Bh, xf, dt))
+    y = torch.einsum("bhn,bhpn->bhp", Ch, state)
+    y = (y + xf * p["Dp"][None, :, None]).reshape(B, d_inner)
+    y = rms_norm(y.to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype),
+                 p["gnorm"], cfg.norm_eps)
+    out = x + linear_fn(p, "wo_ssm", y)[:, None, :]
+    return out, {"conv": new_conv, "ssm": state}

@@ -1,8 +1,9 @@
-"""Model registry: `build(cfg, peft)` returns a `Model` facade over the
-transformer's families — dense, moe, audio (codebooks) and vlm (embedding
-inputs, M-RoPE) — as the JAX package's `models/registry.py` does. The
-pure-SSM and hybrid families are not ported yet: building one raises
-NotImplementedError.
+"""Model registry: `build(cfg, peft)` returns a `Model` facade with one
+interface across the families, as the JAX package's `models/registry.py`
+does: the transformer's dense, moe, audio (codebooks) and vlm (embedding
+inputs, M-RoPE) families, the pure-SSM mamba2 (`ssm_lm`) and the hybrid
+zamba2 (`zamba2`). The recurrent families have no per-slot cache: they
+serve lockstep, and their prefill is a loop of decode steps.
 
     model.init(seed, device)                -> {"base": ..., "peft": ...}
     model.forward(params, batch)            -> logits
@@ -32,7 +33,7 @@ from repro_torch.core import adapter as adapter_api
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.adapter import AdapterSite
 from repro_torch.kernels import api as kernel_api
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer, zamba2
 from repro_torch.tree import tree_leaves
 
 
@@ -42,7 +43,39 @@ def add_time_dim(t: torch.Tensor) -> torch.Tensor:
     return t[:, None]
 
 
+def default_targets(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The paper's default is attention q/v; the attention-free family
+    adapts its in/out projections."""
+    if cfg.family == "ssm":
+        return ("wx", "wo_ssm")
+    return ("wq", "wv")
+
+
+def resolve_default_targets(peft: PEFTConfig, cfg: ModelConfig) -> PEFTConfig:
+    """Swap the generic ("wq", "wv") default for the family's real targets:
+    the one place this special case lives (Model build and the serving
+    AdapterBank both normalize through it)."""
+    if peft.target_modules == ("wq", "wv") and cfg.family == "ssm":
+        return peft.replace(target_modules=default_targets(cfg))
+    return peft
+
+
 def adapter_sites(cfg: ModelConfig) -> Tuple[AdapterSite, ...]:
+    """Every adaptable 2-D weight site of the family; the hybrid's shared
+    q/v are stacked over its shared-block applications."""
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner = cfg.ssm.expand * cfg.d_model
+        mamba = (
+            AdapterSite("layers/wx", cfg.d_model, d_inner, cfg.num_layers),
+            AdapterSite("layers/wo_ssm", d_inner, cfg.d_model,
+                        cfg.num_layers),
+        )
+        if cfg.family == "ssm":
+            return mamba
+        apps = zamba2.n_apps(cfg)
+        return (AdapterSite("shared/wq", cfg.d_model, cfg.attn_dim, apps),
+                AdapterSite("shared/wv", cfg.d_model, cfg.kv_dim, apps)) \
+            + mamba
     return (
         AdapterSite("layers/wq", cfg.d_model, cfg.attn_dim, cfg.num_layers),
         AdapterSite("layers/wk", cfg.d_model, cfg.kv_dim, cfg.num_layers),
@@ -51,6 +84,11 @@ def adapter_sites(cfg: ModelConfig) -> Tuple[AdapterSite, ...]:
         AdapterSite("layers/wi", cfg.d_model, cfg.d_ff or cfg.d_model,
                     cfg.num_layers),
     )
+
+
+# the module that builds each family (JAX's _FAMILY_MODULES)
+_FAMILY_MODULES = {family: transformer for family in transformer.FAMILIES}
+_FAMILY_MODULES.update(ssm=ssm_lm, hybrid=zamba2)
 
 
 @dataclass
@@ -67,13 +105,16 @@ class Model:
         if self.remat not in transformer.REMAT_MODES:
             raise ValueError(f"unknown remat {self.remat!r}; one of "
                              f"{transformer.REMAT_MODES}")
-        if self.cfg.family not in transformer.FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} ({self.cfg.name}) is not ported "
-                "yet (ROADMAP queue 1: the SSM/hybrid slice)")
+        if self.cfg.family not in _FAMILY_MODULES:
+            raise ValueError(f"unknown family {self.cfg.family!r} "
+                             f"({self.cfg.name}); one of "
+                             f"{sorted(_FAMILY_MODULES)}")
+        self._mod = _FAMILY_MODULES[self.cfg.family]
         # unknown methods and kernel backends fail here, at build
         self.method = adapter_api.resolve(self.peft.method)
         kernel_api.requested_backend(self.peft)
+        if self.method.has_site_params:
+            self.peft = resolve_default_targets(self.peft, self.cfg)
         self.sites = adapter_sites(self.cfg)
         self._paged_fns = {}      # (device type, dtype) -> attention fn
 
@@ -83,9 +124,9 @@ class Model:
         return {"bank": params.get("bank"),
                 "bank_profiles": self.bank_profiles}
 
-    def _call(self, fn, params: Dict, *args):
+    def _call(self, fn, params: Dict, *args, **kwargs):
         return fn(params["base"], params["peft"], *args, self.cfg, self.peft,
-                  self.sites, **self._bank_kwargs(params))
+                  self.sites, **kwargs, **self._bank_kwargs(params))
 
     # ---- params -----------------------------------------------------------
     def init(self, seed: int, device) -> Dict:
@@ -93,23 +134,23 @@ class Model:
         seeded with `seed`, made directly on `device`."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        base = transformer.init_params(gen, self.cfg, device)
+        base = self._mod.init_params(gen, self.cfg, device)
         adapters = peft_mod.init_adapters(gen, self.sites, self.peft, device)
         return {"base": base, "peft": adapters}
 
     # ---- forward / decode ---------------------------------------------------
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """The logits (`transformer.forward` also returns the MoE aux
+        """The logits (the family's `forward` also returns the MoE aux
         loss, which only the training loss reads)."""
-        return transformer.forward(params["base"], params["peft"], batch,
-                                   self.cfg, self.peft, self.sites,
-                                   remat=self.remat,
-                                   **self._bank_kwargs(params))[0]
+        return self._mod.forward(params["base"], params["peft"], batch,
+                                 self.cfg, self.peft, self.sites,
+                                 remat=self.remat,
+                                 **self._bank_kwargs(params))[0]
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
-        return transformer.loss_fn(params["base"], params["peft"], batch,
-                                   self.cfg, self.peft, self.sites,
-                                   remat=self.remat)
+        return self._mod.loss_fn(params["base"], params["peft"], batch,
+                                 self.cfg, self.peft, self.sites,
+                                 remat=self.remat)
 
     def join(self, trainable: Dict, frozen: Dict) -> Dict:
         """The params tree from the train step's (trainable, frozen) split:
@@ -137,18 +178,33 @@ class Model:
                          batch)
 
     def prefill(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call(transformer.prefill, params, cache, batch)
+        """Fill a fresh cache from a whole (B, S[, CB]) prompt. The
+        transformer runs one causal forward; a recurrent family (ssm,
+        hybrid) runs its decode step over the prompt, token by token, as
+        the JAX package's scan does. Returns (next_tokens, cache)."""
+        fn = getattr(self._mod, "prefill", None)
+        if fn is not None:
+            return self._call(fn, params, cache, batch)
+        tokens = batch["tokens"]
+        extra = {k: batch[k] for k in ("adapter_slots",) if k in batch}
+        nt = None
+        for t in range(tokens.shape[1]):
+            nt, cache = self.decode_step(params, cache,
+                                         {"tokens": tokens[:, t:t + 1],
+                                          **extra})
+        return nt, cache
 
     def prefill_paged(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call(transformer.prefill_paged, params, cache, batch)
+        return self._call(self._slot_mod().prefill_paged, params, cache,
+                          batch)
 
     def decode_step(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call_attending(transformer.decode_step, params,
-                                    cache, batch)
+        return self._call_attending(self._mod.decode_step, params, cache,
+                                    batch)
 
     def decode_logits(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call_attending(transformer.decode_logits, params,
-                                    cache, batch)
+        return self._call_attending(self._mod.decode_logits, params, cache,
+                                    batch)
 
     def verify_step(self, params: Dict, cache: Dict, batch: Dict):
         """Draft verification: one forward over batch["tokens"] (B, W), the
@@ -156,19 +212,22 @@ class Model:
         rows; returns the greedy continuation after each (B, W). `pos` does
         not advance (`advance_pos` commits the accepted counts). A paged
         cache reads through the same resolved attention as decode."""
-        return self._call_attending(transformer.verify_step, params,
+        return self._call_attending(self._slot_mod().verify_step, params,
                                     cache, batch)
 
     def verify_logits(self, params: Dict, cache: Dict, batch: Dict):
-        return self._call_attending(transformer.verify_logits, params,
+        return self._call_attending(self._slot_mod().verify_logits, params,
                                     cache, batch)
 
     def _call_attending(self, fn, params: Dict, cache: Dict, batch: Dict):
-        """`fn` (a decode or verify function of `transformer`) with the
-        attention resolved for `cache` (None for a dense cache)."""
-        return fn(params["base"], params["peft"], cache, batch, self.cfg,
-                  self.peft, self.sites, paged_attention=self._paged_fn(cache),
-                  **self._bank_kwargs(params))
+        """`fn` (a decode or verify function of the family's module) with
+        the attention resolved for a paged `cache`; a dense cache passes
+        none."""
+        if "pk" in cache:
+            return self._call(fn, params, cache, batch,
+                              paged_attention=self.paged_attention(
+                                  cache["pk"].device, cache["pk"].dtype))
+        return self._call(fn, params, cache, batch)
 
     def paged_attention(self, device, dtype):
         """The decode attention over a paged cache of `dtype` on `device`:
@@ -178,60 +237,68 @@ class Model:
         key = (torch.device(device).type, dtype)
         fn = self._paged_fns.get(key)
         if fn is None:
-            fn = self._paged_fns[key] = transformer.paged_attention_op(
+            fn = self._paged_fns[key] = self._slot_mod().paged_attention_op(
                 self.cfg, self.peft, device, dtype).fn
         return fn
-
-    def _paged_fn(self, cache: Dict):
-        if "pk" not in cache:
-            return None
-        return self.paged_attention(cache["pk"].device, cache["pk"].dtype)
 
     @property
     def supports_slot_cache(self) -> bool:
         """True when the family has the per-slot cache (ragged per-slot
         kv_len over one cache, dense or paged, with the write_slot /
-        reset_slots / advance_pos lifecycle): the token-input families
-        without codebooks, as in the JAX package. Codebook streams decode
-        lockstep only; vlm feeds embeddings, which no slot path carries."""
-        return self.cfg.embed_inputs and not self.cfg.n_codebooks
+        reset_slots / advance_pos lifecycle): the token-input transformer
+        families without codebooks, as in the JAX package. The recurrent
+        families (ssm, hybrid) carry state no slot can mask, codebook
+        streams decode lockstep only, and vlm feeds embeddings, which no
+        slot path carries."""
+        return (hasattr(self._mod, "write_slot_cache")
+                and self.cfg.embed_inputs and not self.cfg.n_codebooks)
+
+    def _slot_mod(self):
+        """The module of the slot paths (per-slot and paged caches,
+        verification); a family without them (`supports_slot_cache`)
+        raises, so every such call starts from this refusal."""
+        if not self.supports_slot_cache:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} ({self.cfg.name}) has no "
+                "per-slot cache path: continuous batching covers the "
+                "token-input transformer families without codebooks; the "
+                "others serve lockstep (Engine.generate)")
+        return self._mod
 
     def init_cache(self, batch: int, max_len: int, dtype, device,
                    per_slot: bool = False, paged: bool = False,
                    page_size: int = 16, n_pages: Optional[int] = None) -> Dict:
         """Dense lockstep, dense per-slot or paged; a family without the
-        per-slot path (`supports_slot_cache`) has only the lockstep cache,
-        so every per-slot and paged call starts from a refusal here."""
-        if (paged or per_slot) and not self.supports_slot_cache:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} ({self.cfg.name}) has no "
-                "per-slot cache path: continuous batching covers the "
-                "token-input transformer families without codebooks")
+        per-slot path has only the lockstep cache."""
         if paged:
+            mod = self._slot_mod()
             if n_pages is None:
                 raise ValueError("paged cache needs n_pages (the runtime "
                                  "takes it from serve.paging.PagedKVCache)")
-            return transformer.init_paged_cache(self.cfg, batch, n_pages,
-                                                page_size, dtype, device)
-        return transformer.init_cache(self.cfg, batch, max_len, dtype,
-                                      device, per_slot=per_slot)
+            return mod.init_paged_cache(self.cfg, batch, n_pages, page_size,
+                                        dtype, device)
+        if per_slot:
+            return self._slot_mod().init_cache(self.cfg, batch, max_len,
+                                               dtype, device, per_slot=True)
+        return self._mod.init_cache(self.cfg, batch, max_len, dtype, device)
 
     def write_slot(self, cache: Dict, slot_cache: Dict, slot: int,
                    length) -> Dict:
         """In-flight prefill on the dense per-slot cache: splice a primed
         batch-1 cache into slot row `slot` (position <- `length`)."""
-        return transformer.write_slot_cache(cache, slot_cache, slot, length)
+        return self._slot_mod().write_slot_cache(cache, slot_cache, slot,
+                                                 length)
 
     def reset_slots(self, cache: Dict, mask) -> Dict:
-        return transformer.reset_slots(cache, mask)
+        return self._slot_mod().reset_slots(cache, mask)
 
     def advance_pos(self, cache: Dict, delta) -> Dict:
         """Per-slot position commit after verification ((B,) accepted
         counts, or a scalar for the self-drafter's rollback)."""
-        return transformer.advance_pos(cache, delta)
+        return self._slot_mod().advance_pos(cache, delta)
 
     def copy_page(self, cache: Dict, src: int, dst: int) -> Dict:
-        return transformer.copy_page(cache, src, dst)
+        return self._slot_mod().copy_page(cache, src, dst)
 
     # ---- kernels / accounting ---------------------------------------------
     def kernel_policy(self, device) -> kernel_api.KernelPolicy:
@@ -245,8 +312,8 @@ class Model:
         """|Θ|: the adapters' count, or for `full` the base's, from its
         leaves' shapes (made on the meta device: no memory, no draw)."""
         if self.method.trains_base:
-            base = transformer.init_params(torch.Generator(), self.cfg,
-                                           "meta")
+            base = self._mod.init_params(torch.Generator(), self.cfg,
+                                         "meta")
             return sum(leaf.numel() for leaf in tree_leaves(base))
         return peft_mod.count_trainable(self.sites, self.peft)
 

@@ -40,7 +40,15 @@ from repro_torch.core import adapter as adapter_api
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.adapter import torch_dtype
 from repro_torch.devices import resolve_device, tree_to
-from repro_torch.models.registry import Model, add_time_dim, build
+from repro_torch.models.registry import (Model, add_time_dim, build,
+                                         resolve_default_targets)
+
+
+def _stays_factored(method, name: str) -> bool:
+    """Whether site `name` is applied factored even when its method's
+    weights are merged: the method cannot merge, or the site lies outside
+    the layer stack (zamba2's shared block)."""
+    return not method.mergeable or not name.startswith("layers/")
 
 
 @torch.no_grad()
@@ -59,7 +67,7 @@ def merge_for_serving(model: Model, params: Dict) -> Tuple[Model, Dict]:
     leftover = {}
     site_by_name = {s.name: s for s in model.sites}
     for name, ad in params["peft"].items():
-        if not name.startswith("layers/") or not method.mergeable:
+        if _stays_factored(method, name):
             leftover[name] = ad
             continue
         method.merge_site(layers, name.split("/")[-1], ad, site_by_name[name],
@@ -115,6 +123,7 @@ class AdapterBank:
         self.capacity = capacity
         self.zero_row = capacity
         self.checkpoint_dir = checkpoint_dir
+        self._cfg = model.cfg
         self.profiles: Dict[str, PEFTConfig] = {}
         self._bank_sites: Dict[str, List] = {}
         self.params: Dict[str, Dict] = {}
@@ -130,6 +139,7 @@ class AdapterBank:
                 raise ValueError(f"method {mname!r} has no adapter state")
             if prof.method != mname:
                 prof = prof.replace(method=mname)
+            prof = resolve_default_targets(prof, model.cfg)
             sites = [s for s in model.sites
                      if s.name.startswith("layers/")
                      and s.name.split("/")[-1] in prof.target_modules]
@@ -181,6 +191,7 @@ class AdapterBank:
     def matches(self, peft: PEFTConfig) -> bool:
         """Whether a tenant of config `peft` can join its method's group."""
         prof = self.profiles.get(peft.method)
+        peft = resolve_default_targets(peft, self._cfg)
         return prof is not None and \
             self._profile_key(peft) == self._profile_key(prof)
 
@@ -219,6 +230,7 @@ class AdapterBank:
             raise KeyError(f"no bank group for method {peft.method!r}; "
                            f"groups: {sorted(self.profiles)}")
         prof = self.profiles[peft.method]
+        peft = resolve_default_targets(peft, self._cfg)
         if self._profile_key(peft) != self._profile_key(prof):
             raise ValueError(
                 f"adapter {adapter_id!r} config {self._profile_key(peft)} "
@@ -387,10 +399,15 @@ class Engine:
                 self.device).validate()
         if merge:
             model, params = merge_for_serving(model, params)
-        if params.get("peft") and (model.peft.strategy != "merged"
-                                   or not model.method.mergeable):
-            params = {**params, "peft": peft_mod.with_frozen_tables(
-                params["peft"], model.sites, model.peft)}
+        # the sites every call applies factored: all of them under the
+        # factored strategy, else those `_stays_factored` names
+        factored = {name: ad for name, ad in params.get("peft", {}).items()
+                    if model.peft.strategy != "merged"
+                    or _stays_factored(model.method, name)}
+        if factored:
+            params = {**params, "peft": {
+                **params["peft"], **peft_mod.with_frozen_tables(
+                    factored, model.sites, model.peft)}}
         if bank is not None:
             model = dataclasses.replace(model, bank_profiles=profiles)
         self.model, self.params = model, params

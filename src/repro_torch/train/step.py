@@ -1,7 +1,7 @@
 """Train-step factory: PEFT-filtered gradients, microbatch accumulation,
 anomaly-guarded updates (the JAX package's `train/step.py`, without the
 mesh placement and the int8 error-feedback compression, which come with
-the distributed slice, ROADMAP queue 9).
+the distributed slice, ROADMAP queue 1: Distributed).
 
 Parameters are split into (trainable, frozen). Gradients are taken with
 `torch.autograd.grad` w.r.t. the trainable leaves only: the frozen base
@@ -62,7 +62,7 @@ def _check_supported(tcfg: TrainConfig) -> None:
     if tcfg.grad_compression != "none":
         raise NotImplementedError(
             f"grad_compression={tcfg.grad_compression!r} comes with the "
-            "distributed slice (ROADMAP queue 9)")
+            "distributed slice (ROADMAP queue 1: Distributed)")
 
 
 def init_state(model: Model, tcfg: TrainConfig, seed: int,

@@ -108,13 +108,23 @@ def test_config_and_reduced_equal_jax(arch):
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-2.7b"])
 def test_ssm_and_hybrid_archs_still_refused(arch):
-    with pytest.raises(NotImplementedError, match="SSM/hybrid"):
-        configs.get(arch)
-    cfg = jax_configs.reduced(jax_configs.get(arch))
-    port_cfg = configs.reduced(configs.get("yi-6b")).replace(
-        family=cfg.family)
-    with pytest.raises(NotImplementedError, match="SSM/hybrid"):
-        build(port_cfg)
+    """The recurrent families are ported (tests/test_torch_ssm.py and
+    tests/test_torch_hybrid.py hold them to JAX): their configs equal
+    JAX's and their models build and serve lockstep. What both packages
+    still refuse them is the per-slot cache, so the continuous scheduler
+    raises, as JAX's does."""
+    assert dataclasses.asdict(configs.get(arch)) == dataclasses.asdict(
+        jax_configs.get(arch))
+    jcfg, tcfg = _cfgs(arch)
+    model = build(tcfg)
+    assert not model.supports_slot_cache
+    assert not jax_build(jcfg).supports_slot_cache
+    engine = Engine(model, model.init(0, "cpu"), batch_slots=2, max_len=16,
+                    device="cpu")
+    assert len(engine.generate([torch.arange(3, dtype=torch.int32)],
+                               max_new=2)[0]) == 2
+    with pytest.raises(NotImplementedError):
+        ContinuousScheduler(engine)
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)

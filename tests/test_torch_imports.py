@@ -46,8 +46,10 @@ def test_no_jax_and_no_reference_package(path):
 def test_walk_covers_the_family_modules():
     walked = {str(p.relative_to(ROOT)) for p in _port_files()}
     for rel in ("models/moe.py", "models/attention.py", "models/common.py",
+                "models/mamba2.py", "models/ssm_lm.py", "models/zamba2.py",
                 "configs/olmoe_1b_7b.py", "configs/phi3_5_moe.py",
-                "configs/musicgen_medium.py", "configs/qwen2_vl_72b.py"):
+                "configs/musicgen_medium.py", "configs/qwen2_vl_72b.py",
+                "configs/mamba2_2_7b.py", "configs/zamba2_7b.py"):
         assert f"src/repro_torch/{rel}" in walked
 
 
@@ -94,8 +96,12 @@ def test_unported_paths_are_rejected():
         train_step.make_train_step(model,
                                    TrainConfig(grad_compression="int8_ef"))
     for arch in ("zamba2-7b", "mamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="SSM/hybrid"):
-            configs.get(arch)
+        # the recurrent families build; their per-slot and paged caches do
+        # not exist (in the JAX package neither)
+        tiny = build(configs.reduced(configs.get(arch)), PEFTConfig(n=16))
+        with pytest.raises(NotImplementedError, match="per-slot cache"):
+            tiny.init_cache(2, 32, torch.float32, "cpu", paged=True,
+                            n_pages=4)
     with pytest.raises(ValueError, match="interpret"):
         build(model.cfg, PEFTConfig(kernel_backend="interpret"))
     with pytest.raises(ValueError, match="device"):
