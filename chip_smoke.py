@@ -317,9 +317,32 @@ no result line:
               prints cold and warm ms, tokens/s and peak memory. The
               phase is `chip_smoke.ssm_phase`, rehearsable on the CPU at
               reduced configs as phase 18 is.
+20. analysis — the static analyzer (`repro_torch.analysis`) on the card:
+              (a) `kernel_audit.run()` and `audit_device` (every
+              shared-memory request against the card's opt-in shared
+              memory per block, printed), then K1/K2 and K4/K5 at the
+              edges their `accepts` admits (d2 = the largest width <=
+              MAX_D2 with odd prime factors <= MAX_RADIX, d1 = MAX_D1,
+              n = MAX_N; L 1) and K3 at head_dim 256 in bf16 and f32, each
+              held to its plain version at phases 3-5's and 9-10's
+              tolerances and bitwise on a second launch; one shape past
+              each limit refused at resolution (and by the wrappers),
+              naming the limit. (b) the dispatch lint at full width
+              (yi-6b, bf16, FourierFT n 1000, α 300 on wq/wv): 3 train
+              steps of 2 x 64 at SLICE_LAYERS (K1/K2 2 a step) and phase
+              7's trace through the paged scheduler at all 32 layers (K3 =
+              decode steps x 32), host transfers a step with the ops and
+              source lines behind them, the same rounds counted by
+              `torch.cuda.set_sync_debug_mode("warn")` (they must agree),
+              the findings gated against the committed baseline. (c)
+              `python -m repro_torch.launch.serve --arch yi-6b
+              --continuous --analyze` in a subprocess: exit 0, `analyze:
+              recompile audit clean` and the signature counts. The phase
+              is `chip_smoke.analysis_phase`, rehearsable on the CPU at
+              reduced configs
+              (tests/test_torch_analysis.py::test_analysis_phase_rehearses_on_the_cpu).
 15. kernels — one JSON line with each kernel's launches (by path, phases
-              16's, 17's, 18's and 19's included), error and times;
-              printed last.
+              16's to 20's included), error and times; printed last.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -344,6 +367,9 @@ TRAIN_STEPS_19 = 6                    # phase 19's train steps: 1 cold, 5 warm
 # or that has one coefficient at a wrong frequency exceeds it
 REL_TO_PLAIN = 1e-5
 TRAIN_STEPS, MICROBATCH = 6, 2
+# what torch.cuda.set_sync_debug_mode("warn") says at each synchronizing
+# operation (its one-time notice that the mode is a prototype is not one)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def fail(msg: str) -> int:
@@ -2954,6 +2980,306 @@ def ssm_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
     return out
 
 
+def fft_edges():
+    """(limit, d1, d2, n) of the FFT-structured kernels' edges: d2 the
+    largest width <= MAX_D2 whose odd prime factors are <= MAX_RADIX, d1 =
+    MAX_D1, n = MAX_N, each with the other dims small."""
+    from repro_torch.kernels import fft_plan
+    d2 = fft_plan.MAX_D2
+    while True:
+        try:
+            fft_plan.factor(d2)
+            break
+        except ValueError:
+            d2 -= 1
+    return (("d2", 64, d2, 64), ("d1", fft_plan.MAX_D1, 64, 64),
+            ("n", 256, 256, fft_plan.MAX_N))
+
+
+def analysis_phase(dev, cfgs, sizes, sync, set_sync_debug, launcher_argv
+                   ) -> dict:
+    """Phase 20 (module docstring) on `dev`. `cfgs` holds the train model's
+    config ("train", yi-6b at SLICE_LAYERS) and the serving one's
+    ("serve", all 32 layers); `sizes` the train batch ("train": (B, S,
+    steps)) and the serving geometry ("serve": (slots, max_len, page,
+    requests, max_new, arrival gap)); `sync` waits for the card;
+    `set_sync_debug(mode)` is torch.cuda.set_sync_debug_mode;
+    `launcher_argv` the argv of 20c's `launch.serve --analyze`. Returns
+    the main path's launches and the lint's figures; raises PhaseError
+    when a check fails."""
+    import warnings
+
+    import torch
+    from repro_torch.analysis import ast_lint, graphs, kernel_audit, report
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.core.fourierft import sample_entries
+    from repro_torch.kernels import api
+    from repro_torch.kernels import dct_deltaw as ddk
+    from repro_torch.kernels import fft_plan
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    from repro_torch.launch.serve import demo_prompts, demo_trace
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    baseline = report.load_baseline()
+    findings = ast_lint.lint_package()
+
+    # ---- a. the audit on the card, and each kernel at its edges -------------
+    optin = kernel_audit.device_smem_optin(dev)
+    audit = kernel_audit.run() + kernel_audit.audit_device(dev)
+    findings += audit
+    print(f"[analysis] kernel audit: {len(audit)} finding(s), shared memory "
+          f"a block may request on this card {optin} B (fft_plan "
+          f"{fft_plan.SMEM_BYTES}, K3 {pak.CAPS['smem_bytes']}); derived "
+          f"fourier {kernel_audit.derived_fft_limits(fft_plan.FOURIER_CAPS)}, "
+          f"K3 {kernel_audit.derived_k3(pak.CAPS)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    alpha = 300.0
+    for limit, d1, d2, n in fft_edges():
+        entries = sample_entries(d1, d2, n, seed=7).to(dev)
+        u, v = padded_entries(entries, n, fdk.NC)
+        c = torch.zeros((1, u.shape[0]), dtype=torch.float32, device=dev)
+        c[:, :n] = torch.randn((1, n), generator=gen, device=dev)
+        g = torch.randn((1, d1, d2), generator=gen, device=dev)
+        for tag, mod in (("K1", fdk), ("K4", ddk)):
+            got = mod.deltaw(c, u, v, d1, d2, alpha)
+            again = mod.deltaw(c, u, v, d1, d2, alpha)
+            ref = mod.deltaw_reference(c, u, v, d1, d2, alpha)
+            sync()
+            diff = (got - ref).abs()
+            err, scale = float(diff.max()), float(ref.abs().max())
+            bad = (err > min(2e-4, REL_TO_PLAIN * scale)) if tag == "K1" \
+                else bool((diff > 2e-5 + 1e-5 * ref.abs()).any())
+            if bad or not torch.isfinite(got).all():
+                raise PhaseError(f"analysis: {tag} at the {limit} edge "
+                                 f"{d1}x{d2} n={n}: max |kernel - plain| "
+                                 f"{err:.3e} (max |plain| {scale:.3e})")
+            if not torch.equal(got, again):
+                raise PhaseError(f"analysis: {tag} at the {limit} edge: two "
+                                 "launches gave different bits")
+            print(f"[analysis] {tag} at the {limit} edge {d1}x{d2} n={n}: "
+                  f"max_abs_err {err:.3e} ({err / max(scale, 1e-30):.2e} of "
+                  "max |plain|), bit-identical on a second launch")
+        for tag, mod in (("K2", fdk), ("K5", ddk)):
+            got = mod.dc(g, u, v, d1, d2, alpha)
+            again = mod.dc(g, u, v, d1, d2, alpha)
+            ref = mod.dc_reference(g, u, v, d1, d2, alpha)
+            sync()
+            diff = (got - ref).abs()
+            err, scale = float(diff.max()), float(ref.abs().max())
+            bad = (bool((diff > 2e-3 + 1e-4 * ref.abs()).any())
+                   or err > REL_TO_PLAIN * scale) if tag == "K2" \
+                else bool((diff > 1e-4 + 1e-3 * ref.abs()).any())
+            if bad or not torch.isfinite(got).all():
+                raise PhaseError(f"analysis: {tag} at the {limit} edge "
+                                 f"{d1}x{d2} n={n}: max |kernel - plain| "
+                                 f"{err:.3e} (max |plain| {scale:.3e})")
+            if not torch.equal(got, again):
+                raise PhaseError(f"analysis: {tag} at the {limit} edge: two "
+                                 "launches gave different bits")
+            print(f"[analysis] {tag} at the {limit} edge {d1}x{d2} n={n}: "
+                  f"max_abs_err {err:.3e} ({err / max(scale, 1e-30):.2e} of "
+                  "max |plain|), bit-identical on a second launch")
+        del g, c, got, again, ref, diff
+    # K3 at the widest head class, ragged kv_len, G = 4
+    B, H, K, dh, ps, pps = 2, 8, 2, pak.MAX_HEAD_DIM, 16, 8
+    bt = torch.arange(B * pps, dtype=torch.int32,
+                      device=dev).reshape(B, pps) + 1
+    kv_len = torch.tensor([pps * ps - 3, 37], dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, 1, H, dh), generator=gen, device=dev).to(dtype)
+        kp = torch.randn((B * pps + 1, ps, K, dh), generator=gen,
+                         device=dev).to(dtype)
+        vp = torch.randn((B * pps + 1, ps, K, dh), generator=gen,
+                         device=dev).to(dtype)
+        got = pak.paged_attention(q, kp, vp, bt, kv_len)
+        again = pak.paged_attention(q, kp, vp, bt, kv_len)
+        ref = pak.paged_attention_reference(q.float(), kp.float(),
+                                            vp.float(), bt, kv_len)
+        sync()
+        share = float(((got.float() - ref).abs()
+                       / pak.agreement_limit(ref, dtype)).max())
+        if share > 1.0 or not torch.isfinite(got.float()).all():
+            raise PhaseError(f"analysis: K3 at head_dim {dh} {dtype}: "
+                             f"{share:.3f} of agreement_limit")
+        if not torch.equal(got, again):
+            raise PhaseError(f"analysis: K3 at head_dim {dh} {dtype}: two "
+                             "launches gave different bits")
+        print(f"[analysis] K3 at head_dim {dh}, {dtype}: {share:.3f} of "
+              "agreement_limit, bit-identical on a second launch")
+    # one shape past each limit is refused, naming the limit: the audit's
+    # probes, just past the declared limits and past the derived ones
+    probes = sorted({p for lim in (
+        kernel_audit.declared_fft_limits(),
+        kernel_audit.derived_fft_limits(fft_plan.FOURIER_CAPS))
+        for p in kernel_audit.fft_probes(lim)})
+    past = [(method, d1, d2_, n, str(getattr(fft_plan, name)))
+            for method in ("fourierft", "dct")
+            for name, d1, d2_, n in probes]
+    d2 = min(p[2] for p in probes if p[0] == "MAX_D2")
+    for method, d1, d2_, n, name in past:
+        try:
+            api.resolve_op("deltaw", method, PEFTConfig(method=method, n=n),
+                           d1, d2_, device="cuda")
+        except api.KernelUnavailableError as e:
+            if name not in str(e):
+                raise PhaseError(f"analysis: {method} {d1}x{d2_} n={n} "
+                                 f"refused without naming {name}: {e}")
+        else:
+            raise PhaseError(f"analysis: {method} {d1}x{d2_} n={n} was "
+                             "not refused")
+    try:
+        api.resolve_op("paged_attention", pak.OWNER, None, K,
+                       pak.MAX_HEAD_DIM + 1, device="cuda",
+                       dtype=torch.bfloat16)
+    except api.KernelUnavailableError as e:
+        if str(pak.MAX_HEAD_DIM) not in str(e):
+            raise PhaseError(f"analysis: K3 refused head_dim "
+                             f"{pak.MAX_HEAD_DIM + 1} without naming the "
+                             f"limit: {e}")
+    else:
+        raise PhaseError("analysis: K3 took head_dim past MAX_HEAD_DIM")
+    if dev.type == "cuda":
+        # the wrappers refuse too, before any launch
+        e16 = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+        for call, name in (
+                (lambda: fdk.deltaw(torch.zeros((1, 16), device=dev),
+                                    e16[0], e16[1], 64, d2, alpha),
+                 str(fft_plan.MAX_D2)),
+                (lambda: pak.paged_attention(
+                    torch.zeros((1, 1, 2, 264), device=dev),
+                    torch.zeros((2, 16, 2, 264), device=dev),
+                    torch.zeros((2, 16, 2, 264), device=dev),
+                    torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                    torch.ones((1,), dtype=torch.int32, device=dev)),
+                 str(pak.MAX_HEAD_DIM))):
+            try:
+                call()
+            except ValueError as e:
+                if name not in str(e):
+                    raise PhaseError(f"analysis: a wrapper refused without "
+                                     f"naming {name}: {e}")
+            else:
+                raise PhaseError(f"analysis: a wrapper launched past {name}")
+    print(f"[analysis] {len(past) + 1} shapes past the limits refused at "
+          "resolution, each naming its limit")
+
+    # ---- b. the dispatch lint at full width -----------------------------------
+    peft = PEFTConfig(method="fourierft", n=1000, alpha=300.0)
+    tcfg_model = build(cfgs["train"], peft)
+    tparams = tcfg_model.init(0, dev)
+    B_, S_, steps = sizes["train"]
+    bs = synthetic_batches(dev, cfgs["train"], B_, S_, steps)
+    zero_counts()
+    tf, trec = graphs.lint_train(tcfg_model, tparams, bs, dev)
+    sync()
+    tl = launch_counts()
+    if tl["K1"] != 2 * steps or tl["K2"] != 2 * steps:
+        raise PhaseError(f"analysis: the linted train step launched K1 "
+                         f"{tl['K1']} and K2 {tl['K2']} times in {steps} "
+                         "steps, expected 2 a step each")
+    ts = trec.summary("train_step")
+    print(f"[analysis] train step ({cfgs['train'].name}, "
+          f"{cfgs['train'].num_layers} layers, B {B_} x S {S_}): "
+          f"{ts['ops_per_region']:.0f} aten ops and "
+          f"{ts['transfers_per_region']:g} host transfers a step "
+          f"{json.dumps(ts['transfers'])}; K1 {tl['K1']}, K2 {tl['K2']}")
+    findings += tf
+    del tcfg_model, tparams, bs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    slots, max_len, page, n_req, max_new, gap = sizes["serve"]
+    smodel = build(cfgs["serve"], peft)
+    sparams = smodel.init(0, dev)
+    zero_counts()
+    engine = Engine(smodel, sparams, batch_slots=slots, max_len=max_len,
+                    device=dev)
+    prompts = demo_prompts(cfgs["serve"], slots)
+    reqs, arrivals = demo_trace(prompts, n_req, max_new, gap)
+    caught_at = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        set_sync_debug("warn")
+        try:
+            sf, srec, sched = graphs.lint_serve(
+                engine, reqs, "serve/paged", dev, arrivals=arrivals,
+                page_size=page,
+                on_round=lambda evs: caught_at.append(sum(
+                    str(w.message).startswith(SYNC_WARNING)
+                    for w in caught)))
+        finally:
+            set_sync_debug("default")
+    sync()
+    sl = launch_counts()
+    steps_s = sched.metrics.steps
+    layers = cfgs["serve"].num_layers
+    if sl["K3"] != steps_s * layers or sl["K1"] < 1:
+        raise PhaseError(f"analysis: the linted replay launched K3 "
+                         f"{sl['K3']} times ({steps_s} decode steps x "
+                         f"{layers} layers expected), K1 {sl['K1']}")
+    for i, r in enumerate(reqs):
+        if r.out is None or len(r.out) != r.max_new:
+            raise PhaseError(f"analysis: request {i} emitted {r.out!r}")
+    lint_rounds = [r.n_transfers for r in srec.regions]
+    debug_rounds = [b - a for a, b in zip([0] + caught_at[:-1], caught_at)]
+    ds, adm = srec.summary("serve/paged/decode"), \
+        srec.summary("serve/paged/admit")
+    print(f"[analysis] decode replay ({cfgs['serve'].name}, {layers} layers, "
+          f"{slots} slots, {len(reqs)} requests, {steps_s} decode steps): "
+          f"{ds['regions']} decode rounds, {ds['ops_per_region']:.0f} aten "
+          f"ops and {ds['transfers_per_region']:g} host transfers a round "
+          f"{json.dumps(ds['transfers'])}; {adm['regions']} admitting "
+          f"rounds, {adm['transfers_per_region']:g} a round "
+          f"{json.dumps(adm['transfers'])}; K1 {sl['K1']}, K3 {sl['K3']}")
+    print(f"[analysis] synchronizations a round, lint / "
+          f"set_sync_debug_mode: {lint_rounds} / {debug_rounds}")
+    if dev.type == "cuda" and lint_rounds != debug_rounds:
+        raise PhaseError("analysis: the lint and set_sync_debug_mode('warn') "
+                         "count different synchronizations")
+    sigs = sched.compiled_signatures()
+    print(f"[analysis] compiled signatures {sigs}, bounds "
+          f"{sched.expected_compile_bounds()}")
+    findings += sf
+    out["launches"]["analysis"] = {"K1": tl["K1"] + sl["K1"],
+                                   "K2": tl["K2"], "K3": sl["K3"]}
+    out["train_transfers_per_step"] = ts["transfers_per_region"]
+    out["decode_transfers_per_step"] = ds["transfers_per_region"]
+    out["sync_debug_rounds"] = debug_rounds
+    del engine, sched, smodel, sparams
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(report.render(findings, baseline))
+    if report.gate(findings, baseline):
+        raise PhaseError("analysis: new findings against the baseline")
+
+    # ---- c. the analyzing launcher at full width ------------------------------
+    root = Path(__file__).resolve().parent
+    env = dict(__import__("os").environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *launcher_argv],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("analyze:")]
+    for ln in lines:
+        print(f"[analysis] launcher: {ln}")
+    if proc.returncode != 0 or "analyze: recompile audit clean" not in lines:
+        raise PhaseError(f"analysis: launch.serve {' '.join(launcher_argv)} "
+                         f"exited {proc.returncode}: "
+                         f"{proc.stderr[-2000:]}{proc.stdout[-2000:]}")
+    out["launcher_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[analysis] launcher took {out['launcher_s']:.1f} s; phase 20 "
+          f"took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3937,6 +4263,21 @@ def main() -> int:
         return fail(str(e))
     sl = ssm["launches"]
 
+    # ---- 20. analysis: the audit, the dispatch lint and --analyze ----------
+    torch.cuda.empty_cache()
+    print(f"[memory] before phase 20: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    try:
+        ana = analysis_phase(
+            dev, {"train": configs.get("yi-6b").replace(
+                num_layers=SLICE_LAYERS), "serve": configs.get("yi-6b")},
+            {"train": (2, 64, 3), "serve": (slots, max_len, ps, 8, 16, 2.0)},
+            torch.cuda.synchronize, torch.cuda.set_sync_debug_mode,
+            ["--arch", "yi-6b", "--continuous", "--analyze"])
+    except PhaseError as e:
+        return fail(str(e))
+    al = ana["launches"]["analysis"]
+
     # ---- 15. kernels line (printed last) ------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
@@ -3953,7 +4294,8 @@ def main() -> int:
                               "ssm_train": sl["ssm_train"]["K1"],
                               "ssm_merge": sl["ssm_merge"]["K1"],
                               "hybrid_train": sl["hybrid_train"]["K1"],
-                              "hybrid_merge": sl["hybrid_merge"]["K1"]},
+                              "hybrid_merge": sl["hybrid_merge"]["K1"],
+                              "analysis": al["K1"]},
          "family_shapes": k1_family,
          "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -3970,7 +4312,8 @@ def main() -> int:
                               "paper_train": paper["llama_train"]["K2"],
                               "families_train": fam_k2_train,
                               "ssm_train": sl["ssm_train"]["K2"],
-                              "hybrid_train": sl["hybrid_train"]["K2"]},
+                              "hybrid_train": sl["hybrid_train"]["K2"],
+                              "analysis": al["K2"]},
          "family_shapes": k2_family,
          "max_abs_err": k2["err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -3995,7 +4338,8 @@ def main() -> int:
                                   n for k_, n in tiering["k3"].items()
                                   if k_ != "gateway"),
                               "gateway_serve": tiering["k3"]["gateway"],
-                              "families_serve": fam_k3},
+                              "families_serve": fam_k3,
+                              "analysis": al["K3"]},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

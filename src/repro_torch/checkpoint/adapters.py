@@ -52,6 +52,7 @@ def export_adapter(directory: str, adapter_id: str, adapters: Dict,
     Only the method's trainable leaves are stored."""
     _check_id(adapter_id)
     trainable = set(adapter_api.resolve(peft.method).trainable_leaves(peft))
+    # repro: allow(host-sync) — an export writes the leaves to disk
     arrays = {f"{site}{_SEP}{leaf}": v.detach().cpu().numpy()
               for site, tree in adapters.items()
               for leaf, v in tree.items() if leaf in trainable}

@@ -40,6 +40,7 @@ _EXT_BY_TORCH = {v[2]: k for k, v in _EXT_DTYPES.items()}
 
 def _encode(t: torch.Tensor):
     """-> (numpy array owning a host copy, ext dtype name or None)."""
+    # repro: allow(host-sync) — a checkpoint save writes host bytes
     t = t.detach().to("cpu", copy=True)
     name = _EXT_BY_TORCH.get(t.dtype)
     if name:

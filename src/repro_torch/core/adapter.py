@@ -60,6 +60,7 @@ from repro_torch.configs.base import PEFTConfig
 from repro_torch.core import basis as basis_mod
 from repro_torch.core import fourierft, lora
 from repro_torch.kernels import api as kernel_api
+from repro_torch.kernels import fft_plan
 from repro_torch.kernels.api import KernelOp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -243,7 +244,6 @@ def _fft_plan_accepts(d1, d2, peft, dtype=None):
     """The FFT-structured ΔW kernels' shape limits (K1/K2 and K4/K5 share
     `kernels.fft_plan`): the plan's own checks, at n padded to the
     kernels' chunk as the autograd harness pads it."""
-    from repro_torch.kernels import fft_plan
     from repro_torch.kernels.fourier_deltaw import NC
     n = -(-peft.n // NC) * NC if peft is not None else 0
     try:
@@ -338,7 +338,7 @@ class FourierFT(AdapterMethod):
             KernelOp("deltaw", self.name, "einsum", _fourier_deltaw_einsum),
             KernelOp("deltaw", self.name, "cuda", _fourier_deltaw_cuda,
                      devices=("cuda",), requires=_fourier_basis_only,
-                     accepts=_fft_plan_accepts,
+                     accepts=_fft_plan_accepts, caps=fft_plan.FOURIER_CAPS,
                      note="K1: row FFTs in shared memory "
                           "(csrc/fourier_deltaw.cu)"),
             KernelOp("deltaw", self.name, "cuda", _basis_deltaw_matmul,
@@ -456,6 +456,7 @@ class DCTAdapter(AdapterMethod):
             KernelOp("deltaw", self.name, "einsum", _dct_deltaw_einsum),
             KernelOp("deltaw", self.name, "cuda", _dct_deltaw_cuda,
                      devices=("cuda",), accepts=_fft_plan_accepts,
+                     caps=fft_plan.DCT_CAPS,
                      note="DCT rows as FFTs in shared memory "
                           "(csrc/dct_deltaw.cu on fft_rows.cuh)"),
             KernelOp("factored_apply", self.name, "einsum",

@@ -1,2 +1,4 @@
 """Step-keyed synthetic data (`synthetic`)."""
-from repro_torch.data.synthetic import SyntheticLM  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    SyntheticClassification, SyntheticLM,
+)

@@ -1,5 +1,5 @@
 """Deterministic, seekable synthetic data (the JAX package's
-`data/synthetic.py`, `SyntheticLM`).
+`data/synthetic.py`: `SyntheticLM` and `SyntheticClassification`).
 
 Every batch is a pure function of (seed, step): any host can regenerate any
 shard of any step after a restart, with no iterator state to checkpoint.
@@ -21,10 +21,12 @@ batch is drawn in milliseconds.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.devices import resolve_device
 
 FANOUT = 512
 
@@ -89,3 +91,37 @@ class SyntheticLM:
             labels = np.repeat(labels[..., None], self.codebooks, axis=-1)
         return {"tokens": torch.from_numpy(np.ascontiguousarray(tokens)),
                 "labels": torch.from_numpy(np.ascontiguousarray(labels))}
+
+
+@dataclass
+class SyntheticClassification:
+    """K-class Gaussian-blob classification (paper Appendix C.2 setting).
+    The JAX package draws these with numpy too, so at the same seed the
+    arrays are the same bits."""
+    num_classes: int = 8
+    dim: int = 2
+    noise: float = 0.4
+    seed: int = 0
+
+    def dataset(self, n_per_class: int = 64,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(x (K·n, dim) f32, y (K·n,) int32), shuffled, on `device` (the
+        card unless the caller names another)."""
+        dev = resolve_device(device)
+        rng = np.random.default_rng(self.seed)
+        angles = np.linspace(0, 2 * np.pi, self.num_classes, endpoint=False)
+        centers = np.stack([np.cos(angles), np.sin(angles)], -1) * 2.0
+        if self.dim > 2:
+            centers = np.concatenate(
+                [centers, np.zeros((self.num_classes, self.dim - 2))], -1)
+        xs, ys = [], []
+        for c in range(self.num_classes):
+            xs.append(centers[c] + rng.normal(size=(n_per_class, self.dim))
+                      * self.noise)
+            ys.append(np.full(n_per_class, c))
+        x = np.concatenate(xs).astype(np.float32)
+        y = np.concatenate(ys).astype(np.int32)
+        perm = rng.permutation(len(y))
+        return (torch.from_numpy(x[perm]).to(dev),
+                torch.from_numpy(y[perm]).to(dev))

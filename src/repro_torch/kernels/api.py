@@ -74,7 +74,14 @@ class KernelOp:
     (d1, d2) is the site (deltaw) or (kv heads, head_dim) (paged_attention),
     `peft` may be None and `dtype` is the tensors' dtype or None (not
     known). A CUDA-resident site beyond them is refused at resolution,
-    naming the limit; nothing degrades to the plain version."""
+    naming the limit; nothing degrades to the plain version.
+
+    `caps` is the hand-written kernel's capability record: what its C side
+    assumes (the width and signedness of its phase products, the shared
+    memory a block may request, what sits in it, the sizes of its register
+    arrays and template instances). `analysis.kernel_audit` re-derives the
+    shape limits `accepts` enforces from it and checks it against the
+    sources; an op without caps has nothing to verify."""
     op: str
     method: str
     backend: str
@@ -83,6 +90,7 @@ class KernelOp:
     requires: Optional[Callable] = None
     accepts: Optional[Callable] = None
     note: str = ""
+    caps: Optional[Dict] = None
 
     def supports(self, d1: int, d2: int, peft=None, device: str = "cpu",
                  dtype: Optional[torch.dtype] = None) -> Tuple[bool, str]:
@@ -147,6 +155,17 @@ def ensure_method(method) -> None:
     for op in ops:
         register_kernel_op(op)
     _ENSURED.add(m.name)
+
+
+def all_ops() -> Tuple[KernelOp, ...]:
+    """Every registered route, after collecting the declarations of every
+    registered adapter method and of the paged-attention owner."""
+    from repro_torch.core import adapter as adapter_api
+    from repro_torch.kernels import paged_attention
+    for name in adapter_api.registered_methods():
+        ensure_method(name)
+    ensure_method(paged_attention.OWNER)
+    return tuple(op for routes in _OPS.values() for op in routes)
 
 
 def ops_for(method) -> Tuple[str, ...]:

@@ -54,6 +54,30 @@ TARGET_BYTES = 32_768           # shared memory per block when d2 is small
 MAX_PAIRS = 8
 K2_ROW_BLOCKS = 512             # partial sums per entry and layer, at most
 
+# What the C side of the FFT-structured kernels assumes (KernelOp.caps;
+# analysis/kernel_audit.py derives MAX_D2, MAX_D1, MAX_N and MAX_RADIX from
+# it and holds it against csrc/fft_rows.cuh and csrc/fft_smem.cuh):
+#   phase:            "linear" — K1/K2's row phase (j·u) mod d1, j, u < d1;
+#                     "half" — K4/K5's ((2j+1)·u) mod 4·d1, u < 4·d1
+#   phase_bits, phase_signed: the integer type of that one product
+#                     (unsigned 32-bit j·u; a 64-bit product for the DCT)
+#   accum_bits:       the running phase p += step, p and step < the modulus
+#   smem_bytes:       the dynamic shared memory a block may request
+#   point_bytes:      one transform point (a complex f32)
+#   scatter_entry_bytes, scatter_static_bytes: the scatter plan's 2n ints
+#                     per entry and its static part[SORT_THREADS] ints
+#   entry_chunk:      n is padded to a multiple of this (NC)
+#   odd_radix_regs:   the generic odd stage's local array (FFT_MAX_ODD)
+#   max_stages:       the C side's FftPlan arrays (FFT_MAX_STAGES)
+_CAPS = {"kind": "fft_rows", "smem_bytes": SMEM_BYTES, "point_bytes": 8,
+         "scatter_entry_bytes": 8, "scatter_static_bytes": 4 * 1024,
+         "entry_chunk": 16, "odd_radix_regs": 64, "max_stages": MAX_STAGES,
+         "accum_bits": 32}
+FOURIER_CAPS = {**_CAPS, "phase": "linear", "phase_bits": 32,
+                "phase_signed": False}
+DCT_CAPS = {**_CAPS, "phase": "half", "phase_bits": 64,
+            "phase_signed": False}
+
 
 @dataclass(frozen=True)
 class FftPlan:

@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.core.fourierft import fourier_bases, materialize_delta
+from repro_torch.devices import to_device
 from repro_torch.kernels import fft_plan as fp
 
 NC = 16                 # the kernels' chunk of entries: n must divide by it
@@ -115,6 +116,7 @@ def twiddles(d: int, dev: torch.device):
             code = lib.fourier_twiddles_launch(cos.data_ptr(), sin.data_ptr(),
                                                d, stream.cuda_stream)
             build.check(code, "fourier_twiddles_launch")
+            # repro: allow(host-sync) — once a table, at its first use
             stream.synchronize()
         _TWIDDLES[key] = (cos, sin)
     return _TWIDDLES[key]
@@ -132,9 +134,9 @@ def fft_tables(d2: int, dev: torch.device):
     if key not in _FFT_TABLES:
         radices = fp.factor(d2)
         cos, sin = twiddles(d2, dev)
-        idx = torch.from_numpy(fp.stage_twiddles(radices)).to(dev)
+        idx = to_device(fp.stage_twiddles(radices), dev)
         tw = torch.stack([cos[idx], sin[idx]], dim=-1).contiguous()
-        pos = torch.from_numpy(fp.digit_reverse(radices)).to(dev)
+        pos = to_device(fp.digit_reverse(radices), dev)
         _FFT_TABLES[key] = (pos, tw)
     return _FFT_TABLES[key]
 

@@ -55,6 +55,17 @@ MAX_ROWS = {True: 64, False: 32}
 MIN_SPLIT_KEYS = 128    # a split covers at least this many key rows
 MAX_SPLITS = 64
 
+# What the C side assumes (KernelOp.caps; analysis/kernel_audit.py derives
+# MAX_HEAD_DIM, MAX_ROWS and the shared memory of every instance from it
+# and holds it against csrc/paged_attention.cu): `classes` are the
+# instances `dispatch` picks by head_dim, (head class, CHUNK key rows a
+# stage); f32 instances take at most `f32_max_rows` query rows (MAXR), bf16
+# ones an M tile of 16 rows per warp; a block requests `smem_bytes`.
+CAPS = {"kind": "paged_attention", "threads": 128, "smem_bytes": 232_448,
+        "off_slots": 4, "f32_max_rows": 32, "max_splits": 64,
+        "classes": {"bfloat16": ((64, 64), (128, 64), (256, 32)),
+                    "float32": ((64, 64), (128, 32), (256, 16))}}
+
 
 def paged_attention_reference(q, k_pages, v_pages, block_table, kv_len):
     """The plain version: gather the slot's logical window through the
@@ -337,7 +348,7 @@ class _PagedAttentionOwner:
                      paged_attention_reference,
                      note="block-table gather + dense ragged decode attn"),
             KernelOp("paged_attention", self.name, "cuda", paged_attention,
-                     devices=("cuda",), accepts=_cuda_accepts,
+                     devices=("cuda",), accepts=_cuda_accepts, caps=CAPS,
                      note="split-KV over pages, mma.sync bf16 / FP32 FMA, "
                           "fixed-order combine (csrc/paged_attention.cu)"),
         )

@@ -43,6 +43,11 @@ constrains the device page pool, and `--interactive-every N` marks every
 Nth request of the trace `interactive` (the rest stay `batch`, the JAX
 launcher's trace). The preemption and host-tier counters are printed.
 
+With `--continuous --analyze` it then prints the signatures each of the
+scheduler's dispatch points handed the model (`compiled_signatures`) and
+audits them against the scheduler's declared bounds, as the JAX launcher
+does: `analyze: recompile audit clean`, or the findings and exit 1.
+
     python -m repro_torch.launch.serve --arch yi-6b --continuous
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --device cpu
@@ -54,6 +59,7 @@ launcher's trace). The preemption and host-tier counters are printed.
         --speculative --drafter self --draft-k 4
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --speculative --drafter ngram --dense-cache --device cpu
+    python -m repro_torch.launch.serve --arch yi-6b --continuous --analyze
     python -m repro_torch.launch.serve --arch yi-6b --reduced --continuous \
         --preempt --n-pages 10 --page-size 8 --max-len 64 \
         --host-kv-pages 16 --interactive-every 3 --arrival-every 1 \
@@ -211,11 +217,19 @@ def main(argv=None):
     ap.add_argument("--interactive-every", type=int, default=0,
                     help="--continuous: every Nth request of the trace is "
                          "`interactive` (0: all `batch`)")
+    ap.add_argument("--analyze", action="store_true",
+                    help="--continuous: after the replay, audit the live "
+                         "scheduler's dispatch signature counts against its "
+                         "declared bounds (repro_torch.analysis recompile "
+                         "pass) and exit non-zero on any finding")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
 
+    if args.analyze and not args.continuous:
+        raise SystemExit("--analyze audits the continuous scheduler's "
+                         "signatures: it needs --continuous")
     cfg = configs.get(args.arch)
     if not cfg.embed_inputs:
         raise SystemExit(f"{cfg.name} takes embeddings (batch['embeds']), "
@@ -297,6 +311,17 @@ def main(argv=None):
         if tiering is not None:
             print("tiering: " + " ".join(
                 f"{k}={s[k + '_total']:.0f}" for k in TIERING_COUNTERS))
+        if args.analyze:
+            from repro_torch.analysis import dispatch_lint
+            found = dispatch_lint.scheduler_recompile_findings(sched)
+            sigs = sched.compiled_signatures()
+            print("analyze: compiled signatures "
+                  + ", ".join(f"{k}={v}" for k, v in sorted(sigs.items())))
+            for f in found:
+                print(f.render())
+            if found:
+                raise SystemExit(1)
+            print("analyze: recompile audit clean")
         return
     ids = None
     if bank is not None:
@@ -305,6 +330,7 @@ def main(argv=None):
     outs = engine.generate(prompts, max_new=args.max_new, adapter_ids=ids)
     for i, o in enumerate(outs):
         tag = f" [{ids[i]}]" if ids else ""
+        # repro: allow(host-sync-in-loop) — the demo prints its outputs
         print(f"prompt {i}{tag}: {o.tolist()}")
 
 

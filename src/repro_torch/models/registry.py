@@ -308,6 +308,12 @@ class Model:
                                              self.peft, device,
                                              self.bank_profiles)
 
+    def explain_kernels(self, device) -> str:
+        """Which kernel backend each targeted (site, op) resolves to on
+        `device`, rendered for humans (the JAX package's `explain_kernels`,
+        which resolves for its one platform; here the device decides)."""
+        return self.kernel_policy(device).explain()
+
     def trainable_params(self) -> int:
         """|Θ|: the adapters' count, or for `full` the base's, from its
         leaves' shapes (made on the meta device: no memory, no draw)."""

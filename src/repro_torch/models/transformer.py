@@ -49,6 +49,7 @@ from torch.utils import checkpoint as ckpt_util
 
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
+from repro_torch.devices import to_device
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -478,7 +479,7 @@ def reset_slots(cache: Dict, mask) -> Dict:
     pos = cache["pos"]
     if not torch.is_tensor(pos):
         raise ValueError("reset_slots needs a per-slot cache")
-    mask = torch.as_tensor(mask, dtype=torch.bool, device=pos.device)
+    mask = to_device(mask, pos.device, torch.bool)
     return {**cache, "pos": torch.where(mask, torch.zeros_like(pos), pos)}
 
 
@@ -493,8 +494,7 @@ def advance_pos(cache: Dict, delta) -> Dict:
     if isinstance(delta, numbers.Integral):
         moved = pos + int(delta)
     else:
-        moved = pos + torch.as_tensor(delta, dtype=pos.dtype,
-                                      device=pos.device)
+        moved = pos + to_device(delta, pos.device, pos.dtype)
     return {**cache, "pos": torch.clamp(moved, min=0)}
 
 
@@ -553,7 +553,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     cap = bt.shape[1] * ps
     true_len = batch.get("true_len")
     tlen = (true_len[0].to(torch.int64) if true_len is not None
-            else torch.tensor(T, dtype=torch.int64, device=dev))
+            else torch.full((), T, dtype=torch.int64, device=dev))
     # scatter targets: tail row j holds logical position prefix_len + j;
     # pad rows (j >= tlen) and overflow land in the slot's scratch page
     j = torch.arange(T, device=dev)
@@ -582,7 +582,8 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         pk[w_page, w_off] = k[0].to(pk.dtype)
         pv[w_page, w_off] = v[0].to(pv.dtype)
         x, _ = _mlp_block(lp, x, cfg, linear)
-    x = x[:, tlen - 1][:, None]
+    # a tensor index, not a 0-dim one (which the host would read)
+    x = x.index_select(1, (tlen - 1).reshape(1))
     next_tokens = _greedy(_logits(params, x, cfg))
     pos = cache["pos"]
     pos[int(batch["slot"])] = prefix_len + tlen.to(pos.dtype)

@@ -428,9 +428,8 @@ class PagedKVCache:
         if self.device is None:
             raise ValueError("PagedKVCache was built without a device")
         if self._device_bt is None:
-            import torch
-            self._device_bt = torch.as_tensor(self.block_tables,
-                                              device=self.device)
+            from repro_torch.devices import to_device
+            self._device_bt = to_device(self.block_tables, self.device)
         return self._device_bt
 
     def scratch_pages_device(self):

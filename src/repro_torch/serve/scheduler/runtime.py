@@ -74,6 +74,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.devices import to_device
 from repro_torch.serve.engine import BankFullError, Engine, Request
 from repro_torch.serve.paging import PagedKVCache, PrefixCache, PrimePlan
 from repro_torch.serve.scheduler.metrics import ServingMetrics
@@ -104,6 +105,19 @@ def _bucket(n: int, lo: int = 8) -> int:
     while b < n:
         b <<= 1
     return b
+
+
+def _signature(x):
+    """The shape/dtype signature of what a dispatch point hands the model
+    (tensors and arrays by shape and dtype, Python scalars by type, dicts
+    by their keys): the port's counterpart of a jit cache key."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return x.shape, x.dtype
+    if isinstance(x, dict):
+        return tuple(sorted((k, _signature(v)) for k, v in x.items()))
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    return type(x)
 
 
 def _weak_method(method):
@@ -210,6 +224,9 @@ class ContinuousScheduler:
         self._toks_dev: Optional[torch.Tensor] = None   # (B, 1) next inputs
         self._flag_dev: Optional[torch.Tensor] = None   # (B,) done-flags
         self._flag_prev: Optional[_HostFlag] = None     # last copy in flight
+        # the distinct signatures each dispatch point has handed the model
+        # (compiled_signatures)
+        self._sigs: Dict[str, set] = {}
         self.drafter = drafter
         if drafter is not None:
             drafter.bind(self)
@@ -311,6 +328,7 @@ class ContinuousScheduler:
         as its effective prompt and only its remaining budget left — the
         page totals and slot invariants of an unpreempted run at the same
         point."""
+        # repro: allow(host-sync) — prompts arrive on the host (a no-op)
         prompt = np.asarray(torch.as_tensor(sr.request.prompt).cpu(),
                             np.int32)
         if sr.resume is None:
@@ -375,7 +393,7 @@ class ContinuousScheduler:
         P = min(_bucket(n), self.max_len) if self.bucket else n
         padded = np.zeros((1, P), np.int32)
         padded[0, :n] = tokens
-        batch: Dict = {"tokens": torch.as_tensor(padded, device=self.device)}
+        batch: Dict = {"tokens": to_device(padded, self.device)}
         if P != n:
             batch["true_len"] = torch.full((1,), n, dtype=torch.int32,
                                            device=self.device)
@@ -388,7 +406,8 @@ class ContinuousScheduler:
         (advanced indexing copies): queued on the compute stream BEFORE the
         pages can be freed, so the gather reads their old contents even if
         a later prime reuses them."""
-        i = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        self._note("spill_pages", idx)
+        i = to_device(idx, self.device, torch.int64)
         return (self.cache["pk"].index_select(1, i),
                 self.cache["pv"].index_select(1, i))
 
@@ -398,7 +417,8 @@ class ContinuousScheduler:
         The host-to-device copy is queued on the compute stream (from
         pinned memory, without blocking the host), so it lands before the
         prime or decode that reads those pages."""
-        i = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        self._note("fill_pages", k, v, idx)
+        i = to_device(idx, self.device, torch.int64)
         for key, h in (("pk", k), ("pv", v)):
             pool = self.cache[key]
             pool.index_copy_(1, i, h.to(pool.device, non_blocking=True))
@@ -469,20 +489,22 @@ class ContinuousScheduler:
             scratch = self.model.init_cache(
                 1, int(batch["tokens"].shape[1]), self.cache["k"].dtype,
                 self.device)
-            nt, scratch = self.model.prefill(params, scratch, batch)
-            self.cache = self.model.write_slot(self.cache, scratch, slot,
-                                               int(prompt.shape[0]))
+            nt, scratch = self.dispatch("prefill", self.model.prefill, scratch,
+                                        batch, state=(params,))
+            self.cache = self.dispatch("write", self.model.write_slot, scratch,
+                                       slot, int(prompt.shape[0]),
+                                       state=(self.cache,))
             tok = int(nt.reshape(-1)[0])
             self.metrics.on_prime(sr.rid, time.perf_counter() - t0)
             return tok
         plan = self._plans.pop(sr.rid)
         if plan.cow is not None:
-            self.cache = self.model.copy_page(self.cache, *plan.cow)
+            self.cache = self.dispatch("copy_page", self.model.copy_page,
+                                       *plan.cow, state=(self.cache,))
         if plan.fills:
             self._promote_fills(plan, prompt)
         batch = self._bucketed_prompt(np.asarray(plan.tail, np.int32))
-        batch.update(block_table=torch.as_tensor(plan.block_row[None],
-                                                 device=self.device),
+        batch.update(block_table=to_device(plan.block_row[None], self.device),
                      slot=slot, scratch_page=plan.scratch_page)
         if plan.prefix_len:
             # warm prime: the attention window gathers only the pow2 bucket
@@ -490,11 +512,13 @@ class ContinuousScheduler:
             ps = self.pager.page_size
             wp = min(_bucket(-(-plan.prefix_len // ps), lo=1),
                      self.pager.pages_per_seq)
-            batch["window_table"] = torch.as_tensor(plan.block_row[None, :wp],
-                                                    device=self.device)
+            batch["window_table"] = to_device(plan.block_row[None, :wp],
+                                              self.device)
             batch["prefix_len"] = plan.prefix_len
         batch.update(extra)
-        nt, self.cache = self.model.prefill_paged(params, self.cache, batch)
+        nt, self.cache = self.dispatch("prefill_paged",
+                                       self.model.prefill_paged, batch,
+                                       state=(params, self.cache))
         tok = int(nt.reshape(-1)[0])
         # publish the prompt's chunks for sharing only past the host sync
         # above: a failed prime must not leave prefix-cache entries pointing
@@ -556,12 +580,14 @@ class ContinuousScheduler:
             idx = np.full((k.shape[1],), plan.scratch_page, np.int64)
             idx[:n_used] = plan.block_row[:n_used]
             self._fill_pages(k, v, idx)
-            self.cache["pos"][slot] = int(prompt.shape[0]) - 1
+            pos = self.cache["pos"]
+            self.dispatch("set_pos", lambda s, p: pos[s].fill_(p), slot,
+                          int(prompt.shape[0]) - 1)
             self.metrics.on_kv_fill(n_used)
             tok = self._outs[sr.rid][-1]
             self._last[slot] = tok
             if self._toks_dev is not None:
-                self._toks_dev[slot, 0] = tok
+                self._toks_dev[slot].fill_(tok)   # no host tensor to copy
             if self.drafter is not None:
                 self.drafter.on_prime(slot, prompt[:-1], tok)
             self.metrics.on_resume(sr.rid, self.t)
@@ -583,7 +609,7 @@ class ContinuousScheduler:
         if self._toks_dev is not None:
             # mid-buffer admission: in-flight slots' next tokens live only
             # on the device, so splice the new slot's first token in
-            self._toks_dev[slot, 0] = tok
+            self._toks_dev[slot].fill_(tok)
         if self.drafter is not None:
             self.drafter.on_prime(slot, prompt, tok)
         self.metrics.on_token(sr.rid, self.t)
@@ -732,7 +758,8 @@ class ContinuousScheduler:
         if stale:
             mask = np.zeros((self.n_slots,), bool)
             mask[list(stale)] = True
-            self.cache = self.model.reset_slots(self.cache, mask)
+            self.cache = self.dispatch("reset", self.model.reset_slots, mask,
+                                       state=(self.cache,))
 
     def _batch_inputs(self) -> Tuple[Dict, Dict]:
         """(params, extra) for a full-batch decode or verify call: the
@@ -758,8 +785,9 @@ class ContinuousScheduler:
             self._toks_dev = self.engine.commit_tokens(
                 np.asarray(self._last, np.int32)[:, None])
         params, extra = self._batch_inputs()
-        nt, self.cache = self.model.decode_step(
-            params, self.cache, {"tokens": self._toks_dev, **extra})
+        nt, self.cache = self.dispatch(
+            "decode", self.model.decode_step,
+            {"tokens": self._toks_dev, **extra}, state=(params, self.cache))
         # feed the device output straight back as the next step's input —
         # the host never sees tokens until a drain
         self._toks_dev = nt[:, None].clone()
@@ -771,7 +799,9 @@ class ContinuousScheduler:
             if self._flag_dev is None:
                 self._flag_dev = torch.zeros((self.n_slots,), dtype=torch.bool,
                                              device=self.device)
-            self._flag_dev = self._flag_dev | (nt == int(self.eos_id))
+            self._flag_dev = self.dispatch(
+                "or_eos", lambda f, t: f | (t == int(self.eos_id)),
+                self._flag_dev, nt)
             # the PREVIOUS flag copy has had a full decode dispatch to come
             # back — reading it now costs no wait on this step's work
             if self._flag_prev is not None and self._flag_prev.ready_any():
@@ -823,12 +853,12 @@ class ContinuousScheduler:
         k = self.drafter.k
         # the window is assembled on the device whether the drafts come
         # from the device (SelfDrafter) or the host (NGramDrafter)
-        drafts = torch.as_tensor(self.drafter.propose(), dtype=torch.int32,
-                                 device=self.device)
+        drafts = to_device(self.drafter.propose(), self.device, torch.int32)
         last = self.engine.commit_tokens(np.asarray(self._last, np.int32))
         win_dev = torch.cat([last[:, None], drafts], dim=1)
-        out, self.cache = self.model.verify_step(
-            params, self.cache, {"tokens": win_dev, **extra})
+        out, self.cache = self.dispatch(
+            "verify", self.model.verify_step, {"tokens": win_dev, **extra},
+            state=(params, self.cache))
         self.t += 1
         self.metrics.on_step(len(active), self.n_slots)
         # the step's one device-to-host transfer: the window and its scores
@@ -858,7 +888,86 @@ class ContinuousScheduler:
                                  emitted=n_emit)
             if done:
                 yield self._finish(slot)
-        self.cache = self.model.advance_pos(self.cache, deltas)
+        self.cache = self.dispatch("advance", self.model.advance_pos, deltas,
+                                   state=(self.cache,))
+
+    # ---- dispatch points: each records the signature it hands the model --
+    def _note(self, name: str, *args) -> None:
+        self._sigs.setdefault(name, set()).add(_signature(args))
+
+    def dispatch(self, name: str, fn, *args, state: Tuple = ()):
+        """`fn(*state, *args)`, recording the signature of `args` under
+        dispatch point `name` (compiled_signatures). `state` is the model's
+        parameters and cache, whose shapes are fixed for the scheduler's
+        life: passed through, not recorded."""
+        self._note(name, *args)
+        return fn(*state, *args)
+
+    # ---- static-analysis surface (repro_torch.analysis) --------------------
+    def compiled_signatures(self) -> Dict[str, int]:
+        """Distinct signatures each dispatch point has handed the model,
+        keyed as the JAX scheduler's jit cache sizes: there is no jit
+        cache in eager PyTorch, so each point records the (shape, dtype)
+        signature of what it passes besides the parameters and the cache
+        (`dispatch`: one tuple a dispatch on the host, no device work). It
+        is the surface a CUDA graph of a step needs: one capture per
+        signature. Every JAX graph has its point here (`or_eos` and
+        `set_pos` are eager ops in the port, sent through `dispatch` so
+        that they record), so no key is missing. `decode` counts the
+        scheduler's own decode steps and the self-drafter's probes, as the
+        JAX engine's shared decode jit does; other users of the engine are
+        not counted."""
+        keys = ["decode", "reset", "advance", "write"]
+        if self.pager is not None:
+            keys += ["prefill_paged", "copy_page"]
+        else:
+            keys.append("prefill")
+        if self.drafter is not None:
+            keys.append("verify")
+        if self.eos_id is not None:
+            keys.append("or_eos")
+        if self.tiering is not None and self.pager is not None:
+            keys += ["spill_pages", "fill_pages", "set_pos"]
+        return {k: len(self._sigs.get(k, ())) for k in keys}
+
+    def expected_compile_bounds(self) -> Dict[str, int]:
+        """The signature CONTRACT the pow2 bucketing declares, keyed like
+        `compiled_signatures()` (the JAX scheduler's, unchanged). decode/
+        verify run at one fixed (n_slots, ·) shape → exactly 1 signature
+        regardless of churn; prime prefills take one per pow2 prompt
+        bucket (× cold + pow2 prefix-window buckets when paged). With
+        `bucket=False` prefill takes one per distinct prompt length —
+        unbounded by design — so no prefill bound is declared and the
+        analyzer skips it."""
+        bounds = {"decode": 1, "reset": 1, "advance": 1}
+        if self.drafter is not None:
+            bounds["verify"] = 1
+            # scalar rollback (drafter probe) + (B,) accept-commit deltas
+            bounds["advance"] = 2
+        if self.eos_id is not None:
+            bounds["or_eos"] = 1
+        if self.pager is not None:
+            bounds["copy_page"] = 1
+            bounds["write"] = 0            # dense-path point, unused here
+        if self.bucket:
+            # pow2 buckets in [8, _bucket(max_len)]
+            n_len = _bucket(self.max_len).bit_length() - 3
+            if self.pager is not None:
+                # pow2 warm prefix-window widths in [1, _bucket(pages)]
+                wins = _bucket(self.pager.pages_per_seq, lo=1).bit_length()
+                bounds["prefill_paged"] = n_len * (1 + wins)
+            else:
+                bounds["prefill"] = n_len
+                bounds["write"] = n_len    # scratch k/v shape per bucket
+        if self.tiering is not None and self.pager is not None:
+            # spill/fill widths are pow2-bucketed in [1, _bucket(pages)]
+            # regardless of the prompt-bucket flag (the widths come from
+            # page counts, not prompt lengths)
+            widths = _bucket(self.pager.pages_per_seq, lo=1).bit_length()
+            bounds["spill_pages"] = widths
+            bounds["fill_pages"] = widths
+            bounds["set_pos"] = 1
+        return bounds
 
     def resource_gauges(self) -> Dict[str, float]:
         """Occupancy gauges for the gateway's /metrics scrape: bank

@@ -93,13 +93,15 @@ class SelfDrafter(Drafter):
         toks = s.engine.commit_tokens(np.asarray(s._last, np.int32)[:, None])
         outs = []
         for _ in range(self.k):
-            nt, cache = s.model.decode_step(params, cache,
-                                            {"tokens": toks, **extra})
+            nt, cache = s.dispatch("decode", s.model.decode_step,
+                                  {"tokens": toks, **extra},
+                                  state=(params, cache))
             outs.append(nt)
             toks = nt[:, None]
         # roll the probes back: pos is the only state that must not move
         # (the probe rows sit past kv_len until verify rewrites them)
-        s.cache = s.model.advance_pos(cache, -self.k)
+        s.cache = s.dispatch("advance", s.model.advance_pos, -self.k,
+                             state=(cache,))
         return torch.stack(outs, dim=1)
 
 

@@ -31,7 +31,7 @@ def _imported_roots(path: Path):
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    assert len(files) > 20
+    assert len(files) > 75
     return files + [ROOT / "chip_smoke.py"] + sorted(
         (ROOT / "tools").glob("*.py"))
 
@@ -51,6 +51,13 @@ def test_walk_covers_the_family_modules():
                 "configs/musicgen_medium.py", "configs/qwen2_vl_72b.py",
                 "configs/mamba2_2_7b.py", "configs/zamba2_7b.py"):
         assert f"src/repro_torch/{rel}" in walked
+
+
+def test_walk_covers_the_analysis_modules():
+    walked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("__init__", "__main__", "report", "ast_lint",
+                 "kernel_audit", "dispatch_lint", "graphs"):
+        assert f"src/repro_torch/analysis/{name}.py" in walked
 
 
 def _tiny():
