@@ -341,8 +341,34 @@ no result line:
               is `chip_smoke.analysis_phase`, rehearsable on the CPU at
               reduced configs
               (tests/test_torch_analysis.py::test_analysis_phase_rehearses_on_the_cpu).
+21. mesh    — the placement layer and the sharded paths at full width
+              (yi-6b, 32 layers, bf16, FourierFT n 1000, alpha 300 on
+              q/v), each launcher in a subprocess. (a) `torchrun
+              --nproc-per-node 1 -m repro_torch.launch.train
+              --model-parallel 1 --grad-compression int8_ef
+              --sharding-plan search`, 5 steps of 8 x 64 on NCCL through
+              DTensors: K1 and K2 launch (the launcher's counts), the
+              losses and the trained |c| of each site equal to those of
+              the same run without torchrun (plain tensors), and the warm
+              step (median of 4) both ways. (b) `torchrun
+              --nproc-per-node 1 -m repro_torch.launch.serve --continuous
+              --sharding-plan search` on an 8-request trace: K1 merges and
+              K3 runs on the local shards, the streams equal the plain
+              path's. (c) The planner at production scale: yi-6b on the
+              abstract 16x16 mesh for train_4k, on meta tensors and the
+              card's constants: the winner's predicted cost, at or below
+              the rules'. Two ranks cannot share the one card (NCCL
+              refuses a duplicate device; over gloo a rank dies with
+              SIGSEGV, `tools/probe_shared_card.py`), so multi-rank runs
+              are the CPU tests'; (d) makes in process the kernel calls a
+              rank of a 1x2 model-parallel mesh makes: K2 on each
+              zero-padded half of a column-sharded cotangent at wq and wv
+              (the halves summed equal K2 of the whole), K3 on half the
+              query and KV heads (side by side equal to the whole heads'),
+              each held to its plain version (`tp2_local_checks`). The
+              phase is `chip_smoke.mesh_phase`.
 15. kernels — one JSON line with each kernel's launches (by path, phases
-              16's to 20's included), error and times; printed last.
+              16's to 21's included), error and times; printed last.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -370,6 +396,7 @@ TRAIN_STEPS, MICROBATCH = 6, 2
 # what torch.cuda.set_sync_debug_mode("warn") says at each synchronizing
 # operation (its one-time notice that the mode is a prototype is not one)
 SYNC_WARNING = "called a synchronizing CUDA operation"
+MESH_STEPS = 5                        # phase 21's train steps: 1 cold, 4 warm
 
 
 def fail(msg: str) -> int:
@@ -3280,6 +3307,280 @@ def analysis_phase(dev, cfgs, sizes, sync, set_sync_debug, launcher_argv
     return out
 
 
+def _launcher(module: str, argv, ranks: int = 0, timeout: int = 600):
+    """`python -m module argv`, or under `torchrun --standalone
+    --nproc-per-node ranks`; -> (wall s, stdout). Raises PhaseError on a
+    non-zero exit."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m"]
+    if ranks:
+        cmd += ["torch.distributed.run", "--standalone", "--nproc-per-node",
+                str(ranks), "-m"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + [module, *argv], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise PhaseError(f"mesh: {' '.join(cmd[2:] + [module, *argv])} "
+                         f"exited {proc.returncode}: {proc.stderr[-3000:]}"
+                         f"{proc.stdout[-1500:]}")
+    return wall, proc.stdout
+
+
+def _tagged(stdout: str, tag: str):
+    """The JSON after `tag` on the launcher's line that starts with it."""
+    for ln in stdout.splitlines():
+        if ln.startswith(tag):
+            return json.loads(ln[len(tag):])
+    raise PhaseError(f"mesh: no {tag!r} line in the launcher's output")
+
+
+def _launches(stdout: str) -> dict:
+    """{'K1': n, ...} from the launcher's 'kernel launches: K1 n, ...'."""
+    for ln in stdout.splitlines():
+        if "kernel launches:" in ln:
+            part = ln.split("kernel launches:", 1)[1]
+            out = {}
+            for item in part.split(","):
+                k, _, v = item.strip().partition(" ")
+                out[k] = int(v)
+            return out
+    raise PhaseError("mesh: no kernel launch counts in the launcher's output")
+
+
+def _streams(stdout: str) -> list:
+    return [ln.split(": ", 1)[1] for ln in stdout.splitlines()
+            if ln.startswith("request ")]
+
+
+def tp2_local_checks(dev, cfg, n: int, alpha: float, sync) -> dict:
+    """Phase 21d: the local calls a rank of a 1x2 (data 1, model 2) mesh
+    makes, in process (two ranks cannot share the card). K2 on each
+    zero-padded half of a ΔW cotangent column-sharded over `model` (what
+    dist/dtensor.py's ShardedDelta backward hands it) at wq and wv, every
+    layer: each half within K2's tolerance of the plain version on the
+    same input, and the two halves' sum within REL_TO_PLAIN of the whole
+    cotangent's K2 and of its plain version (K2 is linear in g). K3 on a
+    rank's half of the query and KV heads (what local_paged_attention
+    hands it) at the serve launcher's cache (2 slots, pages of 16, 128
+    rows), bf16: each half within agreement_limit of the plain version,
+    and the halves side by side within agreement_limit of the whole
+    heads' K3."""
+    import torch
+    from repro_torch.core.fourierft import sample_entries
+    from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import paged_attention as pak
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    out = {"K2": {}, "K3": {}}
+    L, d = cfg.num_layers, cfg.d_model
+    dh = cfg.head_dim
+    for site, d2 in (("wq", cfg.attn_dim), ("wv", cfg.kv_dim)):
+        entries = sample_entries(d, d2, n, seed=7).to(dev)
+        u, v = padded_entries(entries, n, fdk.NC)
+        g = torch.randn((L, d, d2), generator=gen, device=dev)
+        whole = fdk.dc(g, u, v, d, d2, alpha)
+        ref_whole = fdk.dc_reference(g, u, v, d, d2, alpha)
+        summed, half_err = torch.zeros_like(whole), 0.0
+        for r in range(2):
+            cols = slice(r * d2 // 2, (r + 1) * d2 // 2)
+            gp = torch.zeros_like(g)
+            gp[..., cols] = g[..., cols]
+            got = fdk.dc(gp, u, v, d, d2, alpha)
+            ref = fdk.dc_reference(gp, u, v, d, d2, alpha)
+            sync()
+            diff = (got - ref).abs()
+            err, scale = float(diff.max()), float(ref.abs().max())
+            if bool((diff > 2e-3 + 1e-4 * ref.abs()).any()) \
+                    or err > REL_TO_PLAIN * scale \
+                    or not torch.isfinite(got).all():
+                raise PhaseError(f"mesh: K2 on rank {r}'s zero-padded half "
+                                 f"of {site}'s cotangent: max |kernel - "
+                                 f"plain| {err:.3e} (max |plain| "
+                                 f"{scale:.3e})")
+            half_err = max(half_err, err)
+            summed += got
+            del gp, got, ref, diff
+        scale = float(ref_whole.abs().max())
+        to_whole = float((summed - whole).abs().max())
+        sum_plain = float((summed - ref_whole).abs().max())
+        if max(to_whole, sum_plain) > REL_TO_PLAIN * scale:
+            raise PhaseError(f"mesh: K2 of {site}'s two halves summed is "
+                             f"{to_whole:.3e} from K2 of the whole, "
+                             f"{sum_plain:.3e} from the plain version "
+                             f"(limit {REL_TO_PLAIN * scale:.3e})")
+        out["K2"][site] = {"shape": [L, d, d2], "half_max_abs_err": half_err,
+                           "sum_to_whole": to_whole, "sum_to_plain": sum_plain,
+                           "limit": REL_TO_PLAIN * scale}
+        print(f"[mesh] (d) K2 at {site} ({L}x{d}x{d2}), each rank's "
+              f"zero-padded half of {d2 // 2} columns: max |kernel - plain| "
+              f"{half_err:.3e}; halves summed {to_whole:.3e} from the whole's "
+              f"K2, {sum_plain:.3e} from its plain version (limit "
+              f"{REL_TO_PLAIN * scale:.3e})")
+        del g, whole, ref_whole, summed
+    H, K = cfg.n_heads, cfg.n_kv
+    B, ps, pps = 2, 16, 128 // 16
+    bt = torch.arange(B * pps, dtype=torch.int32,
+                      device=dev).reshape(B, pps) + 1
+    kv_len = torch.tensor([pps * ps - 3, 37], dtype=torch.int32, device=dev)
+    dtype = torch.bfloat16
+    q = torch.randn((B, 1, H, dh), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((B * pps + 1, ps, K, dh), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((B * pps + 1, ps, K, dh), generator=gen,
+                     device=dev).to(dtype)
+    whole = pak.paged_attention(q, kp, vp, bt, kv_len)
+    halves, share = [], 0.0
+    for r in range(2):
+        hs = slice(r * H // 2, (r + 1) * H // 2)
+        ks = slice(r * K // 2, (r + 1) * K // 2)
+        ql, kl, vl = (q[:, :, hs].contiguous(), kp[:, :, ks].contiguous(),
+                      vp[:, :, ks].contiguous())
+        got = pak.paged_attention(ql, kl, vl, bt, kv_len)
+        ref = pak.paged_attention_reference(ql.float(), kl.float(),
+                                            vl.float(), bt, kv_len)
+        sync()
+        share = max(share, float(((got.float() - ref).abs()
+                                  / pak.agreement_limit(ref, dtype)).max()))
+        if share > 1.0 or not torch.isfinite(got.float()).all():
+            raise PhaseError(f"mesh: K3 on rank {r}'s {H // 2} query and "
+                             f"{K // 2} KV heads: {share:.3f} of "
+                             "agreement_limit")
+        halves.append(got)
+    side = torch.cat(halves, dim=2)
+    to_whole = float(((side.float() - whole.float()).abs()
+                      / pak.agreement_limit(whole.float(), dtype)).max())
+    if to_whole > 1.0:
+        raise PhaseError(f"mesh: K3 on the two ranks' heads side by side is "
+                         f"{to_whole:.3f} of agreement_limit from the whole "
+                         "heads' K3")
+    out["K3"] = {"local_heads": [H // 2, K // 2], "head_dim": dh,
+                 "share_of_limit": share, "halves_to_whole": to_whole,
+                 "halves_equal_whole": bool(torch.equal(side, whole))}
+    print(f"[mesh] (d) K3 on a rank's {H // 2} query and {K // 2} KV heads "
+          f"(head_dim {dh}, bf16): {share:.3f} of agreement_limit; the two "
+          f"ranks' heads side by side {to_whole:.3f} of it from the whole "
+          f"heads' K3 (bit-identical: {out['K3']['halves_equal_whole']})")
+    return out
+
+
+def mesh_phase(dev, cfg) -> dict:
+    """Phase 21: the placement layer and the sharded train and serve paths
+    on the card (module docstring). Returns the launch counts and times
+    for the kernels line."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.dist import cost_model, planner
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import build
+    out = {}
+    t_phase = time.perf_counter()
+
+    # ---- a. sharded training, one rank, against the plain-tensor path ------
+    targs = ["--arch", "yi-6b", "--steps", str(MESH_STEPS), "--batch", "8",
+             "--seq", "64"]
+    wall_m, meshed = _launcher(
+        "repro_torch.launch.train",
+        targs + ["--model-parallel", "1", "--grad-compression", "int8_ef",
+                 "--sharding-plan", "search"], ranks=1)
+    wall_p, plain_c = _launcher("repro_torch.launch.train",
+                                targs + ["--grad-compression", "int8_ef"])
+    if "mesh=1x1" not in meshed or "sharding plan: {'source': 'plan'" \
+            not in meshed:
+        raise PhaseError("mesh: the torchrun run did not report its 1x1 "
+                         "mesh and searched plan")
+    lm, lp = _tagged(meshed, "losses: "), _tagged(plain_c, "losses: ")
+    if not all(math.isfinite(v) for v in lm):
+        raise PhaseError(f"mesh: non-finite losses {lm}")
+    # one rank runs the same kernels on the same local tensors as the
+    # plain path (deterministic: no float atomics), so the losses and the
+    # trained coefficients must be the same numbers, not merely close
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lm, lp))
+    if lm != lp:
+        raise PhaseError(f"mesh: DTensor losses {lm} vs plain {lp}: "
+                         f"relative {rel:.2e}, not equal")
+    nm = _tagged(meshed, "adapter_norms: ")
+    np_ = _tagged(plain_c, "adapter_norms: ")
+    if set(nm) != {"layers/wq/c", "layers/wv/c"} or nm != np_:
+        raise PhaseError(f"mesh: trained |c| per site DTensor {nm} vs "
+                         f"plain {np_}, not equal")
+    kl = _launches(meshed)
+    if kl["K1"] < 1 or kl["K2"] < 1:
+        raise PhaseError(f"mesh: K1/K2 did not launch on the DTensor path "
+                         f"({kl})")
+
+    def warm(stdout):
+        ms = _tagged(stdout, "step_ms: ")[1:]
+        return statistics.median(ms), min(ms), max(ms)
+
+    out["train"] = {"losses_dtensor": lm, "losses_plain": lp,
+                    "max_rel": rel, "adapter_norms": nm, "launches": kl,
+                    "warm_ms_dtensor": warm(meshed),
+                    "warm_ms_plain": warm(plain_c),
+                    "wall_s": {"plain": wall_p, "torchrun": wall_m}}
+    print(f"[mesh] (a) 1-rank DTensor train, int8_ef, searched plan: "
+          f"losses {lm}; plain path {lp} (max relative {rel:.2e}); trained "
+          f"|c| {nm}, equal; warm "
+          f"step ms (median, min, max) DTensor {warm(meshed)}, plain "
+          f"{warm(plain_c)}; K1 {kl['K1']} K2 {kl['K2']}")
+
+    # ---- b. sharded serving, one rank, against the plain-tensor path --------
+    sargs = ["--arch", "yi-6b", "--continuous", "--trace-n", "8",
+             "--max-new", "8"]
+    _, splain = _launcher("repro_torch.launch.serve", sargs)
+    _, smesh = _launcher("repro_torch.launch.serve",
+                         sargs + ["--sharding-plan", "search"], ranks=1)
+    a, b = _streams(smesh), _streams(splain)
+    if len(a) != 8 or a != b:
+        raise PhaseError(f"mesh: DTensor streams {a} vs plain {b}")
+    ks = _launches(smesh)
+    if ks["K3"] < 1 or ks["K1"] < 1:
+        raise PhaseError(f"mesh: K1/K3 did not launch on the DTensor "
+                         f"serving path ({ks})")
+    out["serve"] = {"launches": ks, "streams_equal": True}
+    print(f"[mesh] (b) 1-rank DTensor serve: {len(a)} streams equal the "
+          f"plain path's; K1 {ks['K1']} (merge) K3 {ks['K3']}")
+
+    # ---- d. what a rank of a 1x2 model-parallel mesh hands the kernels ----
+    out["tp2_local"] = tp2_local_checks(dev, cfg, 1000, 300.0,
+                                        torch.cuda.synchronize)
+
+    # ---- c. the planner at production scale (meta tensors) -----------------
+    t0 = time.perf_counter()
+    pmodel = build(cfg, PEFTConfig(method="fourierft", n=1000, alpha=300.0),
+                   remat="full")
+    pmesh = mesh_mod.make_production_mesh()
+    plan = planner.plan_model(pmodel, pmesh,
+                              shape=configs.shape_for("train_4k"),
+                              env=cost_model.default_env(pmesh))
+    ranked = plan.meta["ranked"]
+    rules = next(r for r in ranked if r["strategy"] == "rules")
+    if ranked[0]["objective_s"] > rules["objective_s"]:
+        raise PhaseError("mesh: the searched plan scores worse than rules")
+    out["plan"] = {"strategy": plan.meta["strategy"],
+                   "winner": plan.meta["cost"],
+                   "objective_s": ranked[0]["objective_s"],
+                   "rules_objective_s": rules["objective_s"],
+                   "hbm_bytes": cost_model.device_hbm_bytes(dev),
+                   "plan_s": time.perf_counter() - t0}
+    print(f"[mesh] (c) yi-6b 16x16 train_4k on the card's constants "
+          f"(HBM {out['plan']['hbm_bytes'] / 1e9:.1f} GB): winner "
+          f"{plan.meta['strategy']} predicted {plan.meta['cost']['total_s']}"
+          f" s a step (objective {ranked[0]['objective_s']} s) vs rules "
+          f"{rules['objective_s']} s; planned in {out['plan']['plan_s']:.1f}"
+          f" s")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase 21 took {out['phase_s']:.1f} s")
+    print(json.dumps({"mesh": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4278,6 +4579,17 @@ def main() -> int:
         return fail(str(e))
     al = ana["launches"]["analysis"]
 
+    # ---- 21. mesh: the placement layer and the sharded paths ---------------
+    torch.cuda.empty_cache()
+    print(f"[memory] before phase 21: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    try:
+        mesh = mesh_phase(dev, configs.get("yi-6b"))
+    except PhaseError as e:
+        return fail(str(e))
+    mk = {**mesh["train"]["launches"], "K3": mesh["serve"]["launches"]["K3"],
+          "K1_merge": mesh["serve"]["launches"]["K1"]}
+
     # ---- 15. kernels line (printed last) ------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
@@ -4295,7 +4607,9 @@ def main() -> int:
                               "ssm_merge": sl["ssm_merge"]["K1"],
                               "hybrid_train": sl["hybrid_train"]["K1"],
                               "hybrid_merge": sl["hybrid_merge"]["K1"],
-                              "analysis": al["K1"]},
+                              "analysis": al["K1"],
+                              "mesh_train": mk["K1"],
+                              "mesh_merge": mk["K1_merge"]},
          "family_shapes": k1_family,
          "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -4313,7 +4627,8 @@ def main() -> int:
                               "families_train": fam_k2_train,
                               "ssm_train": sl["ssm_train"]["K2"],
                               "hybrid_train": sl["hybrid_train"]["K2"],
-                              "analysis": al["K2"]},
+                              "analysis": al["K2"],
+                              "mesh_train": mk["K2"]},
          "family_shapes": k2_family,
          "max_abs_err": k2["err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -4339,7 +4654,8 @@ def main() -> int:
                                   if k_ != "gateway"),
                               "gateway_serve": tiering["k3"]["gateway"],
                               "families_serve": fam_k3,
-                              "analysis": al["K3"]},
+                              "analysis": al["K3"],
+                              "mesh_serve": mk["K3"]},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

@@ -1,6 +1,6 @@
 """Static hot-path analyzer of the port (the JAX package's `analysis`).
 
-Three passes over the tree and its hot paths, one baseline-gated CLI
+Four passes over the tree and its hot paths, one baseline-gated CLI
 (`python -m repro_torch.analysis`):
 
 - `ast_lint`       — source lint for torch hazards (host syncs, in loops
@@ -15,9 +15,10 @@ Three passes over the tree and its hot paths, one baseline-gated CLI
                      decode loop built by `graphs` (host transfers per
                      step, f32-literal upcasts, out-of-place updates,
                      the scheduler's signature budgets)
-
-The JAX package's fourth pass, `sharding_audit`, walks `dist/sharding.py`'s
-rule tables and comes with the distributed slice.
+- `sharding_audit` — every leaf of every registered arch's params, and of
+                     the serving caches, batches and bank rows, must
+                     resolve through a named decision of the resolved
+                     sharding plan (`dist/plan.PlanSource.decision`)
 
 Findings diff against the committed `baseline.json`; only NEW findings
 fail the gate (report.gate).

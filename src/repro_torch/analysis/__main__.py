@@ -1,10 +1,12 @@
 """CLI for the port's static analyzer:
-`python -m repro_torch.analysis [--all|--ast|--kernels|--graphs]`.
+`python -m repro_torch.analysis [--all|--ast|--kernels|--sharding|--graphs]`.
 
 Exit code 0 iff every finding is in the committed baseline (report.gate).
 The AST pass is pure source analysis; `--kernels` derives the kernels'
 limits from their caps and the C sources (and, on the card, holds them
-against its shared memory); `--graphs` runs the reduced train step and
+against its shared memory); `--sharding` audits every leaf the resolved
+sharding plan places (meta tensors; no device); `--graphs` runs the
+reduced train step and
 serve replays under the dispatch recorder (seconds on the CPU). Both run
 on `--device` (default cuda; with no card they fail unless `--device cpu`
 is given: there is no fallback). `--update-baseline` rewrites the
@@ -36,9 +38,8 @@ def main(argv=None) -> int:
         prog="repro_torch.analysis",
         description="static hot-path analyzer of the PyTorch port")
     ap.add_argument("--all", action="store_true",
-                    help="run the three passes the port has: --ast, "
-                         "--kernels and --graphs (default when none is "
-                         "selected); sharding is not among them")
+                    help="run every pass: --ast, --kernels, --sharding and "
+                         "--graphs (default when none is selected)")
     ap.add_argument("--ast", action="store_true",
                     help="Python source lint over src/repro_torch (or PATHS)")
     ap.add_argument("--kernels", action="store_true",
@@ -48,8 +49,7 @@ def main(argv=None) -> int:
                     help="dispatch lint of the train step and the decode "
                          "loop")
     ap.add_argument("--sharding", action="store_true",
-                    help="not in the port yet: comes with the distributed "
-                         "slice")
+                    help="sharding-coverage audit")
     ap.add_argument("--device", default=None,
                     help="device of --kernels and --graphs (default: cuda; "
                          "fails without one)")
@@ -65,13 +65,7 @@ def main(argv=None) -> int:
                          "src/repro_torch)")
     args = ap.parse_args(argv)
 
-    if args.sharding:
-        print("repro_torch.analysis: the sharding audit walks "
-              "dist/sharding.py's rule tables, which the port does not have "
-              "yet: it comes with the distributed slice (ROADMAP queue 1, "
-              "Distributed)", file=sys.stderr)
-        return 2
-    chosen = args.ast or args.kernels or args.graphs
+    chosen = args.ast or args.kernels or args.sharding or args.graphs
     run_all = args.all or not chosen
     findings: List[Finding] = []
     if run_all or args.ast:
@@ -84,6 +78,9 @@ def main(argv=None) -> int:
         findings += kernel_audit.run()
         if device.type == "cuda":
             findings += kernel_audit.audit_device(device)
+    if run_all or args.sharding:
+        from repro_torch.analysis import sharding_audit
+        findings += sharding_audit.run()
     if run_all or args.graphs:
         from repro_torch.analysis import graphs
         findings += graphs.run(device)

@@ -2,6 +2,12 @@
 `checkpoint/manager.py`, same on-disk layout, so a train state crosses
 between the packages).
 
+On a mesh every leaf is stored as its full logical value: a DTensor is
+gathered (`full_tensor`, a collective every rank joins) and rank 0 alone
+writes the same files as a one-device run. `restore(..., placements=...,
+mesh=...)` distributes the leaves onto any mesh — another rank count or
+layout than the saver's (the elastic re-shard).
+
 Layout:  <dir>/step_<N>/
              manifest.json   — tree skeleton + leaf metadata
              <leaf_id>.npy   — one file per tensor leaf
@@ -40,8 +46,9 @@ _EXT_BY_TORCH = {v[2]: k for k, v in _EXT_DTYPES.items()}
 
 def _encode(t: torch.Tensor):
     """-> (numpy array owning a host copy, ext dtype name or None)."""
+    from repro_torch.dist.dtensor import to_plain
     # repro: allow(host-sync) — a checkpoint save writes host bytes
-    t = t.detach().to("cpu", copy=True)
+    t = to_plain(t.detach()).to("cpu", copy=True)
     name = _EXT_BY_TORCH.get(t.dtype)
     if name:
         return t.view(_EXT_DTYPES[name][1]).numpy(), name
@@ -91,9 +98,18 @@ def _snapshot(tree):
     return skel, [(p, *_encode(v)) for p, v in leaves]
 
 
-def save_sync(directory: str, step: int, tree) -> str:
-    """Blocking save with atomic publish. Returns the final path."""
+def _is_writer() -> bool:
+    """Rank 0 of the process group writes; every rank without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def save_sync(directory: str, step: int, tree) -> Optional[str]:
+    """Blocking save with atomic publish. Returns the final path (None on
+    a rank that does not write)."""
     skel, host = _snapshot(tree)
+    if not _is_writer():
+        return None
     return _write(directory, step, skel, host)
 
 
@@ -131,9 +147,12 @@ def available_steps(directory: str) -> List[int]:
     return sorted(out)
 
 
-def restore(directory: str, step: Optional[int] = None, *, device="cpu"):
+def restore(directory: str, step: Optional[int] = None, *, device="cpu",
+            placements=None, mesh=None):
     """Load a checkpoint (the newest when `step` is None) onto `device`.
-    Returns (tree, step)."""
+    With `placements` (a tree of DTensor placements, `sharding.named`)
+    and `mesh`, every leaf is distributed onto the mesh instead. Returns
+    (tree, step)."""
     steps = available_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -145,7 +164,11 @@ def restore(directory: str, step: Optional[int] = None, *, device="cpu"):
     leaves = {p: _decode(np.load(os.path.join(path, _leaf_file(p))),
                          ext.get(p), device)
               for p in manifest["leaves"]}
-    return _unflatten(manifest["skeleton"], leaves), step
+    tree = _unflatten(manifest["skeleton"], leaves)
+    if placements is not None:
+        from repro_torch.dist import sharding as shd
+        tree = shd.distribute(tree, placements, mesh)
+    return tree, step
 
 
 class CheckpointManager:
@@ -180,7 +203,9 @@ class CheckpointManager:
     def save(self, step: int, tree):
         if self._err:
             raise self._err
-        self._q.put((step, *_snapshot(tree)))
+        snap = _snapshot(tree)      # every rank gathers its DTensors
+        if _is_writer():
+            self._q.put((step, *snap))
 
     def close(self):
         self._q.put(None)

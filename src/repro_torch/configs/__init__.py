@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import (ModelConfig, MoEConfig, PEFTConfig,
+from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ModelConfig,
+                                      MoEConfig, PEFTConfig, ShapeConfig,
                                       TrainConfig)
 from repro_torch.configs import (mamba2_2_7b, musicgen_medium, olmoe_1b_7b,
                                  phi3_5_moe, qwen2_5_32b, qwen2_vl_72b,
@@ -77,5 +78,10 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, width: int = 64,
     return cfg.replace(**kw)
 
 
-__all__ = ["ModelConfig", "PEFTConfig", "TrainConfig", "ARCHS", "ARCH_IDS",
-           "PAPER_MODELS", "get", "reduced"]
+def shape_for(name: str) -> ShapeConfig:
+    return SHAPES_BY_NAME[name]
+
+
+__all__ = ["ModelConfig", "PEFTConfig", "ShapeConfig", "TrainConfig",
+           "SHAPES", "SHAPES_BY_NAME", "ARCHS", "ARCH_IDS", "PAPER_MODELS",
+           "get", "reduced", "shape_for"]

@@ -139,6 +139,30 @@ _USE_PALLAS_TO_BACKEND = {"auto": "auto", "never": "einsum",
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The assigned LM shape set (identical across the 10 archs), the JAX
+# package's: the planner prices a cell at one of these.
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-3
     head_learning_rate: float = 1e-4
@@ -154,8 +178,7 @@ class TrainConfig:
     remat: str = "full"           # full | dots | none
     anomaly_threshold: float = 1e4
     seed: int = 0
-    # gradient all-reduce compression: none | int8_ef (int8_ef comes with
-    # the distributed slice, ROADMAP queue 1: Distributed)
+    # gradient all-reduce compression: none | int8_ef (dist/compression.py)
     grad_compression: str = "none"
 
     def replace(self, **kw) -> "TrainConfig":

@@ -181,9 +181,19 @@ class AdapterMethod:
     def merge_site(self, eff: Dict, key: str, adapter: Dict,
                    site: AdapterSite, peft: PEFTConfig) -> None:
         """Fold one site into the (stacked) layer tree `eff`: ΔW is cast to
-        the weight's dtype BEFORE the add, as the JAX package does."""
-        dw = self.site_delta(adapter, site, peft, eff[key].dtype)
-        eff[key] = eff[key] + dw
+        the weight's dtype BEFORE the add, as the JAX package does. A
+        weight placed on a mesh (a DTensor) takes its shard of the ΔW each
+        rank materializes from the replicated adapter leaves
+        (`dist.dtensor.sharded_delta`: the kernel runs on local tensors)."""
+        w = eff[key]
+        from repro_torch.dist.dtensor import is_dtensor, sharded_delta
+        if is_dtensor(w):
+            dw = sharded_delta(
+                lambda ad: self.site_delta(ad, site, peft, w.dtype),
+                adapter, w)
+        else:
+            dw = self.site_delta(adapter, site, peft, w.dtype)
+        eff[key] = w + dw
 
     # ---- accounting (paper Table 1 / §3.2) --------------------------------
     def count_trainable(self, site: AdapterSite, peft: PEFTConfig) -> int:

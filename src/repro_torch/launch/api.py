@@ -18,9 +18,12 @@ and the gateway's streams must equal it token for token.
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`. The weights are random, made from
-`--seed`. `--model-parallel` and `--sharding-plan` (the JAX launcher's
-mesh flags) are refused: the port has no mesh yet (ROADMAP queue 1:
-Distributed).
+`--seed`. `--model-parallel` and `--sharding-plan` are the JAX launcher's
+mesh flags: the engine routes through the mesh path and places its params
+and caches by the plan. The gateway serves at world size 1 (one process;
+under `torchrun --nproc-per-node 1` a one-rank DTensor mesh); across ranks
+it refuses, because the gateway across ranks is the next slice of the
+port.
 
     python -m repro_torch.launch.api --arch yi-6b --reduced \\
         --export-demo-bank /tmp/demo --device cpu
@@ -40,6 +43,7 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import PEFTConfig
 from repro_torch.devices import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import build
 
 
@@ -90,10 +94,12 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                          "re-reading the checkpoint")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
-    # the JAX launcher's mesh flags: refused, never ignored
-    ap.add_argument("--model-parallel", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--sharding-plan", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="TP axis size; remaining devices replicate/batch")
+    ap.add_argument("--sharding-plan", default="rules",
+                    help="rules|search|<plan.json>: where placements come "
+                         "from (dist/plan.py); search runs the planner once "
+                         "at startup")
 
 
 def _model_cfg(args):
@@ -144,10 +150,14 @@ def build_scheduler(args):
         ContinuousScheduler, Engine, NGramDrafter, SelfDrafter, TieringConfig,
     )
 
-    if args.model_parallel is not None or args.sharding_plan is not None:
-        raise SystemExit("--model-parallel/--sharding-plan: the port has no "
-                         "mesh yet (ROADMAP queue 1: Distributed)")
     device = resolve_device(args.device)
+    mesh_mod.init_from_env(device)
+    if mesh_mod.world_size() > 1:
+        raise SystemExit(f"{mesh_mod.world_size()} ranks: the gateway across "
+                         "ranks comes with the next slice of the port "
+                         "(ROADMAP queue 1, item 3); it serves at world "
+                         "size 1")
+    mesh = mesh_mod.make_host_mesh(model=args.model_parallel)
     cfg = _model_cfg(args)
     model = build(cfg, PEFTConfig(method="none"))
     if not model.supports_slot_cache:
@@ -161,7 +171,8 @@ def build_scheduler(args):
         bank, tenant_ids = open_bank(model, args.bank_dir,
                                      args.bank_capacity, device)
     engine = Engine(model, params, batch_slots=args.slots,
-                    max_len=args.max_len, bank=bank, device=device)
+                    max_len=args.max_len, bank=bank, device=device,
+                    mesh=mesh, plan=args.sharding_plan)
     drafter = None
     if args.speculative:
         drafter = (SelfDrafter(k=args.draft_k) if args.drafter == "self"

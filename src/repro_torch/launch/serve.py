@@ -65,6 +65,23 @@ does: `analyze: recompile audit clean`, or the findings and exit 1.
         --host-kv-pages 16 --interactive-every 3 --arrival-every 1 \
         --device cpu
 
+Everything routes through the mesh path, as in the JAX launcher. Without a
+process group the mesh is the one device and nothing is placed; under
+`torchrun` the ranks form a (data, model) mesh with `--model-parallel`
+ranks on `model`, and the engine places its params by `--sharding-plan`
+(rules, search or a plan file), merges them on the mesh (each rank's ΔW
+shard from K1 on local tensors) and places every cache by the plan's
+cache specs: decode attention runs K3 on each rank's local KV heads.
+Every rank serves the same trace; rank 0 prints.
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.serve --arch yi-6b \
+        --continuous --sharding-plan search
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch yi-6b \
+        --reduced --continuous --model-parallel 2 --device cpu
+
+A family other than dense, or an adapter bank, is refused on a mesh of
+more than one device (the next slice of the port).
+
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
 """
@@ -81,6 +98,7 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import build
 from repro_torch.serve import (AdapterBank, ContinuousScheduler, Engine,
                                NGramDrafter, Request, SelfDrafter,
@@ -223,6 +241,12 @@ def main(argv=None):
                          "declared bounds (repro_torch.analysis recompile "
                          "pass) and exit non-zero on any finding")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="TP axis size; remaining devices replicate/batch")
+    ap.add_argument("--sharding-plan", default="rules",
+                    help="rules|search|<plan.json>: where placements come "
+                         "from (dist/plan.py); search runs the planner once "
+                         "at startup")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
@@ -236,6 +260,13 @@ def main(argv=None):
                          "and this launcher has no embeddings source: it "
                          "serves token prompts only")
     device = resolve_device(args.device)
+    mesh_mod.init_from_env(device)
+    mesh = mesh_mod.make_host_mesh(model=args.model_parallel)
+    mesh_mod.refuse_family_on_mesh(cfg, mesh)
+    if args.bank_dir and mesh_mod.mesh_size(mesh) > 1:
+        raise SystemExit(f"--bank-dir on a {mesh_mod.describe(mesh)} mesh: "
+                         f"{mesh_mod.NEXT_SLICE}")
+    say = mesh_mod.rank0_print
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))
     # bank-only serving runs over the clean base: random-init adapters of a
@@ -254,18 +285,22 @@ def main(argv=None):
         state, at = ckpt.restore(args.adapters, device=device)
         _, frozen = split_params(model, params)
         params = join_params(model, state["trainable"], frozen)
-        print(f"loaded adapters from step {at}")
+        say(f"loaded adapters from step {at}")
     bank, tenants = None, []
     if args.bank_dir:
         bank, tenants = open_bank(model, args.bank_dir, args.bank_capacity,
                                   device)
-        print(f"bank: {len(bank.resident_ids)} of {len(tenants)} tenants "
+        say(f"bank: {len(bank.resident_ids)} of {len(tenants)} tenants "
               f"resident over groups {sorted(bank.profiles)}, frozen "
               f"tables {bank.table_bytes / 2 ** 20:.2f} MiB")
     slots = max(2, len(bank.resident_ids)) if bank is not None else 2
     engine = Engine(model, params, batch_slots=slots, max_len=args.max_len,
-                    bank=bank, device=device)
-    print(engine.kernel_policy.explain())
+                    bank=bank, device=device, mesh=mesh,
+                    plan=args.sharding_plan)
+    say(f"mesh={mesh_mod.describe(mesh)}")
+    if engine.plan_source.kind != "rules":
+        say(f"sharding plan: {engine.plan_source.describe()}")
+    say(engine.kernel_policy.explain())
     prompts = demo_prompts(cfg, slots)
     if args.continuous:
         drafter = None
@@ -290,38 +325,43 @@ def main(argv=None):
             tag = f" [{r.adapter_id}]" if r.adapter_id else ""
             if r.priority != "batch":
                 tag += f" ({r.priority})"
-            print(f"request {i}{tag} (arrival {arrivals[i]:g}, "
+            say(f"request {i}{tag} (arrival {arrivals[i]:g}, "
                   f"max_new {r.max_new}): {r.out}")
         if bank is not None:
-            print(f"bank: {bank.loads} loads, resident "
+            say(f"bank: {bank.loads} loads, resident "
                   f"{list(bank.resident_ids)}")
         s = sched.metrics.summary()
-        print(f"continuous: {s['n_requests']:.0f} requests, "
+        say(f"continuous: {s['n_requests']:.0f} requests, "
               f"{s['total_tokens']:.0f} tokens in {s['steps']:.0f} steps | "
               f"occupancy {s['occupancy_mean']:.2f}, "
               f"ttft {s['ttft_steps_mean']:.1f} steps (p90 "
               f"{s['ttft_steps_p90']:.1f}), "
               f"{s['tokens_per_s']:.0f} tok/s on {device}")
         if "spec_accept_rate" in s:
-            print(f"speculative ({args.drafter}, k={args.draft_k}): "
+            say(f"speculative ({args.drafter}, k={args.draft_k}): "
                   f"{s['spec_tokens_per_step']:.2f} tokens/step/slot, "
                   f"accept rate {s['spec_accept_rate']:.2f}, "
                   f"{s['spec_drafts_wasted']:.0f} drafts wasted over "
                   f"{s['spec_slot_steps']:.0f} slot-steps")
         if tiering is not None:
-            print("tiering: " + " ".join(
+            say("tiering: " + " ".join(
                 f"{k}={s[k + '_total']:.0f}" for k in TIERING_COUNTERS))
+        if device.type == "cuda":
+            from repro_torch.kernels import fourier_deltaw as fdk
+            from repro_torch.kernels import paged_attention as pa
+            say(f"kernel launches: K1 {fdk.launches}, K3 {pa.launches}")
         if args.analyze:
             from repro_torch.analysis import dispatch_lint
             found = dispatch_lint.scheduler_recompile_findings(sched)
             sigs = sched.compiled_signatures()
-            print("analyze: compiled signatures "
+            say("analyze: compiled signatures "
                   + ", ".join(f"{k}={v}" for k, v in sorted(sigs.items())))
             for f in found:
-                print(f.render())
+                say(f.render())
             if found:
                 raise SystemExit(1)
-            print("analyze: recompile audit clean")
+            say("analyze: recompile audit clean")
+        mesh_mod.shutdown()
         return
     ids = None
     if bank is not None:
@@ -331,7 +371,8 @@ def main(argv=None):
     for i, o in enumerate(outs):
         tag = f" [{ids[i]}]" if ids else ""
         # repro: allow(host-sync-in-loop) — the demo prints its outputs
-        print(f"prompt {i}{tag}: {o.tolist()}")
+        say(f"prompt {i}{tag}: {o.tolist()}")
+    mesh_mod.shutdown()
 
 
 if __name__ == "__main__":

@@ -62,8 +62,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token CE in f32. logits (..., V), labels (...) int."""
-    logits = logits.to(torch.float32)
+    """Mean token CE in f32. logits (..., V), labels (...) int. Logits
+    sharded over the vocab (a DTensor from a column-parallel head) are
+    gathered along it first (`dist.dtensor.unshard_dim`)."""
+    from repro_torch.dist.dtensor import unshard_dim
+    logits = unshard_dim(logits.to(torch.float32), -1)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     loss = lse - ll

@@ -28,13 +28,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, PEFTConfig
+from repro_torch.configs.base import ModelConfig, PEFTConfig, ShapeConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.adapter import AdapterSite
+from repro_torch.dist.dtensor import (any_dtensor, is_dtensor,
+                                     local_paged_attention, ops_context,
+                                     to_plain)
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import ssm_lm, transformer, zamba2
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def add_time_dim(t: torch.Tensor) -> torch.Tensor:
@@ -125,8 +128,27 @@ class Model:
                 "bank_profiles": self.bank_profiles}
 
     def _call(self, fn, params: Dict, *args, **kwargs):
-        return fn(params["base"], params["peft"], *args, self.cfg, self.peft,
-                  self.sites, **kwargs, **self._bank_kwargs(params))
+        """fn over the model's trees. With params placed on a mesh
+        (DTensors) the call runs under `dist.dtensor.ops_context` and its
+        first output (next tokens or logits) comes back as a plain tensor
+        holding the whole value on every rank, so the host side (the
+        engine, the scheduler) reads it as on one device; caches stay
+        placed."""
+        if not any_dtensor(params):
+            return fn(params["base"], params["peft"], *args, self.cfg,
+                      self.peft, self.sites, **kwargs,
+                      **self._bank_kwargs(params))
+        with ops_context():
+            out = fn(params["base"], params["peft"], *args, self.cfg,
+                     self.peft, self.sites, **kwargs,
+                     **self._bank_kwargs(params))
+        return (to_plain(out[0]),) + tuple(out[1:])
+
+    def _on_cache(self, fn, cache: Dict, *args):
+        """A cache update (slot write, reset, position commit, page copy)
+        under `ops_context` when the cache is placed on a mesh."""
+        with ops_context(cache):
+            return fn(cache, *args)
 
     # ---- params -----------------------------------------------------------
     def init(self, seed: int, device) -> Dict:
@@ -138,14 +160,60 @@ class Model:
         adapters = peft_mod.init_adapters(gen, self.sites, self.peft, device)
         return {"base": base, "peft": adapters}
 
+    def init_shapes(self) -> Dict:
+        """The params tree on `torch.device("meta")`: every leaf's shape
+        and dtype, nothing allocated and no numbers drawn. Dict keys are
+        sorted at every level, the order of the JAX package's
+        `init_shapes` (its pytrees sort dict keys), so a walk over either
+        tree visits the leaves alike."""
+        gen = torch.Generator()
+        base = self._mod.init_params(gen, self.cfg, "meta")
+        adapters = peft_mod.init_adapters(gen, self.sites, self.peft, "meta")
+        return _sorted_tree({"base": base, "peft": adapters})
+
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """The input batch of `shape` as meta tensors (train and prefill:
+        the whole sequence; decode: one new token per row), the JAX
+        package's `input_specs`."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+
+        def spec(shp, dtype=i32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        T = S if shape.kind in ("train", "prefill") else 1
+        if cfg.family == "vlm":
+            batch = {"embeds": spec((B, T, cfg.d_model), torch.bfloat16),
+                     "positions": spec((3, B, T))}
+        elif cfg.n_codebooks:
+            batch = {"tokens": spec((B, T, cfg.n_codebooks))}
+        else:
+            batch = {"tokens": spec((B, T))}
+        if shape.kind == "train":
+            lbl = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+            batch["labels"] = spec(lbl)
+        return batch
+
+    def cache_specs(self, shape: ShapeConfig) -> Dict:
+        """The bf16 lockstep decode cache of `shape` as meta tensors (keys
+        sorted; an int position becomes an int32 scalar, as in the JAX
+        package's cache)."""
+        cache = self.init_cache(shape.global_batch, shape.seq_len,
+                                torch.bfloat16, "meta")
+        return _sorted_tree(tree_map(
+            lambda x: x if torch.is_tensor(x)
+            else torch.empty((), dtype=torch.int32, device="meta"), cache))
+
     # ---- forward / decode ---------------------------------------------------
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         """The logits (the family's `forward` also returns the MoE aux
         loss, which only the training loss reads)."""
-        return self._mod.forward(params["base"], params["peft"], batch,
-                                 self.cfg, self.peft, self.sites,
-                                 remat=self.remat,
-                                 **self._bank_kwargs(params))[0]
+        with ops_context(params):
+            return self._mod.forward(params["base"], params["peft"], batch,
+                                     self.cfg, self.peft, self.sites,
+                                     remat=self.remat,
+                                     **self._bank_kwargs(params))[0]
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         return self._mod.loss_fn(params["base"], params["peft"], batch,
@@ -224,9 +292,13 @@ class Model:
         the attention resolved for a paged `cache`; a dense cache passes
         none."""
         if "pk" in cache:
+            pk = cache["pk"]
+            attend = self.paged_attention(pk.device, pk.dtype)
+            if is_dtensor(pk):
+                # K3 on each rank's local heads (dist/dtensor.py)
+                attend = local_paged_attention(attend)
             return self._call(fn, params, cache, batch,
-                              paged_attention=self.paged_attention(
-                                  cache["pk"].device, cache["pk"].dtype))
+                              paged_attention=attend)
         return self._call(fn, params, cache, batch)
 
     def paged_attention(self, device, dtype):
@@ -286,19 +358,19 @@ class Model:
                    length) -> Dict:
         """In-flight prefill on the dense per-slot cache: splice a primed
         batch-1 cache into slot row `slot` (position <- `length`)."""
-        return self._slot_mod().write_slot_cache(cache, slot_cache, slot,
-                                                 length)
+        return self._on_cache(self._slot_mod().write_slot_cache, cache,
+                              slot_cache, slot, length)
 
     def reset_slots(self, cache: Dict, mask) -> Dict:
-        return self._slot_mod().reset_slots(cache, mask)
+        return self._on_cache(self._slot_mod().reset_slots, cache, mask)
 
     def advance_pos(self, cache: Dict, delta) -> Dict:
         """Per-slot position commit after verification ((B,) accepted
         counts, or a scalar for the self-drafter's rollback)."""
-        return self._slot_mod().advance_pos(cache, delta)
+        return self._on_cache(self._slot_mod().advance_pos, cache, delta)
 
     def copy_page(self, cache: Dict, src: int, dst: int) -> Dict:
-        return self._slot_mod().copy_page(cache, src, dst)
+        return self._on_cache(self._slot_mod().copy_page, cache, src, dst)
 
     # ---- kernels / accounting ---------------------------------------------
     def kernel_policy(self, device) -> kernel_api.KernelPolicy:
@@ -324,6 +396,29 @@ class Model:
         return peft_mod.count_trainable(self.sites, self.peft)
 
 
+def _sorted_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def build(cfg: ModelConfig, peft: Optional[PEFTConfig] = None,
           remat: str = "none") -> Model:
     return Model(cfg, peft or PEFTConfig(), remat=remat)
+
+
+def analysis_models(methods: Tuple[str, ...] = ("fourierft",),
+                    archs: Optional[Tuple[str, ...]] = None):
+    """Yield (arch_id, method, Model) for every registered config × method at
+    reduced scale — the coverage surface the sharding audit walks
+    (`init_shapes()` is meta tensors; nothing is materialized).
+    Unbuildable combinations (a method whose applicability predicate rejects
+    the family) are skipped: absent params can't need a sharding rule."""
+    from repro_torch import configs
+    for arch in (archs or tuple(configs.ARCHS)):
+        cfg = configs.reduced(configs.get(arch))
+        for m in methods:
+            try:
+                yield arch, m, build(cfg, PEFTConfig(method=m))
+            except (ValueError, NotImplementedError):
+                continue

@@ -50,6 +50,7 @@ from torch.utils import checkpoint as ckpt_util
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import to_device
+from repro_torch.dist.dtensor import index_put_, unshard_dim, write_at
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -326,7 +327,10 @@ def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     """Next tokens after the last position: (B,), or (B, CB)."""
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    # vocab-sharded logits (a DTensor) are gathered along the vocab first:
+    # DTensor's sharded argmax does not take every batch shape
+    return torch.argmax(unshard_dim(logits[:, -1], -1),
+                        dim=-1).to(torch.int32)
 
 
 def _positions(B: int, S: int, device, offset=0) -> torch.Tensor:
@@ -467,8 +471,9 @@ def write_slot_cache(cache: Dict, slot_cache: Dict, slot: int,
         raise ValueError("write_slot_cache needs a per-slot cache")
     P = slot_cache["k"].shape[2]
     for key in ("k", "v"):
-        cache[key][:, slot, :P] = slot_cache[key][:, 0].to(cache[key].dtype)
-    pos[slot] = int(length)
+        write_at(cache[key][:, :, :P], 1, slot,
+                 slot_cache[key][:, 0].to(cache[key].dtype))
+    write_at(pos, 0, slot, int(length))
     return cache
 
 
@@ -579,14 +584,14 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
             att = attn_mod.attention(q, k, v, causal=True)
         x = x + linear(lp, "wo", att.reshape(B, -1, cfg.attn_dim))
         # pad rows may collide inside the scratch page — dirt either way
-        pk[w_page, w_off] = k[0].to(pk.dtype)
-        pv[w_page, w_off] = v[0].to(pv.dtype)
+        index_put_(pk, (w_page, w_off), k[0].to(pk.dtype))
+        index_put_(pv, (w_page, w_off), v[0].to(pv.dtype))
         x, _ = _mlp_block(lp, x, cfg, linear)
     # a tensor index, not a 0-dim one (which the host would read)
     x = x.index_select(1, (tlen - 1).reshape(1))
     next_tokens = _greedy(_logits(params, x, cfg))
     pos = cache["pos"]
-    pos[int(batch["slot"])] = prefix_len + tlen.to(pos.dtype)
+    write_at(pos, 0, int(batch["slot"]), prefix_len + tlen.to(pos.dtype))
     return next_tokens, cache
 
 
@@ -712,14 +717,15 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         if paged:
             # write, then attend: rows of one slot past its pages share
             # its scratch page at distinct offsets while W <= ps
-            ck[w_page, w_off] = k.to(ck.dtype)
-            cv[w_page, w_off] = v.to(cv.dtype)
+            index_put_(ck, (w_page, w_off), k.to(ck.dtype))
+            index_put_(cv, (w_page, w_off), v.to(cv.dtype))
             att = paged_attention(q, ck, cv, bt, kv_len)
         else:
             for c, t in ((ck, k), (cv, v)):
-                c[rows[:, None], col] = t.to(c.dtype)
+                index_put_(c, (rows[:, None], col), t.to(c.dtype))
                 if W > 1:               # one row needs no second write
-                    c[rows, own_col] = t[rows, own].to(c.dtype)
+                    index_put_(c, (rows, own_col),
+                               t[rows, own].to(c.dtype))
             att = attn_mod.windowed_decode_attention(q, ck, cv, kv_len)
         x = x + linear(lp, "wo", att.reshape(B, W, cfg.attn_dim))
         x, _ = _mlp_block(lp, x, cfg, linear)
@@ -735,4 +741,5 @@ def verify_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     the greedy continuation after window token j."""
     logits, cache = verify_logits(params, adapters, cache, batch, cfg, peft,
                                   sites, paged_attention, bank, bank_profiles)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return torch.argmax(unshard_dim(logits, -1),
+                        dim=-1).to(torch.int32), cache

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import PEFTConfig
+from repro_torch.configs.base import PEFTConfig, ShapeConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.adapter import torch_dtype
@@ -382,16 +382,47 @@ class Engine:
     `adapter_id`s. The bank's rows enter every call as params["bank"] and
     the per-request gather rows as batch["adapter_slots"]. The engine
     serves a copy of the model that carries the bank's profiles: the
-    caller's Model is never changed."""
+    caller's Model is never changed.
+
+    mesh: a DeviceMesh (launch/mesh.py) — the params are placed per the
+    plan's state specs (FSDP off) and merged on the mesh (each rank's ΔW
+    shard from K1 on local tensors), and every cache per `cache_specs`
+    (the dense cache and the paged pool alike), so every call runs on
+    DTensors. Every rank runs the same requests; next tokens come back
+    whole on every rank. `plan`: a dist.plan.PlanSource or a
+    `--sharding-plan` string (rules by default), resolved on the mesh.
+    Without a mesh, or on the abstract one-device mesh, nothing is placed
+    and the plan is not resolved (`plan_source` is rules)."""
 
     def __init__(self, model: Model, params: Dict, batch_slots: int,
                  max_len: int, merge: bool = True,
-                 bank: Optional[AdapterBank] = None, device=None):
+                 bank: Optional[AdapterBank] = None, device=None,
+                 mesh=None, plan=None):
         self.device = resolve_device(device)
         if bank is not None and bank.device != self.device:
             raise ValueError(f"the bank lives on {bank.device}, the engine "
                              f"on {self.device}")
         params = tree_to(params, self.device)
+        from repro_torch.dist import plan as plan_mod
+        from repro_torch.dist import sharding as shd
+        from repro_torch.launch import mesh as mesh_mod
+        self.mesh = mesh if shd.is_device_mesh(mesh) else None
+        if self.mesh is not None:
+            mesh_mod.refuse_family_on_mesh(model.cfg, self.mesh)
+            if bank is not None and mesh_mod.mesh_size(self.mesh) > 1:
+                raise NotImplementedError(f"an adapter bank on a "
+                                          f"{mesh_mod.describe(self.mesh)} "
+                                          f"mesh: {mesh_mod.NEXT_SLICE}")
+        self.shape = ShapeConfig("serve", max_len, batch_slots, "decode")
+        # without a mesh placement is the identity: no plan to resolve
+        self.plan_source = plan_mod.RulesSource()
+        if self.mesh is not None:
+            self.plan_source = plan if isinstance(
+                plan, plan_mod.PlanSource) else plan_mod.resolve(
+                    plan, model=model, shape=self.shape, workload="decode",
+                    mesh=self.mesh)
+            params = shd.place(params, self.plan_source.state_specs(
+                params, self.mesh, model.cfg, False), self.mesh)
         # the kernel each targeted (site, op), and each bank group's
         # bank_apply, resolves to on this device — a site a CUDA kernel
         # cannot take raises here, before any work
@@ -424,10 +455,22 @@ class Engine:
 
     def _fresh_cache(self, per_slot: bool = False, paged: bool = False,
                      page_size: int = 16, n_pages: Optional[int] = None):
-        return self.model.init_cache(
+        return self.place_cache(self.model.init_cache(
             self.batch, self.max_len, torch_dtype(self.model.cfg.dtype),
             self.device, per_slot=per_slot, paged=paged,
-            page_size=page_size, n_pages=n_pages)
+            page_size=page_size, n_pages=n_pages))
+
+    def place_cache(self, cache: Dict, batch: Optional[int] = None) -> Dict:
+        """A cache placed on the engine's mesh by the plan's cache specs
+        (`batch` rows: the engine's slot count by default); as it is
+        without a mesh."""
+        if self.mesh is None:
+            return cache
+        from repro_torch.dist import sharding as shd
+        shape = self.shape if batch is None else ShapeConfig(
+            "serve", self.max_len, batch, "decode")
+        return shd.place(cache, self.plan_source.cache_specs(
+            cache, self.mesh, self.model.cfg, shape), self.mesh)
 
     def _batch_extra(self, adapter_ids: Optional[Sequence[Optional[str]]],
                      batch: Optional[int] = None) -> Tuple[Dict, Dict]:

@@ -486,9 +486,9 @@ class ContinuousScheduler:
         if self.pager is None:
             batch = self._bucketed_prompt(prompt)
             batch.update(extra)
-            scratch = self.model.init_cache(
+            scratch = self.engine.place_cache(self.model.init_cache(
                 1, int(batch["tokens"].shape[1]), self.cache["k"].dtype,
-                self.device)
+                self.device), batch=1)
             nt, scratch = self.dispatch("prefill", self.model.prefill, scratch,
                                         batch, state=(params,))
             self.cache = self.dispatch("write", self.model.write_slot, scratch,

@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop (the JAX package's `train/loop.py`, without
-the mesh placement, which comes with the distributed slice).
+"""Fault-tolerant training loop (the JAX package's `train/loop.py`).
 
 Periodic async checkpointing with atomic publish and keep-k retention,
 auto-resume from the latest checkpoint, SIGTERM-safe preemption
@@ -8,7 +7,10 @@ the train step), and a per-step wall-time EWMA with straggler logging.
 Each step reads one value back to the host, its loss, as the JAX loop does.
 
 Data is step-keyed (stateless), so resume replays nothing. Batches are
-moved to the device of the state's step counter.
+moved to the device of the state's step counter. In mesh mode every rank
+makes the same global batch and places it by `batch_sharding` (each keeps
+its shard), and a restored state is re-placed onto `state_sharding`
+(elastic resume onto another mesh).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Callable, Dict, List, Optional
 
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import TrainConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.dtensor import to_plain
 from repro_torch.tree import tree_map
 
 
@@ -38,9 +42,12 @@ def run(train_step: Callable, state: Dict, frozen: Dict, data,
         tcfg: TrainConfig, *, ckpt_dir: Optional[str] = None,
         ckpt_every: int = 0, keep: int = 3, resume: bool = True,
         log_every: int = 50, straggler_factor: float = 3.0,
+        mesh=None, batch_sharding=None, state_sharding=None,
         log_fn: Callable[[str], None] = print) -> tuple[Dict, LoopReport]:
     """Run steps from the state's step to `tcfg.total_steps`. Returns the
-    final state and a `LoopReport`."""
+    final state and a `LoopReport`. mesh / batch_sharding /
+    state_sharding: mesh mode (the placements from train/step.py's
+    make_sharded_train_step and shard_train_state)."""
     report = LoopReport()
     device = state["step"].device
     mgr = None
@@ -53,6 +60,8 @@ def run(train_step: Callable, state: Dict, frozen: Dict, data,
             raw = {k: raw.get(k, state[k]) for k in state}
             state = tree_map(lambda x, a: a.to(device=x.device,
                                                dtype=x.dtype), state, raw)
+            if state_sharding is not None:
+                state = shd.distribute(state, state_sharding, mesh)
             report.resumed_from = at
             log_fn(f"[loop] resumed from step {at}")
 
@@ -64,14 +73,16 @@ def run(train_step: Callable, state: Dict, frozen: Dict, data,
     old_handler = signal.signal(signal.SIGTERM, _on_term)
     ewma = None
     try:
-        start = int(state["step"])
+        start = int(to_plain(state["step"]))
         for step in range(start, tcfg.total_steps):
             t0 = time.perf_counter()
             batch = data.batch_at(step)
             batch = {k: v.to(device, non_blocking=True)
                      for k, v in batch.items()}
+            if batch_sharding is not None:
+                batch = shd.distribute(batch, batch_sharding, mesh)
             state, metrics = train_step(state, frozen, batch)
-            loss = float(metrics["loss"])
+            loss = float(to_plain(metrics["loss"]))
             dt = time.perf_counter() - t0
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
             if dt > straggler_factor * ewma and step > start + 5:
@@ -94,9 +105,10 @@ def run(train_step: Callable, state: Dict, frozen: Dict, data,
                 report.preempted = True
                 break
         if mgr and report.steps_run and not report.preempted:
-            mgr.save(int(state["step"]), state)  # final state
+            # the final state
+            mgr.save(int(to_plain(state["step"])), state)
         report.final_loss = report.losses[-1] if report.losses else float("nan")
-        report.anomalies = int(state["anomalies"])
+        report.anomalies = int(to_plain(state["anomalies"]))
         return state, report
     finally:
         signal.signal(signal.SIGTERM, old_handler)

@@ -1,7 +1,6 @@
 """Train-step factory: PEFT-filtered gradients, microbatch accumulation,
-anomaly-guarded updates (the JAX package's `train/step.py`, without the
-mesh placement and the int8 error-feedback compression, which come with
-the distributed slice, ROADMAP queue 1: Distributed).
+int8 error-feedback gradient compression, anomaly-guarded updates, and
+the placement of the state on a mesh (the JAX package's `train/step.py`).
 
 Parameters are split into (trainable, frozen). Gradients are taken with
 `torch.autograd.grad` w.r.t. the trainable leaves only: the frozen base
@@ -18,6 +17,14 @@ norm skips the update (parameters and optimizer state keep their old
 values, chosen on the device with `torch.where`) and increments
 `anomalies`. A step reads nothing back to the host: the loop's one sync
 per step is its read of the loss.
+
+On a mesh (`shard_train_state`, `make_sharded_train_step`) the state, the
+frozen base and each batch are DTensors placed by the plan's specs, and
+the same step runs on them: DTensor partitions every op, the merged ΔW
+goes through `dist.dtensor.sharded_delta` (K1/K2 on local tensors), and
+the gradients, partial over the batch axes, are all-reduced once (f32)
+before the optimizer. `int8_ef` compresses what the optimizer receives,
+as the JAX step does (`dist/compression.py`).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.peft import trainable_adapter_tree
 from repro_torch.devices import resolve_device
+from repro_torch.dist import dtensor
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw, schedules
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -58,11 +66,14 @@ def join_params(model: Model, trainable: Dict, frozen: Dict) -> Dict:
     return model.join(trainable, frozen)
 
 
+GRAD_COMPRESSION = ("none", "int8_ef")
+
+
 def _check_supported(tcfg: TrainConfig) -> None:
-    if tcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} comes with the "
-            "distributed slice (ROADMAP queue 1: Distributed)")
+    if tcfg.grad_compression not in GRAD_COMPRESSION:
+        raise ValueError(f"unknown grad_compression "
+                         f"{tcfg.grad_compression!r}; one of "
+                         f"{GRAD_COMPRESSION}")
 
 
 def init_state(model: Model, tcfg: TrainConfig, seed: int,
@@ -71,12 +82,15 @@ def init_state(model: Model, tcfg: TrainConfig, seed: int,
     (default `cuda`; raises without a card unless the caller names a
     device)."""
     _check_supported(tcfg)
-    return state_from_params(model, model.init(seed, resolve_device(device)))
+    return state_from_params(model, model.init(seed, resolve_device(device)),
+                             tcfg)
 
 
-def state_from_params(model: Model, params: Dict) -> Tuple[Dict, Dict]:
+def state_from_params(model: Model, params: Dict,
+                      tcfg: TrainConfig = None) -> Tuple[Dict, Dict]:
     """-> (state, frozen). state = {step, trainable, opt, loss_ema,
-    anomalies} on the device of the params' trainable leaves."""
+    anomalies} (+ ef_residual when `tcfg` asks for int8 error-feedback
+    compression) on the device of the params' trainable leaves."""
     trainable, frozen = split_params(model, params)
     dev = tree_leaves(trainable)[0].device
     state = {
@@ -86,6 +100,9 @@ def state_from_params(model: Model, params: Dict) -> Tuple[Dict, Dict]:
         "loss_ema": torch.zeros((), dtype=torch.float32, device=dev),
         "anomalies": torch.zeros((), dtype=torch.int32, device=dev),
     }
+    if tcfg is not None and tcfg.grad_compression == "int8_ef":
+        from repro_torch.dist import compression
+        state["ef_residual"] = compression.init_residual(trainable)
     return state, frozen
 
 
@@ -146,12 +163,28 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         scale = 1.0 / k
         return loss * scale, tree_map(lambda g: g * scale, grads)
 
+    compress = tcfg.grad_compression == "int8_ef"
+    if compress:
+        from repro_torch.dist import compression
+
     def train_step(state: Dict, frozen: Dict, batch: Dict):
         device = state["step"].device
         if device not in validated:
             model.kernel_policy(device).validate()
             validated.add(device)
+        # on a mesh: plain tensors meeting DTensors count as replicated
+        with dtensor.ops_context(state):
+            return _step(state, frozen, batch)
+
+    def _step(state: Dict, frozen: Dict, batch: Dict):
         loss, grads = grads_of(state["trainable"], frozen, batch)
+        # the gradient all-reduce over the batch axes, f32, once
+        grads = tree_map(dtensor.reduce_partial, grads)
+        if compress:
+            # what the cross-node all-reduce would transport: int8 + carried
+            # quantization residual (dist/compression.py)
+            grads, new_residual = compression.compress_with_feedback(
+                grads, state["ef_residual"])
         grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
         lr = schedules.lr_at(state["step"], tcfg)
         new_params, new_opt = adamw.update(grads, state["opt"],
@@ -170,8 +203,67 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
                 0.99 * ema + 0.01 * torch.where(bad, ema, loss)),
             "anomalies": state["anomalies"] + bad.to(torch.int32),
         }
+        if compress:
+            state_out["ef_residual"] = keep_old(new_residual,
+                                                state["ef_residual"])
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                    "skipped": bad.to(torch.int32)}
         return state_out, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Mesh placement (dist/plan.py sources; rules remain the default)
+# ---------------------------------------------------------------------------
+
+def _plan_source(plan):
+    from repro_torch.dist import plan as plan_mod
+    if plan is None or isinstance(plan, plan_mod.PlanSource):
+        return plan or plan_mod.RulesSource()
+    # a ShardingPlan object or a plan-file path
+    if isinstance(plan, str):
+        return plan_mod.PlanTableSource(plan_mod.ShardingPlan.load(plan))
+    return plan_mod.PlanTableSource(plan)
+
+
+def _state_placements(model: Model, tree: Dict, mesh, fsdp, src):
+    from repro_torch.dist import sharding as shd
+    return shd.named(tree, src.state_specs(tree, mesh, model.cfg, fsdp),
+                     mesh)
+
+
+def shard_train_state(model: Model, state: Dict, frozen: Dict, mesh,
+                      fsdp: bool = None, plan=None):
+    """Place (state, frozen) on `mesh` per the resolved plan source
+    (`plan`: None/rules | PlanSource | ShardingPlan | plan-file path;
+    `fsdp` None = `sharding.fsdp_default`). Returns (state, frozen,
+    state_placements, frozen_placements): DTensors on a DeviceMesh, the
+    trees unchanged on the abstract one-device mesh."""
+    from repro_torch.dist import sharding as shd
+    src = _plan_source(plan)
+    if fsdp is None:
+        fsdp = shd.fsdp_default(model.cfg, mesh)
+    st_sh = _state_placements(model, state, mesh, fsdp, src)
+    fr_sh = _state_placements(model, frozen, mesh, fsdp, src)
+    return (shd.distribute(state, st_sh, mesh),
+            shd.distribute(frozen, fr_sh, mesh), st_sh, fr_sh)
+
+
+def make_sharded_train_step(model: Model, tcfg: TrainConfig, mesh,
+                            batch_example: Dict, plan=None):
+    """The train step for a state placed on `mesh` (by shard_train_state:
+    a DTensor carries its own placements, so the step needs nothing more),
+    and the placements of its batches. `batch_example`'s leading dim is
+    the global batch. Returns (step, batch_placements) — place batches
+    with `sharding.distribute(batch, batch_placements, mesh)` (train/loop.py
+    does this when given `batch_sharding`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as shd
+    src = _plan_source(plan)
+    ref = batch_example.get("tokens", batch_example.get("embeds"))
+    shape = ShapeConfig("runtime", int(ref.shape[1]), int(ref.shape[0]),
+                        "train")
+    b_sh = shd.named(batch_example,
+                     src.batch_specs(batch_example, mesh, shape), mesh)
+    return make_train_step(model, tcfg), b_sh

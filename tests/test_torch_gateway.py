@@ -767,8 +767,28 @@ def test_api_launcher_boots_and_serves_the_replay(tmp_path):
     assert tokens == req.out
 
 
-def test_api_launcher_refuses_mesh_flags():
-    for extra in (["--model-parallel", "2"], ["--sharding-plan", "search"]):
-        with pytest.raises(SystemExit, match="no mesh"):
-            launch_api.main(["--arch", "yi-6b", "--reduced", "--device",
-                             "cpu", "--port", "0", *extra])
+def test_api_launcher_refuses_mesh_flags(monkeypatch):
+    """The mesh flags route through the mesh path: a searched plan serves
+    at world size 1 (with no process group the mesh is the one device:
+    nothing is placed, so no plan is resolved), a model axis wider than
+    the ranks is refused (as the JAX launcher's make_host_mesh refuses
+    it), and more than one rank is refused with the slice that brings the
+    gateway across ranks."""
+    ap = launch_api.argparse.ArgumentParser()
+    launch_api.add_model_args(ap)
+    base = ["--arch", "yi-6b", "--reduced", "--device", "cpu"]
+    runs = {}
+    for plan in ("rules", "search"):
+        sched, _ = launch_api.build_scheduler(
+            ap.parse_args(base + ["--sharding-plan", plan]))
+        assert sched.engine.mesh is None
+        assert sched.engine.plan_source.kind == "rules"
+        req = _req([1, 2, 3], 5)
+        sched.serve([req])
+        runs[plan] = req.out
+    assert len(runs["search"]) == 5 and runs["search"] == runs["rules"]
+    with pytest.raises(ValueError, match="does not divide"):
+        launch_api.main(base + ["--port", "0", "--model-parallel", "2"])
+    monkeypatch.setattr(launch_api.mesh_mod, "world_size", lambda: 2)
+    with pytest.raises(SystemExit, match="gateway across ranks"):
+        launch_api.main(base + ["--port", "0"])

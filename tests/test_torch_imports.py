@@ -60,6 +60,19 @@ def test_walk_covers_the_analysis_modules():
         assert f"src/repro_torch/analysis/{name}.py" in walked
 
 
+def test_walk_covers_the_dist_modules():
+    walked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("__init__", "sharding", "cost_model", "plan", "planner",
+                 "compression", "opstats", "dtensor"):
+        assert f"src/repro_torch/dist/{name}.py" in walked
+    for rel in ("launch/mesh.py", "analysis/sharding_audit.py"):
+        assert f"src/repro_torch/{rel}" in walked
+    import repro_torch.dist as dist_pkg
+    assert set(dist_pkg.__all__) == {"compression", "cost_model", "dtensor",
+                                     "opstats", "plan", "planner",
+                                     "sharding"}
+
+
 def _tiny():
     cfg = configs.reduced(configs.get("yi-6b")).replace(
         vocab=64, param_dtype="float32", dtype="float32")
@@ -95,13 +108,13 @@ def test_unported_paths_are_rejected():
     model, params = _tiny()
     engine = Engine(model, params, batch_slots=2, max_len=32, device="cpu")
     from repro_torch.launch import api as launch_api
-    with pytest.raises(SystemExit, match="no mesh"):
+    with pytest.raises(ValueError, match="does not divide"):
         launch_api.main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
                          "--model-parallel", "2"])
     from repro_torch.train import step as train_step
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(ValueError, match="unknown grad_compression"):
         train_step.make_train_step(model,
-                                   TrainConfig(grad_compression="int8_ef"))
+                                   TrainConfig(grad_compression="int4"))
     for arch in ("zamba2-7b", "mamba2-2.7b"):
         # the recurrent families build; their per-slot and paged caches do
         # not exist (in the JAX package neither)
