@@ -367,8 +367,32 @@ no result line:
               query and KV heads (side by side equal to the whole heads'),
               each held to its plain version (`tp2_local_checks`). The
               phase is `chip_smoke.mesh_phase`.
+22. families mesh — every family, the bank and the gateway on the mesh
+              path, one rank under `torchrun` (NCCL, DTensors) against
+              the same run without a process group. (a) olmoe-1b-7b at
+              full size, 5 train steps of 1 x 2048: losses and each
+              site's trained |c| bitwise the plain run's, K1 = K2 = 2 a
+              step; the 8-request continuous trace: streams equal, K3 =
+              steps x 16. (b) mamba2-2.7b at full size (remat full), 3
+              steps of 1 x 2048, the same equalities; lockstep serving,
+              streams equal. (c) Phase 13's five tenants on the DTensor
+              engine of a one-rank group in process: streams equal the
+              plain bank's. (d) `launch.api` under `torchrun
+              --nproc-per-node 1` through the broadcast pump: the HTTP
+              streams equal the in-process replay. (e) A 1x2 rank's
+              calls in process: K2 on each zero-padded half of
+              mamba2's wx/wo_ssm cotangents (halves summed against the
+              whole), K3 on olmoe's 8 of 16 heads (the halves side by
+              side bit-identical to the whole heads'). (f) The
+              production dry run, each cell `launch.dryrun` in its own
+              process on the card route (fake 16x16 group): yi-6b
+              train_4k and decode_32k, olmoe-1b-7b train_4k, and yi-6b
+              train_4k with the searched plan, whose collective bytes
+              must not exceed the rules'; started first, they run on
+              the host while (a)-(e) use the card. The phase is
+              `chip_smoke.families_mesh_phase`.
 15. kernels — one JSON line with each kernel's launches (by path, phases
-              16's to 21's included), error and times; printed last.
+              16's to 22's included), error and times; printed last.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX; it needs a CUDA device and the repository's `src/` beside it.
@@ -3357,7 +3381,9 @@ def _streams(stdout: str) -> list:
             if ln.startswith("request ")]
 
 
-def tp2_local_checks(dev, cfg, n: int, alpha: float, sync) -> dict:
+def tp2_local_checks(dev, cfg, n: int, alpha: float, sync, sites=None,
+                     k3_cfg=None, tag: str = "mesh",
+                     label: str = "[mesh] (d)") -> dict:
     """Phase 21d: the local calls a rank of a 1x2 (data 1, model 2) mesh
     makes, in process (two ranks cannot share the card). K2 on each
     zero-padded half of a ΔW cotangent column-sharded over `model` (what
@@ -3369,7 +3395,10 @@ def tp2_local_checks(dev, cfg, n: int, alpha: float, sync) -> dict:
     hands it) at the serve launcher's cache (2 slots, pages of 16, 128
     rows), bf16: each half within agreement_limit of the plain version,
     and the halves side by side within agreement_limit of the whole
-    heads' K3."""
+    heads' K3. `sites` ((name, d1, d2) of cfg's stacks; default wq and
+    wv) and `k3_cfg` (the heads; default cfg's) pick the shapes; phase 22
+    passes mamba2's wx/wo_ssm and olmoe's 16 heads and requires the
+    halves side by side to equal the whole bit for bit."""
     import torch
     from repro_torch.core.fourierft import sample_entries
     from repro_torch.kernels import fourier_deltaw as fdk
@@ -3377,9 +3406,10 @@ def tp2_local_checks(dev, cfg, n: int, alpha: float, sync) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(21)
     out = {"K2": {}, "K3": {}}
-    L, d = cfg.num_layers, cfg.d_model
-    dh = cfg.head_dim
-    for site, d2 in (("wq", cfg.attn_dim), ("wv", cfg.kv_dim)):
+    L = cfg.num_layers
+    sites = sites or (("wq", cfg.d_model, cfg.attn_dim),
+                      ("wv", cfg.d_model, cfg.kv_dim))
+    for site, d, d2 in sites:
         entries = sample_entries(d, d2, n, seed=7).to(dev)
         u, v = padded_entries(entries, n, fdk.NC)
         g = torch.randn((L, d, d2), generator=gen, device=dev)
@@ -3416,13 +3446,14 @@ def tp2_local_checks(dev, cfg, n: int, alpha: float, sync) -> dict:
         out["K2"][site] = {"shape": [L, d, d2], "half_max_abs_err": half_err,
                            "sum_to_whole": to_whole, "sum_to_plain": sum_plain,
                            "limit": REL_TO_PLAIN * scale}
-        print(f"[mesh] (d) K2 at {site} ({L}x{d}x{d2}), each rank's "
+        print(f"{label} K2 at {site} ({L}x{d}x{d2}), each rank's "
               f"zero-padded half of {d2 // 2} columns: max |kernel - plain| "
               f"{half_err:.3e}; halves summed {to_whole:.3e} from the whole's "
               f"K2, {sum_plain:.3e} from its plain version (limit "
               f"{REL_TO_PLAIN * scale:.3e})")
         del g, whole, ref_whole, summed
-    H, K = cfg.n_heads, cfg.n_kv
+    hc = k3_cfg or cfg
+    H, K, dh = hc.n_heads, hc.n_kv, hc.head_dim
     B, ps, pps = 2, 16, 128 // 16
     bt = torch.arange(B * pps, dtype=torch.int32,
                       device=dev).reshape(B, pps) + 1
@@ -3461,7 +3492,10 @@ def tp2_local_checks(dev, cfg, n: int, alpha: float, sync) -> dict:
     out["K3"] = {"local_heads": [H // 2, K // 2], "head_dim": dh,
                  "share_of_limit": share, "halves_to_whole": to_whole,
                  "halves_equal_whole": bool(torch.equal(side, whole))}
-    print(f"[mesh] (d) K3 on a rank's {H // 2} query and {K // 2} KV heads "
+    if k3_cfg is not None and not out["K3"]["halves_equal_whole"]:
+        raise PhaseError(f"{tag}: K3 on the two ranks' heads side by side "
+                         "is not bit-identical to the whole heads' K3")
+    print(f"{label} K3 on a rank's {H // 2} query and {K // 2} KV heads "
           f"(head_dim {dh}, bf16): {share:.3f} of agreement_limit; the two "
           f"ranks' heads side by side {to_whole:.3f} of it from the whole "
           f"heads' K3 (bit-identical: {out['K3']['halves_equal_whole']})")
@@ -3579,6 +3613,322 @@ def mesh_phase(dev, cfg) -> dict:
     print(f"[mesh] phase 21 took {out['phase_s']:.1f} s")
     print(json.dumps({"mesh": out}))
     return out
+
+
+DRYRUN_CELLS = (("yi-6b", "train_4k", "rules"),
+                ("yi-6b", "decode_32k", "rules"),
+                ("olmoe-1b-7b", "train_4k", "rules"),
+                ("yi-6b", "train_4k", "search"))
+
+
+def _start_dryruns(out_dir: Path):
+    """Phase 22f's cells, each `launch.dryrun` in a process of its own
+    (a fake group of 256 ranks is global), all started at once: they run
+    on the host's cores while the card serves (a)-(e)."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["OMP_NUM_THREADS"] = "1"
+    procs = []
+    for arch, shape, plan in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--route", "card",
+               "--out", str(out_dir), "--force", "--variant",
+               "baseline" if plan == "rules" else plan,
+               "--sharding-plan", plan]
+        procs.append(((arch, shape, plan), subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _finish_dryruns(procs, out_dir: Path, hbm: float, timeout: float):
+    """Wait for phase 22f's cells; -> {cell: result JSON}."""
+    from repro_torch.launch.dryrun_lib import cell_tag
+    out = {}
+    deadline = time.perf_counter() + timeout
+    for (arch, shape, plan), p in procs:
+        try:
+            so, se = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for _, q in procs:
+                q.kill()
+            raise PhaseError(f"families mesh: dry run {arch} {shape} {plan} "
+                             f"did not finish in {timeout:.0f} s")
+        if p.returncode != 0:
+            raise PhaseError(f"families mesh: dry run {arch} {shape} {plan} "
+                             f"exited {p.returncode}: {se[-3000:]}")
+        variant = "baseline" if plan == "rules" else plan
+        with open(out_dir / (cell_tag(arch, shape, False, variant)
+                             + ".json")) as fh:
+            res = json.load(fh)
+        m = res["memory"]
+        if res["route"] != "card" or not res["flops_per_device"] > 0:
+            raise PhaseError(f"families mesh: dry run {arch} {shape}: "
+                             f"route {res['route']}, flops "
+                             f"{res['flops_per_device']}")
+        if res["kind"] == "train" and res["kernel_counts"].get(
+                "fourier_deltaw", 0) < 1:
+            raise PhaseError(f"families mesh: the card-route dry run of "
+                             f"{arch} {shape} traced no K1 "
+                             f"({res['kernel_counts']})")
+        if abs(m["hbm_bytes"] - hbm) > 1:
+            raise PhaseError(f"families mesh: dry run read {m['hbm_bytes']} "
+                             f"bytes of memory, the card has {hbm}")
+        out[f"{arch} {shape} {plan}"] = res
+        print(f"[families mesh] (f) {arch} {shape} on 16x16 ({plan}, card "
+              f"route): flops/dev {res['flops_per_device']:.4e} (dot "
+              f"{res['dot_flops_per_device']:.4e}), bytes/dev "
+              f"{res['bytes_per_device']:.4e} (upper "
+              f"{res['bytes_per_device_upper']:.4e}), collectives "
+              f"{json.dumps(res['collectives'])} "
+              f"({res['collective_bytes_per_device']:.4e} B), kernels "
+              f"{json.dumps(res['kernel_counts'])}, peak "
+              f"{m['peak_estimate_bytes'] / 1e9:.2f} GB (args "
+              f"{m['argument_bytes'] / 1e9:.2f}, temp "
+              f"{m['temp_bytes'] / 1e9:.2f}), fits_hbm {m['fits_hbm']} "
+              f"against the card's {hbm / 1e9:.1f} GB; dominant "
+              f"{res['dominant']}, traced in {res['compile_seconds']:.1f} s")
+    rules = out["yi-6b train_4k rules"]["collective_bytes_per_device"]
+    search = out["yi-6b train_4k search"]["collective_bytes_per_device"]
+    if search > rules:
+        raise PhaseError(f"families mesh: yi-6b train_4k, the searched plan "
+                         f"moves {search:.4e} collective bytes a device, "
+                         f"more than the rules' {rules:.4e}")
+    print(f"[families mesh] (f) yi-6b train_4k: searched plan {search:.4e} "
+          f"collective bytes a device, rules {rules:.4e}")
+    return out
+
+
+def _gateway_run(flags, prompts, max_new: int):
+    """`launch.api` under `torchrun --nproc-per-node 1` (the broadcast
+    pump on a one-rank group): post each prompt in turn, read the
+    streams, stop rank 0 by its pid. -> (token lists, stdout)."""
+    import os
+    import signal
+    import urllib.request
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.api", *flags,
+         "--port", "0"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        if "gateway listening on http://127.0.0.1:" not in line:
+            proc.kill()
+            raise PhaseError(f"families mesh: the API launcher did not "
+                             f"start: {line}{proc.stderr.read()[-3000:]}")
+        port = int(line.split("127.0.0.1:")[1].split()[0])
+        pid = int(line.split("pid ")[1].split(")")[0])
+        streams = []
+        for p in prompts:
+            body = json.dumps({"model": "base", "prompt": p,
+                               "max_tokens": max_new,
+                               "stream": False}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/completions", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                streams.append(json.loads(r.read())["choices"][0]
+                               ["token_ids"])
+        os.kill(pid, signal.SIGTERM)
+        so, se = proc.communicate(timeout=120)
+    except BaseException:
+        proc.kill()
+        raise
+    if proc.returncode != 0 or "gateway shutting down" not in so:
+        raise PhaseError(f"families mesh: the API launcher exited "
+                         f"{proc.returncode}: {se[-3000:]}")
+    return streams, line + so
+
+
+def families_mesh_phase(dev, tenant_cfg) -> dict:
+    """Phase 22: every family, the adapter bank and the gateway on the
+    mesh path, one rank on the card, against the same runs with no
+    process group; a 1x2 rank's kernel calls in process; the production
+    dry run's cells on the card route (module docstring). Returns the
+    launch counts for the kernels line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import PEFTConfig
+    from repro_torch.dist import cost_model
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import build
+    from repro_torch.serve import AdapterBank, ContinuousScheduler, Engine
+    from repro_torch.serve.engine import Request
+    out = {}
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    dry_dir = root / "build" / "dryrun22"
+    tenant_dir = root / "build" / "tenants22"
+    procs = _start_dryruns(dry_dir)
+    try:
+        # ---- a/b. olmoe and mamba2 at full size: train and serve -------
+        for key, arch, steps, layers in (("olmoe", "olmoe-1b-7b", 5, 16),
+                                         ("mamba2", "mamba2-2.7b", 3, 64)):
+            targs = ["--arch", arch, "--steps", str(steps), "--batch", "1",
+                     "--seq", "2048"]
+            if key == "mamba2":
+                # 64 layers at S 2048 keep every activation without it
+                # (phase 19 trains mamba2 so too)
+                targs += ["--remat", "full"]
+            _, meshed = _launcher("repro_torch.launch.train",
+                                  targs + ["--model-parallel", "1"], ranks=1)
+            _, plain = _launcher("repro_torch.launch.train", targs)
+            if "mesh=1x1" not in meshed:
+                raise PhaseError(f"families mesh: {arch} under torchrun did "
+                                 "not report its 1x1 mesh")
+            lm, lp = _tagged(meshed, "losses: "), _tagged(plain, "losses: ")
+            nm = _tagged(meshed, "adapter_norms: ")
+            np_ = _tagged(plain, "adapter_norms: ")
+            if not all(math.isfinite(v) for v in lm) or lm != lp \
+                    or nm != np_:
+                raise PhaseError(f"families mesh: {arch} DTensor losses {lm} "
+                                 f"|c| {nm} vs plain {lp} {np_}: not equal")
+            kl = _launches(meshed)
+            if kl.get("K1") != 2 * steps or kl.get("K2") != 2 * steps:
+                raise PhaseError(f"families mesh: {arch} launched {kl}; "
+                                 f"expected K1 = K2 = 2 sites x {steps} "
+                                 "steps")
+            ms = _tagged(meshed, "step_ms: ")[1:]
+            mp = _tagged(plain, "step_ms: ")[1:]
+            rec = {"losses": lm, "adapter_norms": nm, "launches": kl,
+                   "warm_ms_dtensor": statistics.median(ms),
+                   "warm_ms_plain": statistics.median(mp)}
+            print(f"[families mesh] ({'a' if key == 'olmoe' else 'b'}) "
+                  f"{arch} 1-rank DTensor train, {steps} steps of 1 x 2048: "
+                  f"losses {lm} equal the plain path's; trained |c| {nm} "
+                  f"equal; K1 {kl['K1']} K2 {kl['K2']}; warm step median "
+                  f"DTensor {rec['warm_ms_dtensor']:.1f} ms, plain "
+                  f"{rec['warm_ms_plain']:.1f} ms")
+            sargs = ["--arch", arch, "--max-new", "8"]
+            if key == "olmoe":
+                sargs += ["--continuous", "--trace-n", "8"]
+            _, splain = _launcher("repro_torch.launch.serve", sargs)
+            _, smesh = _launcher("repro_torch.launch.serve", sargs,
+                                 ranks=1)
+            pick = _streams if key == "olmoe" else (
+                lambda so: [ln for ln in so.splitlines()
+                            if ln.startswith("prompt ")])
+            a, b = pick(smesh), pick(splain)
+            if not a or a != b:
+                raise PhaseError(f"families mesh: {arch} DTensor streams "
+                                 f"{a} vs plain {b}")
+            rec["streams"] = len(a)
+            if key == "olmoe":
+                ks = _launches(smesh)
+                steps_line = next(ln for ln in smesh.splitlines()
+                                  if ln.startswith("continuous: "))
+                nsteps = int(steps_line.split(" steps")[0].split()[-1])
+                if ks["K3"] != nsteps * layers:
+                    raise PhaseError(f"families mesh: olmoe served K3 "
+                                     f"{ks['K3']} times; expected {nsteps} "
+                                     f"steps x {layers} layers")
+                rec["serve_launches"] = ks
+                rec["decode_steps"] = nsteps
+            print(f"[families mesh] ({'a' if key == 'olmoe' else 'b'}) "
+                  f"{arch} 1-rank DTensor serve "
+                  f"({'continuous' if key == 'olmoe' else 'lockstep'}): "
+                  f"{len(a)} streams equal the plain path's"
+                  + (f"; K3 {rec['serve_launches']['K3']} = "
+                     f"{rec['decode_steps']} steps x {layers}, K1 "
+                     f"{rec['serve_launches']['K1']} (merge)"
+                     if key == "olmoe" else ""))
+            out[key] = rec
+
+        # ---- c. the adapter bank on the DTensor engine -------------------
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = mesh_mod.make_host_mesh()
+            bmodel = build(tenant_cfg, PEFTConfig(method="none"))
+            bparams = bmodel.init(0, dev)
+            profiles, tenant_ids = bank_tenants(dev, bmodel, bparams,
+                                                tenant_dir)
+            prompts = [torch.tensor([(7 * i + j) % tenant_cfg.vocab
+                                     for j in range(5 + i)],
+                                    dtype=torch.int32) for i in range(5)]
+            streams = {}
+            for tag, m in (("plain", None), ("dtensor", mesh)):
+                bank = AdapterBank(bmodel, profiles, capacity=3,
+                                   checkpoint_dir=str(tenant_dir),
+                                   device=dev)
+                eng = Engine(bmodel, bparams, batch_slots=4, max_len=64,
+                             bank=bank, device=dev, mesh=m)
+                sched = ContinuousScheduler(eng, page_size=16)
+                reqs = [Request(prompt=p, max_new=8, adapter_id=tid)
+                        for p, tid in zip(prompts, tenant_ids)]
+                sched.serve(reqs)
+                streams[tag] = [r.out for r in reqs]
+                del sched, eng, bank
+            if streams["dtensor"] != streams["plain"]:
+                raise PhaseError(f"families mesh: the bank on the DTensor "
+                                 f"engine streamed {streams['dtensor']}, "
+                                 f"the plain bank {streams['plain']}")
+        finally:
+            dist.destroy_process_group()
+        out["bank"] = {"tenants": len(prompts), "streams_equal": True}
+        print(f"[families mesh] (c) the adapter bank (phase 13's five "
+              f"tenants, capacity 3) on the DTensor engine of a one-rank "
+              f"group: {len(prompts)} streams equal the plain bank's")
+
+        # ---- d. the API launcher under torchrun, through the pump --------
+        flags = ["--arch", "yi-6b", "--layers", "2", "--dtype", "float32",
+                 "--slots", "4", "--max-len", "128"]
+        gprompts = [[1, 2, 3, 4], [5, 6, 7], [1, 2, 3, 4, 9, 10], [11]]
+        got, gout = _gateway_run(flags, gprompts, 8)
+        from repro_torch.launch import api as launch_api
+        ap = launch_api.argparse.ArgumentParser()
+        launch_api.add_model_args(ap)
+        sched, _ = launch_api.build_scheduler(ap.parse_args(flags))
+        want = []
+        for p in gprompts:
+            r = Request(prompt=torch.tensor(p, dtype=torch.int32),
+                        max_new=8)
+            sched.serve([r])
+            want.append(r.out)
+        del sched
+        if got != want or "1 ranks" not in gout:
+            raise PhaseError(f"families mesh: the gateway under torchrun "
+                             f"streamed {got}, the replay {want}")
+        out["gateway"] = {"requests": len(got), "streams_equal": True}
+        print(f"[families mesh] (d) launch.api under torchrun (one rank, "
+              f"the broadcast pump): {len(got)} HTTP streams equal the "
+              "in-process replay")
+
+        # ---- e. a 1x2 rank's kernel calls, in process --------------------
+        mcfg = configs.get("mamba2-2.7b")
+        d_inner = mcfg.ssm.expand * mcfg.d_model
+        out["tp2_local"] = tp2_local_checks(
+            dev, mcfg, 1000, 300.0, torch.cuda.synchronize,
+            sites=(("wx", mcfg.d_model, d_inner),
+                   ("wo_ssm", d_inner, mcfg.d_model)),
+            k3_cfg=configs.get("olmoe-1b-7b"), tag="families mesh",
+            label="[families mesh] (e)")
+        torch.cuda.empty_cache()
+
+        # ---- f. the production dry run on the card route ------------------
+        out["dryrun"] = _finish_dryruns(
+            procs, dry_dir, cost_model.device_hbm_bytes(dev), 900.0)
+        procs = []
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[families mesh] phase 22 took {out['phase_s']:.1f} s")
+    print(json.dumps({"families_mesh": {
+        k: v for k, v in out.items() if k != "dryrun"}}))
+    return out
+
 
 
 def main() -> int:
@@ -4590,6 +4940,20 @@ def main() -> int:
     mk = {**mesh["train"]["launches"], "K3": mesh["serve"]["launches"]["K3"],
           "K1_merge": mesh["serve"]["launches"]["K1"]}
 
+    # ---- 22. families mesh: every family, the bank and the gateway -------
+    torch.cuda.empty_cache()
+    print(f"[memory] before phase 22: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    try:
+        fm = families_mesh_phase(dev, cfg)
+    except PhaseError as e:
+        return fail(str(e))
+    fk = {"K1": fm["olmoe"]["launches"]["K1"]
+          + fm["mamba2"]["launches"]["K1"],
+          "K2": fm["olmoe"]["launches"]["K2"]
+          + fm["mamba2"]["launches"]["K2"],
+          "K3": fm["olmoe"]["serve_launches"]["K3"]}
+
     # ---- 15. kernels line (printed last) ------------------------------------
     kb = k3["bfloat16"]
     print(json.dumps({"kernels": [
@@ -4609,7 +4973,8 @@ def main() -> int:
                               "hybrid_merge": sl["hybrid_merge"]["K1"],
                               "analysis": al["K1"],
                               "mesh_train": mk["K1"],
-                              "mesh_merge": mk["K1_merge"]},
+                              "mesh_merge": mk["K1_merge"],
+                              "families_mesh_train": fk["K1"]},
          "family_shapes": k1_family,
          "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -4628,7 +4993,8 @@ def main() -> int:
                               "ssm_train": sl["ssm_train"]["K2"],
                               "hybrid_train": sl["hybrid_train"]["K2"],
                               "analysis": al["K2"],
-                              "mesh_train": mk["K2"]},
+                              "mesh_train": mk["K2"],
+                              "families_mesh_train": fk["K2"]},
          "family_shapes": k2_family,
          "max_abs_err": k2["err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -4655,7 +5021,8 @@ def main() -> int:
                               "gateway_serve": tiering["k3"]["gateway"],
                               "families_serve": fam_k3,
                               "analysis": al["K3"],
-                              "mesh_serve": mk["K3"]},
+                              "mesh_serve": mk["K3"],
+                              "families_mesh_serve": fk["K3"]},
          "design": "split-KV over pages (flash-decoding), cp.async ring of "
                    "two chunks, mma.sync bf16 / FP32 FMA, fixed-order "
                    "combine",

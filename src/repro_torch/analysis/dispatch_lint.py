@@ -169,6 +169,11 @@ class DispatchRecorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs it; its local ops and collectives come back
+            # through this mode, and those are what run on the device
+            return NotImplemented
         out = func(*args, **kwargs)
         region = self._cur
         if region is None:

@@ -10,6 +10,11 @@ device and at a given size:
   recipe), each step one loop region, checked for host transfers,
   f32-literal upcasts and donation (every state tensor's `data_ptr()`
   before and after a step).
+- **train_step/mesh**: the same step through the mesh path (`train/
+  step.py`'s `shard_train_state` and `make_sharded_train_step`) on a
+  one-rank process group: DTensors, the DTensor boundary of the ΔW
+  (`dist.dtensor.sharded_delta`), the gradient reduction. The recorder
+  sees the local ops and collectives DTensor issues.
 - **serve**: a traffic replay through the paged `ContinuousScheduler`, and
   its `SelfDrafter(k=2)` variant, each scheduler round one loop region
   (named `decode` when it admitted nothing, else `admit`), checked for
@@ -60,18 +65,28 @@ def tiny_trace(budgets: Sequence[int], vocab: int = 64):
             for i, b in enumerate(budgets)]
 
 
-def lint_train(model, params, batches: Sequence[Dict], device
+def lint_train(model, params, batches: Sequence[Dict], device, mesh=None
                ) -> Tuple[List[Finding], DispatchRecorder]:
     """Run `len(batches)` merged train steps of `model` from `params`
-    under a recorder, each a `train_step` region; -> (host-transfer,
-    upcast and donation findings, the recorder). The first step is
-    recorded like the rest (nothing is compiled in eager PyTorch)."""
+    under a recorder, each a `train_step` region (`train_step/mesh`
+    through the mesh path when `mesh`, a DeviceMesh, is given: state and
+    batches placed by the rules); -> (host-transfer, upcast and donation
+    findings, the recorder). The first step is recorded like the rest
+    (nothing is compiled in eager PyTorch)."""
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import sharding as shd
     from repro_torch.train import step as train_step
-    label = "train_step"
+    label = "train_step" if mesh is None else "train_step/mesh"
     tcfg = TrainConfig(total_steps=max(4, len(batches)))
     state, frozen = train_step.state_from_params(model, params)
-    step = train_step.make_train_step(model, tcfg)
+    if mesh is None:
+        step = train_step.make_train_step(model, tcfg)
+    else:
+        state, frozen, _, _ = train_step.shard_train_state(
+            model, state, frozen, mesh)
+        step, b_sh = train_step.make_sharded_train_step(
+            model, tcfg, mesh, batches[0])
+        batches = [shd.distribute(b, b_sh, mesh) for b in batches]
     rec = DispatchRecorder(device)
     out: List[Finding] = []
     with rec:
@@ -130,6 +145,42 @@ def train_findings(device="cpu") -> List[Finding]:
     return lint_train(model, params, batches, device)[0]
 
 
+def one_rank_mesh(device):
+    """(a 1x1 DeviceMesh over the process group, whether this call made
+    the group): the group torchrun made, else a one-rank group of its own
+    (gloo in process for the CPU, NCCL for the card)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    made = not dist.is_initialized()
+    if made:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        else:
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+    return mesh_mod.make_mesh((1, 1), ("data", "model")), made
+
+
+def mesh_train_findings(device="cpu") -> List[Finding]:
+    """`train_findings`' steps through the mesh path on a one-rank group
+    (at world size 1 under torchrun, or a group made here and left)."""
+    import torch.distributed as dist
+    from repro_torch.data import SyntheticLM
+    mesh, made = one_rank_mesh(device)
+    try:
+        model = tiny_train_model()
+        params = model.init(0, device)
+        data = SyntheticLM(vocab=64, batch=2, seq=16, seed=0)
+        batches = [{k: t.to(device) for k, t in data.batch_at(i).items()}
+                   for i in range(3)]
+        return lint_train(model, params, batches, device, mesh=mesh)[0]
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def serve_findings(device="cpu") -> List[Finding]:
     from repro_torch.serve import Engine, SelfDrafter
     model = tiny_serve_model()
@@ -144,4 +195,8 @@ def serve_findings(device="cpu") -> List[Finding]:
 
 
 def run(device="cpu") -> List[Finding]:
-    return train_findings(device) + serve_findings(device)
+    out = train_findings(device) + serve_findings(device)
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        out += mesh_train_findings(device)
+    return out

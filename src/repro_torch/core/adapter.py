@@ -518,15 +518,22 @@ def _circ_bank_einsum(x, tr, aux, d1, d2, peft):
     return torch.einsum("b...d,bdf->b...f", x.to(torch.float32), dw)
 
 
-def _circ_factored_fft(x, tr, aux, d1, d2, peft):
+def _circ_fft(x, kernel, d1: int, d2: int, alpha: float, rows: bool):
+    """circulant_apply_fft; on a mesh on each rank's batch rows (DTensor
+    has no strategy for the FFT in torch 2.11)."""
+    from repro_torch.dist.dtensor import batch_local
     from repro_torch.kernels import ops as kops
-    return kops.circulant_apply_fft(x, tr["kernel"], d1, d2, peft.alpha)
+    return batch_local(lambda xl, kl: kops.circulant_apply_fft(
+        xl, kl, d1, d2, alpha), x, kernel, rows)
+
+
+def _circ_factored_fft(x, tr, aux, d1, d2, peft):
+    return _circ_fft(x, tr["kernel"], d1, d2, peft.alpha, rows=False)
 
 
 def _circ_bank_fft(x, tr, aux, d1, d2, peft):
-    from repro_torch.kernels import ops as kops
-    return kops.circulant_apply_fft(x, _per_row(tr["kernel"], x.ndim),
-                                    d1, d2, peft.alpha)
+    return _circ_fft(x, _per_row(tr["kernel"], x.ndim), d1, d2, peft.alpha,
+                     rows=True)
 
 
 class CirculantAdapter(AdapterMethod):

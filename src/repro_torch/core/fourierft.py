@@ -137,6 +137,11 @@ def factored_apply(x: torch.Tensor, c: torch.Tensor, entries: torch.Tensor,
     if bases is None:
         bases = fourier_bases(entries.to(x.device), d1, d2)
     cos_t, sin_t, cos_p, sin_p = bases
+    from repro_torch.dist.dtensor import is_dtensor, shard_like_columns
+    if is_dtensor(x):
+        # on a mesh the output columns follow a column-parallel weight's
+        # shard over `model` (the bases' d2 rows split with them)
+        cos_p, sin_p = (shard_like_columns(t, x) for t in (cos_p, sin_p))
     scale = alpha / (d1 * d2)
     xf = x.to(torch.float32)
     c = c.to(torch.float32)

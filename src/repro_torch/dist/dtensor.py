@@ -31,6 +31,21 @@ SPMD partitioner). Three places need more than that, and each is here:
   argmax (DTensor's masked-partial gather does not survive the select
   that follows it, and its sharded argmax does not take every shape).
 
+The families' per-head and per-token work runs on local shards too
+(so that every local call has one home):
+
+- `local_attention` — full-sequence and lockstep attention on each rank's
+  batch rows and query heads, the KV heads those read; `batch_local` —
+  a per-row op (circulant's FFT apply) on each rank's batch rows;
+- `split_heads` — a column shard finer than a head gathered before the
+  heads split; `shard_like_columns` — a factored apply's output bases
+  sharded like the column-parallel weight they add to;
+- `sum_over_shards` — a sum over the batch shards (the cross entropy's,
+  the MoE load statistics) with an identity backward: every rank seeds
+  the same loss, so its local term's gradient is the sum's;
+  `summed_grad_placements` — the gradient layout of a tensor every rank
+  reads whole while its heads shard (each rank's gradient a term).
+
 `ops_context()` makes plain tensors count as replicated wherever they
 meet a DTensor (positions, masks, host-built block tables): the same host
 values on every rank, as every rank makes the same host decisions.
@@ -111,8 +126,6 @@ def index_put_(t, indices: tuple, values) -> None:
         t[indices] = values
         return
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     n = len(indices)
     idx = torch.broadcast_tensors(*(to_plain(i) for i in indices))
     nb = idx[0].ndim
@@ -126,12 +139,175 @@ def index_put_(t, indices: tuple, values) -> None:
     if not any(p.is_shard() and p.dim < n for p in t.placements):
         local[idx] = v
         return
-    lshape, off = compute_local_shape_and_global_offset(t.shape, mesh,
-                                                        t.placements)
+    lshape, off = local_shape_and_offset(t.shape, mesh, t.placements)
     keep = torch.ones(idx[0].shape, dtype=torch.bool, device=idx[0].device)
     for d in range(n):
         keep &= (idx[d] >= off[d]) & (idx[d] < off[d] + lshape[d])
     local[tuple(i[keep] - off[d] for d, i in enumerate(idx))] = v[keep]
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Forward: a local tensor summed over the mesh dims `part` marks
+    Partial (an all-reduce). Backward: the identity — every rank seeds the
+    same replicated loss, so d loss / d (its local term) is the summed
+    value's gradient itself, unscaled."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, part):
+        from torch.distributed.tensor import DTensor, Replicate
+        with torch.no_grad():
+            return DTensor.from_local(t, mesh, part, run_check=False) \
+                .redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over_shards(t, mesh, placements):
+    """A local term of a sum over the batch rows summed over the mesh dims
+    where `placements` shards (its other dims replicate): the whole sum on
+    every rank, differentiable (`_SumOverRanks`)."""
+    from torch.distributed.tensor import Partial, Replicate
+    part = [Partial() if p.is_shard() else Replicate() for p in placements]
+    if not any(p.is_partial() for p in part):
+        return t
+    return _SumOverRanks.apply(t, mesh, part)
+
+
+def summed_grad_placements(placements, mesh_dims):
+    """`placements` with the mesh dims in `mesh_dims` Partial: the gradient
+    layout of a local tensor that several ranks along those dims read
+    differently (each rank's gradient is a term of the whole one)."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if i in mesh_dims else p
+            for i, p in enumerate(placements)]
+
+
+def local_attention(fn: Callable, q, k, v, kv_len=None, **kw):
+    """fn(q, k, v[, kv_len], **kw) — attention over q (B, Sq, H, dh), k
+    and v (B, Skv, K, dh) — on each rank's local batch rows and query
+    heads when any input is a DTensor (attention is per-head work: no
+    sharding strategy is needed for its blocks, masks and softmax). The
+    query heads shard over `model` where it divides them into whole
+    groups' worth of slices; each rank then takes the KV heads its query
+    heads read (its shard when the KV heads shard alike, else a slice of
+    the gathered heads). Plain inputs go to `fn` unchanged."""
+    if kv_len is not None:
+        kw = {**kw, "kv_len": kv_len}
+    if not any(is_dtensor(t) for t in (q, k, v, kv_len)):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = next(t for t in (q, k, v, kv_len)
+                if is_dtensor(t)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def placed(t):
+        return t if is_dtensor(t) else DTensor.from_local(
+            t, mesh, rep, run_check=False)
+
+    q, k, v = placed(q), placed(k), placed(v)
+    batch = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in q.placements]
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    heads = list(batch)
+    names = mesh.mesh_dim_names or ()
+    if "model" in names:
+        i = names.index("model")
+        m = mesh.size(i)
+        hl = H // m if H % m == 0 else 0
+        if m > 1 and hl and (hl % G == 0 or G % hl == 0):
+            heads[i] = Shard(2)
+    ql = q.redistribute(mesh, heads).to_local()
+    _, off = local_shape_and_offset(q.shape, mesh, heads)
+    h0, hl = off[2], ql.shape[2]
+    k0, kn = h0 // G, max(1, hl // G)
+    kv_pl = batch
+    # the KV heads stay whole on each rank while the query heads shard:
+    # each rank's KV gradient is its heads' term of the whole
+    split = [i for i, (a, b) in enumerate(zip(heads, batch)) if a != b]
+
+    def kv_local(t):
+        t = t.redistribute(mesh, kv_pl).to_local(
+            grad_placements=summed_grad_placements(kv_pl, split))
+        return t[:, :, k0:k0 + kn] if kn != K else t
+    if torch.is_tensor(kv_len):
+        kw["kv_len"] = placed(kv_len).redistribute(mesh, batch).to_local()
+    out = fn(ql, kv_local(k), kv_local(v), **kw).contiguous()
+    shape = q.shape[:3] + out.shape[3:]
+    return DTensor.from_local(out, mesh, heads, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def batch_local(fn: Callable, x, table, rows: bool):
+    """fn(x, table) on each rank's batch rows when either is a DTensor (an
+    op DTensor has no strategy for in every torch release, as the FFT of
+    circulant's apply): x (B, ...) takes its batch placement; `table`
+    follows x's rows when `rows` (a per-row table (B, ...)), else it is
+    whole on every rank and hands back its gradient as a partial sum over
+    the batch shards. The result is placed like x's rows."""
+    if not (is_dtensor(x) or is_dtensor(table)):
+        return fn(x, table)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = (x if is_dtensor(x) else table).device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def placed(t):
+        return t if is_dtensor(t) else DTensor.from_local(
+            t, mesh, rep, run_check=False)
+
+    x, table = placed(x), placed(table)
+    bpl = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    xl = x.redistribute(mesh, bpl).to_local()
+    if rows:
+        tl = table.redistribute(mesh, bpl).to_local()
+    else:
+        sharded = [i for i, p in enumerate(bpl) if p.is_shard()]
+        tl = table.redistribute(mesh, rep).to_local(
+            grad_placements=summed_grad_placements(rep, sharded))
+    return DTensor.from_local(fn(xl, tl), mesh, bpl, run_check=False)
+
+
+def split_heads(t, heads: int, head_dim: int):
+    """(B, S, heads·head_dim) -> (B, S, heads, head_dim). A DTensor whose
+    last dim is sharded finer than whole heads (a column shard over more
+    ranks than there are heads) is gathered along it first: DTensor cannot
+    split a shard inside a head."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        last = t.ndim - 1
+        ways = 1
+        for i, p in enumerate(t.placements):
+            if p.is_shard(last):
+                ways *= t.device_mesh.size(i)
+        if heads % ways:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard(last) else p
+                for p in t.placements])
+    return t.reshape(t.shape[0], -1, heads, head_dim)
+
+
+def shard_like_columns(table, x):
+    """A (d_out, ...) table whose rows index an adapter's output columns,
+    as a DTensor on `x`'s mesh with those rows sharded over `model` where
+    it divides them (replicated elsewhere): the factored apply then
+    computes this rank's output columns only, as the column-parallel
+    projection it adds to does."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not is_dtensor(table):
+        table = DTensor.from_local(table, mesh, rep, run_check=False)
+    names = mesh.mesh_dim_names or ()
+    pl = list(rep)
+    if "model" in names:
+        i = names.index("model")
+        if mesh.size(i) > 1 and table.shape[0] % mesh.size(i) == 0:
+            pl[i] = Shard(0)
+    return table.redistribute(mesh, pl)
 
 
 def unshard_dim(t, dim: int):
@@ -149,11 +325,21 @@ def unshard_dim(t, dim: int):
     return t.redistribute(t.device_mesh, pl)
 
 
-def _local_slices(shape, mesh, placements):
+def local_shape_and_offset(shape, mesh, placements):
+    """This rank's shard of a DTensor of global `shape`: (local shape,
+    global offset). Computed on real tensors even under a fake-tensor
+    mode (the dry run's), where the mesh's coordinate lookup could not
+    read its values, and outside any op-recording mode."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    lshape, off = compute_local_shape_and_global_offset(shape, mesh,
-                                                        placements)
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return compute_local_shape_and_global_offset(shape, mesh,
+                                                     placements)
+
+
+def _local_slices(shape, mesh, placements):
+    lshape, off = local_shape_and_offset(shape, mesh, placements)
     return tuple(slice(o, o + n) for o, n in zip(off, lshape))
 
 

@@ -17,7 +17,12 @@ module:
   kind: all-reduce, all-gather, reduce-scatter, all-to-all and
   collective-permute (point-to-point send/recv) each in their own bucket,
   as in `hlo.py`; a collective's bytes are its output's, and its group
-  is the process group it ran over.
+  is the process group it ran over;
+- `kernel_counts` — calls of the hand-written kernels' custom ops
+  (`kernels.custom_ops`, `repro_torch::*`): each is one op, priced by
+  `custom_ops.COSTS` (the operations and bytes chip_smoke's bounds count),
+  its operations into `flops` (not `dot_flops`: K1/K2/K4/K5 are
+  transforms) and its bytes into both byte counts.
 
 The mode sees what DTensor runs on the local shards: it declines ops whose
 arguments are DTensors (`NotImplemented`), so DTensor's dispatch handles
@@ -32,6 +37,8 @@ from typing import Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.kernels import custom_ops
 
 # collective op name -> hlo.py's kind
 _COLLECTIVE_KIND = {
@@ -73,6 +80,11 @@ class ModuleStats:
     bytes_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
     count_by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
     group_by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
+    kernel_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # collective bytes by the size of the group they ran over (the dry run
+    # prices each over its mesh axis's link)
+    bytes_by_group: Dict[int, float] = dataclasses.field(
+        default_factory=dict)
 
     def to_json(self) -> Dict:
         return dataclasses.asdict(self)
@@ -137,6 +149,13 @@ class OpStats(TorchDispatchMode):
         st = self.stats
         packet = func.overloadpacket
         name = packet.__name__
+        if func.namespace == custom_ops.NAMESPACE:
+            ops, moved = custom_ops.COSTS[name](args, out)
+            st.flops += ops
+            st.bytes += moved
+            st.bytes_min += moved
+            st.kernel_counts[name] = st.kernel_counts.get(name, 0) + 1
+            return
         kind = _COLLECTIVE_KIND.get(name)
         if kind is not None and func.namespace in _COLLECTIVE_NAMESPACES:
             n = _nbytes(args[0]) if name == "send" else _nbytes(out)
@@ -148,6 +167,7 @@ class OpStats(TorchDispatchMode):
                 g = 2
             if g is not None:
                 st.group_by_kind[kind] = max(st.group_by_kind.get(kind, 0), g)
+                st.bytes_by_group[g] = st.bytes_by_group.get(g, 0.0) + n
             st.bytes += n
             st.bytes_min += n
             return

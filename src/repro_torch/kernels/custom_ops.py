@@ -1,0 +1,128 @@
+"""K1–K5 as `torch.library` custom ops, so fake tensors keep the kernel
+route.
+
+A fake tensor (`torch._subclasses.fake_tensor.FakeTensor`, the dry run's:
+shapes, dtypes and a device, no storage) cannot reach a kernel launch.
+Each wrapper (`fourier_deltaw.deltaw` / `dc`, `dct_deltaw.deltaw` / `dc`,
+`paged_attention.paged_attention`) therefore hands a fake input to its
+custom op `repro_torch::<name>`, whose fake implementation returns the
+output's shape, and whose real implementation is the wrapper's own launch
+(what a direct `torch.ops.repro_torch.<name>` call on CUDA tensors runs).
+Real tensors take the wrapper's route exactly as before: the launch is
+called directly, the counters count it, no dispatcher round trip. K1's op
+carries its autograd: the VJP through K2's op.
+
+`COSTS` prices one call of each op the way chip_smoke's bounds do (its
+`fft_ops` and the bytes each function must move), so `dist.opstats`
+counts a kernel as one op: K1/K2/K4/K5 2.5·N·log2 N operations per layer
+for N = d1·d2 and the coefficients, entries and ΔW (or cotangent) once;
+K3 4·H·dh operations per (query row, column) and q, the output, the K/V
+rows and the block table once, over the block table's whole capacity
+(fake tensors carry no kv_len values to count from).
+"""
+import math
+from typing import Callable, Dict, Tuple
+
+import torch
+
+NAMESPACE = "repro_torch"
+
+
+def is_fake(*tensors) -> bool:
+    """True when any argument is a fake tensor (no storage to launch on)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def op(name: str):
+    """The registered op `repro_torch::<name>`."""
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def _fft_ops(d1: int, d2: int, L: int) -> float:
+    size = float(d1 * d2)
+    return 2.5 * size * math.log2(size) * L if size > 1 else 0.0
+
+
+def _deltaw_cost(args, out) -> Tuple[float, float]:
+    c, u, v, d1, d2 = args[:5]
+    L, n = c.shape
+    return _fft_ops(d1, d2, L), 4.0 * (L * n + 2 * n + L * d1 * d2)
+
+
+def _dc_cost(args, out) -> Tuple[float, float]:
+    g, u, v, d1, d2 = args[:5]
+    L, n = g.shape[0], u.shape[0]
+    return _fft_ops(d1, d2, L), 4.0 * (L * d1 * d2 + 2 * n + L * n)
+
+
+def _paged_cost(args, out) -> Tuple[float, float]:
+    q, k_pages, _, block_table, _ = args[:5]
+    B, W, H, dh = q.shape
+    ps, K = k_pages.shape[1], k_pages.shape[2]
+    cols = block_table.shape[1] * ps
+    elt = q.element_size()
+    nbytes = (2 * B * W * H * dh * elt + 2 * B * cols * K * dh * elt
+              + 4 * B * block_table.shape[1] + 4 * B)
+    return 4.0 * H * dh * B * W * cols, float(nbytes)
+
+
+COSTS: Dict[str, Callable] = {
+    "fourier_deltaw": _deltaw_cost, "fourier_dc": _dc_cost,
+    "dct_deltaw": _deltaw_cost, "dct_dc": _dc_cost,
+    "paged_attention": _paged_cost,
+}
+
+
+def define_deltaw_pair(prefix: str, deltaw_launch: Callable,
+                       dc_launch: Callable) -> None:
+    """`<prefix>_deltaw` (c (L, n), u, v -> (L, d1, d2)) and `<prefix>_dc`
+    (g (L, d1, d2), u, v -> (L, n)), f32, with K1's (K4's) VJP through
+    the dc op."""
+    T = torch.Tensor
+
+    @torch.library.custom_op(f"{NAMESPACE}::{prefix}_dc", mutates_args=())
+    def dc_op(g: T, u: T, v: T, d1: int, d2: int, alpha: float) -> T:
+        return dc_launch(g, u, v, d1, d2, alpha)
+
+    @dc_op.register_fake
+    def _(g, u, v, d1, d2, alpha):
+        return g.new_empty((g.shape[0], u.shape[0]), dtype=torch.float32)
+
+    @torch.library.custom_op(f"{NAMESPACE}::{prefix}_deltaw",
+                             mutates_args=())
+    def deltaw_op(c: T, u: T, v: T, d1: int, d2: int, alpha: float) -> T:
+        return deltaw_launch(c, u, v, d1, d2, alpha)
+
+    @deltaw_op.register_fake
+    def _(c, u, v, d1, d2, alpha):
+        return c.new_empty((c.shape[0], d1, d2), dtype=torch.float32)
+
+    def setup(ctx, inputs, output):
+        _, u, v, d1, d2, alpha = inputs
+        ctx.save_for_backward(u, v)
+        ctx.meta = (d1, d2, alpha)
+
+    def backward(ctx, g):
+        u, v = ctx.saved_tensors
+        d1, d2, alpha = ctx.meta
+        dc = dc_op(g.to(torch.float32).contiguous(), u, v, d1, d2, alpha)
+        return dc, None, None, None, None, None
+
+    deltaw_op.register_autograd(backward, setup_context=setup)
+
+
+def define_paged_attention(launch: Callable) -> None:
+    """`paged_attention` (q (B, W, H, dh), pages (P, page, K, dh) x2,
+    block_table (B, PPS), kv_len (B,) -> (B, W, H, dh))."""
+    T = torch.Tensor
+
+    @torch.library.custom_op(f"{NAMESPACE}::paged_attention",
+                             mutates_args=())
+    def paged_op(q: T, k_pages: T, v_pages: T, block_table: T,
+                 kv_len: T) -> T:
+        return launch(q, k_pages, v_pages, block_table, kv_len)
+
+    @paged_op.register_fake
+    def _(q, k_pages, v_pages, block_table, kv_len):
+        return q.new_empty(q.shape, dtype=v_pages.dtype)

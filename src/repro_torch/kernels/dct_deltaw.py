@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.adapter import dct_bases, dct_delta
+from repro_torch.kernels import custom_ops
 from repro_torch.kernels import fft_plan as fp
 from repro_torch.kernels import fourier_deltaw as fdk
 
@@ -76,10 +77,17 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
     fdk.check_coefficients(c, u, v, d1, d2, NC)
     if c.device.type == "cpu":
         return deltaw_reference(c, u, v, d1, d2, alpha)
-    L, n = c.shape
-    plan = fp.fft_plan(d1, d2, n)
+    plan = fp.fft_plan(d1, d2, c.shape[1])
     if c.device.type != "cuda":
         raise ValueError(f"no DCT deltaw kernel for device {c.device}")
+    if custom_ops.is_fake(c, u, v):
+        return custom_ops.op("dct_deltaw")(c, u, v, d1, d2, alpha)
+    return _deltaw_launch(c, u, v, d1, d2, alpha, plan)
+
+
+def _deltaw_launch(c, u, v, d1: int, d2: int, alpha: float, plan=None):
+    L, n = c.shape
+    plan = plan or fp.fft_plan(d1, d2, n)
     from repro_torch.kernels import build
     lib = build.library("dct_deltaw")
     global launches
@@ -110,10 +118,17 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
     fdk.check_cotangent(g, u, v, d1, d2, NC)
     if g.device.type == "cpu":
         return dc_reference(g, u, v, d1, d2, alpha)
-    L, n = g.shape[0], u.shape[0]
     plan = fp.fft_plan(d1, d2)          # K5, like K2, takes any n
     if g.device.type != "cuda":
         raise ValueError(f"no DCT dc kernel for device {g.device}")
+    if custom_ops.is_fake(g, u, v):
+        return custom_ops.op("dct_dc")(g, u, v, d1, d2, alpha)
+    return _dc_launch(g, u, v, d1, d2, alpha)
+
+
+def _dc_launch(g, u, v, d1: int, d2: int, alpha: float):
+    L, n = g.shape[0], u.shape[0]
+    plan = fp.fft_plan(d1, d2)
     from repro_torch.kernels import build
     lib = build.library("dct_deltaw")
     global dc_launches
@@ -133,3 +148,6 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
     build.check(code, "dct_dc_launch")
     dc_launches += 1
     return out
+
+
+custom_ops.define_deltaw_pair("dct", _deltaw_launch, _dc_launch)

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core.fourierft import fourier_bases, materialize_delta
 from repro_torch.devices import to_device
+from repro_torch.kernels import custom_ops
 from repro_torch.kernels import fft_plan as fp
 
 NC = 16                 # the kernels' chunk of entries: n must divide by it
@@ -163,6 +164,12 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
         return deltaw_reference(c, u, v, d1, d2, alpha)
     if c.device.type != "cuda":
         raise ValueError(f"no deltaw kernel for device {c.device}")
+    if custom_ops.is_fake(c, u, v):
+        return custom_ops.op("fourier_deltaw")(c, u, v, d1, d2, alpha)
+    return _deltaw_launch(c, u, v, d1, d2, alpha)
+
+
+def _deltaw_launch(c, u, v, d1: int, d2: int, alpha: float):
     from repro_torch.kernels import build
     lib = build.library("fourier_deltaw")
     global launches
@@ -198,6 +205,12 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
         return dc_reference(g, u, v, d1, d2, alpha)
     if g.device.type != "cuda":
         raise ValueError(f"no dc kernel for device {g.device}")
+    if custom_ops.is_fake(g, u, v):
+        return custom_ops.op("fourier_dc")(g, u, v, d1, d2, alpha)
+    return _dc_launch(g, u, v, d1, d2, alpha)
+
+
+def _dc_launch(g, u, v, d1: int, d2: int, alpha: float):
     from repro_torch.kernels import build
     lib = build.library("fourier_deltaw")
     global dc_launches
@@ -220,3 +233,6 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
     build.check(code, "fourier_dc_launch")
     dc_launches += 1
     return out
+
+
+custom_ops.define_deltaw_pair("fourier", _deltaw_launch, _dc_launch)

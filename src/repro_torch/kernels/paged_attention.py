@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.api import KernelOp
+from repro_torch.kernels import custom_ops
 from repro_torch.models import attention as attn_mod
 
 launches = 0            # kernel launches made by `paged_attention`
@@ -263,6 +264,15 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_len):
             return paged_attention_reference(q, k_pages, v_pages,
                                              block_table, kv_len)
         raise ValueError(f"no paged_attention kernel for device {dev}")
+    if custom_ops.is_fake(q, k_pages, v_pages, block_table, kv_len):
+        _check(q, k_pages, v_pages, block_table, kv_len)
+        return custom_ops.op("paged_attention")(q, k_pages, v_pages,
+                                                block_table, kv_len)
+    return _launch(q, k_pages, v_pages, block_table, kv_len)
+
+
+def _launch(q, k_pages, v_pages, block_table, kv_len):
+    dev = q.device
     launch = _launch_for(q, k_pages, v_pages, block_table, kv_len)
     if not (k_pages.device == dev and v_pages.device == dev
             and block_table.device == dev and kv_len.device == dev):
@@ -355,3 +365,6 @@ class _PagedAttentionOwner:
 
 
 OWNER = _PagedAttentionOwner()
+
+
+custom_ops.define_paged_attention(_launch)

@@ -20,10 +20,10 @@ It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`. The weights are random, made from
 `--seed`. `--model-parallel` and `--sharding-plan` are the JAX launcher's
 mesh flags: the engine routes through the mesh path and places its params
-and caches by the plan. The gateway serves at world size 1 (one process;
-under `torchrun --nproc-per-node 1` a one-rank DTensor mesh); across ranks
-it refuses, because the gateway across ranks is the next slice of the
-port.
+and caches by the plan. Under `torchrun` every rank builds the same
+scheduler; rank 0 runs the gateway, and its pump broadcasts each round's
+submissions and cancellations to the other ranks, which follow it
+(`serve/gateway/bridge.py`: `RankSync`, `follow`) and open no socket.
 
     python -m repro_torch.launch.api --arch yi-6b --reduced \\
         --export-demo-bank /tmp/demo --device cpu
@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import signal
 
 import torch
@@ -152,11 +153,6 @@ def build_scheduler(args):
 
     device = resolve_device(args.device)
     mesh_mod.init_from_env(device)
-    if mesh_mod.world_size() > 1:
-        raise SystemExit(f"{mesh_mod.world_size()} ranks: the gateway across "
-                         "ranks comes with the next slice of the port "
-                         "(ROADMAP queue 1, item 3); it serves at world "
-                         "size 1")
     mesh = mesh_mod.make_host_mesh(model=args.model_parallel)
     cfg = _model_cfg(args)
     model = build(cfg, PEFTConfig(method="none"))
@@ -191,20 +187,30 @@ def build_scheduler(args):
     return sched, tenant_ids
 
 
-async def _run(args) -> None:
+def rank_sync():
+    """The pump's broadcast across the process group's ranks (a gloo
+    group, made on every rank alike), or None without a group."""
+    import torch.distributed as dist
+    from repro_torch.serve.gateway.bridge import RankSync
+    if not dist.is_initialized():
+        return None
+    return RankSync(dist.new_group(backend="gloo"))
+
+
+async def _run(args, sched, tenant_ids, sync) -> None:
     from repro_torch.serve.gateway import GatewayServer
 
-    sched, tenant_ids = build_scheduler(args)
     server = GatewayServer(
         sched, eos_id=args.eos_id, max_queue=args.max_queue,
         min_free_page_frac=args.min_free_page_frac,
         retry_after_s=args.retry_after,
         request_timeout_s=args.timeout,
-        default_max_new=args.default_max_new)
+        default_max_new=args.default_max_new, sync=sync)
     await server.start(args.host, args.port)
     print(f"gateway listening on {server.url} "
           f"({len(tenant_ids)} tenants, {sched.n_slots} slots, "
-          f"max_len {sched.max_len}, {sched.device})", flush=True)
+          f"max_len {sched.max_len}, {sched.device}, "
+          f"{mesh_mod.world_size()} ranks, pid {os.getpid()})", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -241,7 +247,21 @@ def main(argv=None) -> None:
     if args.export_demo_bank:
         export_demo_bank(args, args.export_demo_bank)
         return
-    asyncio.run(_run(args))
+    sched, tenant_ids = build_scheduler(args)
+    sync = rank_sync()
+    import torch.distributed as dist
+    try:
+        if sync is not None and dist.get_rank() != 0:
+            from repro_torch.serve.gateway.bridge import follow
+            # rank 0 decides the shutdown and broadcasts it: a signal to
+            # the whole group must not stop a follower first
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                signal.signal(sig, signal.SIG_IGN)
+            follow(sched, sync)       # no socket: rank 0 serves
+        else:
+            asyncio.run(_run(args, sched, tenant_ids, sync))
+    finally:
+        mesh_mod.shutdown()
 
 
 if __name__ == "__main__":

@@ -116,20 +116,6 @@ def describe(mesh) -> str:
     return "x".join(str(s) for s in mesh_axes(mesh).values())
 
 
-# the next slice of the port runs these families across ranks
-NEXT_SLICE = ("the non-dense families and the adapter bank on a multi-rank "
-              "mesh come with the next slice of the port (ROADMAP queue 1, "
-              "item 3)")
-
-
-def refuse_family_on_mesh(cfg, mesh) -> None:
-    """A family other than dense runs on a one-device mesh only: its spec
-    tables are ported, its execution across ranks is not yet."""
-    if cfg.family != "dense" and mesh_size(mesh) > 1:
-        raise SystemExit(f"{cfg.name} ({cfg.family}) on a {describe(mesh)} "
-                         f"mesh: {NEXT_SLICE}")
-
-
 def rank0_print(*args, **kwargs) -> None:
     """print on rank 0 (every rank runs the same launcher)."""
     if not dist.is_initialized() or dist.get_rank() == 0:

@@ -79,8 +79,8 @@ Every rank serves the same trace; rank 0 prints.
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch yi-6b \
         --reduced --continuous --model-parallel 2 --device cpu
 
-A family other than dense, or an adapter bank, is refused on a mesh of
-more than one device (the next slice of the port).
+Every family, and the adapter bank (its rows replicated), serves on a
+mesh.
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
@@ -262,10 +262,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     mesh_mod.init_from_env(device)
     mesh = mesh_mod.make_host_mesh(model=args.model_parallel)
-    mesh_mod.refuse_family_on_mesh(cfg, mesh)
-    if args.bank_dir and mesh_mod.mesh_size(mesh) > 1:
-        raise SystemExit(f"--bank-dir on a {mesh_mod.describe(mesh)} mesh: "
-                         f"{mesh_mod.NEXT_SLICE}")
     say = mesh_mod.rank0_print
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))

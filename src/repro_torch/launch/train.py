@@ -41,9 +41,8 @@ receives with int8 error feedback. Rank 0 prints and writes checkpoints.
         --reduced --model-parallel 2 --fsdp --grad-compression int8_ef \
         --sharding-plan search --steps 3 --device cpu
 
-A family other than dense (moe, audio, vlm, ssm, hybrid) is refused on a
-mesh of more than one device: its spec tables are ported, its execution
-across ranks is the next slice's.
+Every family trains on a mesh: moe expert-parallel (experts over
+`model`), ssm and hybrid with the mixer on each rank's local heads.
 
 It runs on `cuda` unless `--device` says otherwise, and fails when there is
 no CUDA device and no `--device`.
@@ -116,7 +115,6 @@ def main(argv=None):
     # everything routes through the mesh path: a 1x1 mesh degenerates to
     # the single-device behavior, larger rank counts shard
     mesh = mesh_mod.make_host_mesh(model=args.model_parallel)
-    mesh_mod.refuse_family_on_mesh(cfg, mesh)
     say = mesh_mod.rank0_print
     if args.reduced:
         cfg = configs.reduced(cfg).replace(vocab=min(cfg.vocab, 512))

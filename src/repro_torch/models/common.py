@@ -64,12 +64,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Mean token CE in f32. logits (..., V), labels (...) int. Logits
     sharded over the vocab (a DTensor from a column-parallel head) are
-    gathered along it first (`dist.dtensor.unshard_dim`)."""
-    from repro_torch.dist.dtensor import unshard_dim
+    gathered along it first (`dist.dtensor.unshard_dim`), and the rest
+    runs on each rank's batch rows (`_placed_cross_entropy`)."""
+    from repro_torch.dist.dtensor import is_dtensor, unshard_dim
     logits = unshard_dim(logits.to(torch.float32), -1)
+    if is_dtensor(logits):
+        return _placed_cross_entropy(logits, labels, z_loss)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse * lse
     return torch.mean(loss)
+
+
+def _placed_cross_entropy(logits, labels, z_loss: float) -> torch.Tensor:
+    """cross_entropy of whole-vocab DTensor logits on each rank's batch
+    rows (local tensors: the label gather's backward then scatters into
+    the local rows, not into a zero tensor of the global logits' size);
+    the mean sums over the batch shards. Returns a replicated DTensor
+    scalar."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.dist.dtensor import sum_over_shards
+    mesh = logits.device_mesh
+    bpl = [Shard(0) if p.is_shard(0) else Replicate()
+           for p in logits.placements]
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, rep, run_check=False)
+    local = logits.redistribute(mesh, bpl).to_local()
+    lab = labels.redistribute(mesh, bpl).to_local()
+    lse = torch.logsumexp(local, dim=-1)
+    ll = torch.gather(local, -1, lab.to(torch.int64)[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse * lse
+    if not any(p.is_shard() for p in bpl):
+        # the whole batch on every rank: the plain path's mean, bit for bit
+        return DTensor.from_local(torch.mean(loss), mesh, rep,
+                                  run_check=False)
+    total = sum_over_shards(loss.sum(), mesh, bpl)
+    return DTensor.from_local(total / logits.shape[:-1].numel(), mesh, rep,
+                              run_check=False)

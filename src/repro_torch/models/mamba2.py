@@ -13,6 +13,16 @@ separate projections wz/wx/wbc/wdt instead of one fused in_proj, as in the
 JAX package. The scan computes in f32 for bf16 and f32 inputs, as JAX
 does, and in float64 for float64 inputs (the oracle the tests and the
 chip smoke hold it to).
+
+On a mesh (the projections' outputs are DTensors) the mixer between the
+in- and out-projections — the causal conv, the gates, the SSD scan and
+the decode recurrence — is per-channel and per-head work: it runs on
+each rank's local shard (`_LocalHeads`): the batch rows it holds, and the
+heads `wx`'s column shard over `model` gives it (all heads where `model`
+does not divide them). B and C are shared by every head, so they are
+gathered whole; the conv's per-channel taps and the per-head scalars are
+sliced to the local channels. No sharding strategy is needed for the
+scan's cumsum, segment sums and chunk loop.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.dtensor import is_dtensor, local_shape_and_offset
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -183,30 +194,130 @@ def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     `linear_fn(p, name, x)` lets the PEFT layer intercept the wz, wx and
     wo_ssm projections. softplus is torch's, which is the identity above
     20 where JAX's is not (they differ by less than 3e-9 there)."""
-    ssm = cfg.ssm
-    d_inner, H, P, G = dims(cfg)
+    H = dims(cfg)[1]
     linear_fn = linear_fn or _plain_linear
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     z = linear_fn(p, "wz", h)
     xin = linear_fn(p, "wx", h)
     bc = h @ p["wbc"]
     dt_raw = h @ p["wdt"]
+    if is_dtensor(xin):
+        loc = _LocalHeads(xin, cfg)
+        y = loc.placed(_mixer(loc.taps(p), loc.heads(xin), loc.whole(bc),
+                              loc.heads(dt_raw), cfg, loc.n_heads))
+    else:
+        y = _mixer(p, xin, bc, dt_raw, cfg, H)
+    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["gnorm"],
+                 cfg.norm_eps)
+    return x + linear_fn(p, "wo_ssm", y)
+
+
+def _mixer(p: Dict, xin, bc, dt_raw, cfg: ModelConfig, H: int):
+    """conv -> SiLU -> SSD over `H` heads: xin (B, S, H·P), bc (B, S,
+    2·G·N), dt_raw (B, S, H); p's conv taps cover xin's channels then
+    bc's, its per-head scalars the H heads. -> y (B, S, H·P)."""
+    ssm = cfg.ssm
+    P, G = ssm.head_dim, ssm.n_groups
+    d_inner = H * P
     conv_out = conv1d_causal(torch.cat([xin, bc], dim=-1), p["conv_w"],
                              p["conv_b"])
-    conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)
+    conv_out = F.silu(conv_out.to(torch.float32)).to(xin.dtype)
     xin = conv_out[..., :d_inner]
     bc = conv_out[..., d_inner:]
-    B, S, _ = x.shape
+    B, S, _ = xin.shape
     Bmat = bc[..., :G * ssm.state].reshape(B, S, G, ssm.state)
     Cmat = bc[..., G * ssm.state:].reshape(B, S, G, ssm.state)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, _ = ssd_chunked(xin.reshape(B, S, H, P), dt, A, Bmat, Cmat, p["Dp"],
                        chunk=min(ssm.chunk, S))
-    y = y.reshape(B, S, d_inner)
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["gnorm"],
-                 cfg.norm_eps)
-    return x + linear_fn(p, "wo_ssm", y)
+    return y.reshape(B, S, d_inner)
+
+
+class _LocalHeads:
+    """The local shard of a mesh-placed mixer (module docstring), from
+    `xin` (B, S, d_inner), a DTensor. `heads(t)` / `whole(t)` give the
+    local tensor of a (B, S, ...) DTensor with its last dim on the local
+    heads / whole; `taps(p)` the layer's conv taps and per-head scalars
+    for the local channels; `placed(y)` puts a local (B, S, ...) result
+    back as a DTensor of the heads' placement."""
+
+    def __init__(self, xin, cfg: ModelConfig):
+        from torch.distributed.tensor import Replicate, Shard
+        d_inner, H, P, _ = dims(cfg)
+        self.cfg, self.d_inner, self.P = cfg, d_inner, P
+        mesh = self.mesh = xin.device_mesh
+        names = mesh.mesh_dim_names or ()
+        batch = [Shard(0) if q.is_shard(0) else Replicate()
+                 for q in xin.placements]
+        self.whole_pl = batch
+        heads = list(batch)
+        if "model" in names:
+            i = names.index("model")
+            if mesh.size(i) > 1 and H % mesh.size(i) == 0:
+                heads[i] = Shard(xin.ndim - 1)
+        self.heads_pl = heads
+        lshape, off = local_shape_and_offset(xin.shape, mesh, heads)
+        self.c0, self.nc = off[-1], lshape[-1]      # local x channels
+        self.n_heads = self.nc // P
+
+    def heads(self, t):
+        return t.redistribute(self.mesh, self.heads_pl).to_local()
+
+    def whole(self, t):
+        """Whole along the last dim: every rank's heads read all of it, so
+        its gradient on a rank is that rank's heads' term of the whole."""
+        from repro_torch.dist.dtensor import summed_grad_placements
+        split = [i for i, (a, b) in enumerate(zip(self.heads_pl,
+                                                   self.whole_pl)) if a != b]
+        return t.redistribute(self.mesh, self.whole_pl).to_local(
+            grad_placements=summed_grad_placements(self.whole_pl, split))
+
+    def taps(self, p: Dict) -> Dict:
+        def full(t):
+            return t.full_tensor() if is_dtensor(t) else t
+        c0, nc, d = self.c0, self.nc, self.d_inner
+        h0, nh = c0 // self.P, self.n_heads
+        w, b = full(p["conv_w"]), full(p["conv_b"])
+        return {"conv_w": torch.cat([w[c0:c0 + nc], w[d:]]),
+                "conv_b": torch.cat([b[c0:c0 + nc], b[d:]]),
+                **{k: full(p[k])[h0:h0 + nh]
+                   for k in ("dt_bias", "A_log", "Dp")}}
+
+    def placed(self, y, placements=None):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(y, self.mesh, placements or self.heads_pl,
+                                  run_check=False)
+
+    def _head_dim_pl(self, dim: int):
+        from torch.distributed.tensor import Shard
+        return [Shard(dim) if q.is_shard() and not q.is_shard(0) else q
+                for q in self.heads_pl]
+
+    def conv_cache(self, conv):
+        """A (B, w-1, C) conv history in the local channel layout."""
+        c = self.whole(conv)
+        c0, nc, d = self.c0, self.nc, self.d_inner
+        return torch.cat([c[..., c0:c0 + nc], c[..., d:]], dim=-1)
+
+    def ssm_cache(self, state):
+        """A (B, H, P, N) state on the local heads."""
+        return state.redistribute(self.mesh,
+                                  self._head_dim_pl(1)).to_local()
+
+    def conv_back(self, new_conv, like):
+        """A local-layout conv history back in `like`'s placement."""
+        nc = self.nc
+        xs = self.placed(new_conv[..., :nc].contiguous(),
+                         self._head_dim_pl(2))
+        xs = xs.redistribute(self.mesh, self.whole_pl).to_local()
+        whole = torch.cat([xs, new_conv[..., nc:]], dim=-1)
+        return self.placed(whole, self.whole_pl).redistribute(
+            self.mesh, like.placements)
+
+    def ssm_back(self, state, like):
+        return self.placed(state, self._head_dim_pl(1)).redistribute(
+            self.mesh, like.placements)
 
 
 def init_mamba_cache(cfg: ModelConfig, stack: int, batch: int, dtype,
@@ -229,15 +340,42 @@ def mamba_decode_step(p: Dict, cache: Dict, x: torch.Tensor,
     """One token. x (B, 1, d); cache {conv (B, w-1, C), ssm (B, H, P, N)}
     (one layer's slices, read only). Returns (y (B, 1, d), new cache); the
     conv history keeps the cache's dtype."""
-    ssm = cfg.ssm
-    d_inner, H, P, G = dims(cfg)
+    H = dims(cfg)[1]
     linear_fn = linear_fn or _plain_linear
-    B = x.shape[0]
     h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]            # (B, d)
     z = linear_fn(p, "wz", h)
     xin = linear_fn(p, "wx", h)
     bc = h @ p["wbc"]
     dt_raw = h @ p["wdt"]
+    if is_dtensor(xin):
+        loc = _LocalHeads(xin, cfg)
+        y, new_conv, state = _decode_mixer(
+            loc.taps(p), loc.conv_cache(cache["conv"]),
+            loc.ssm_cache(cache["ssm"]), loc.heads(xin), loc.whole(bc),
+            loc.heads(dt_raw), cfg, loc.n_heads)
+        y = loc.placed(y.to(x.dtype))
+        new = {"conv": loc.conv_back(new_conv, cache["conv"]),
+               "ssm": loc.ssm_back(state, cache["ssm"])}
+    else:
+        y, new_conv, state = _decode_mixer(p, cache["conv"], cache["ssm"],
+                                           xin, bc, dt_raw, cfg, H)
+        y = y.to(x.dtype)
+        new = {"conv": new_conv, "ssm": state}
+    y = rms_norm(y * F.silu(z.to(torch.float32)).to(x.dtype), p["gnorm"],
+                 cfg.norm_eps)
+    out = x + linear_fn(p, "wo_ssm", y)[:, None, :]
+    return out, new
+
+
+def _decode_mixer(p: Dict, conv, ssm_state, xin, bc, dt_raw,
+                  cfg: ModelConfig, H: int):
+    """One token's conv and SSD recurrence over `H` heads (the layout of
+    `_mixer`). -> (y (B, H·P) f32, new conv history, new state)."""
+    ssm = cfg.ssm
+    P, G = ssm.head_dim, ssm.n_groups
+    d_inner = H * P
+    B = xin.shape[0]
+    cache = {"conv": conv, "ssm": ssm_state}
     conv_in = torch.cat([xin, bc], dim=-1)                    # (B, C)
     hd = torch.promote_types(cache["conv"].dtype, conv_in.dtype)
     hist = torch.cat([cache["conv"].to(hd), conv_in[:, None, :].to(hd)],
@@ -245,7 +383,7 @@ def mamba_decode_step(p: Dict, cache: Dict, x: torch.Tensor,
     conv_out = torch.einsum("bwc,cw->bc", hist.to(torch.float32),
                             p["conv_w"].to(torch.float32)) \
         + p["conv_b"].to(torch.float32)
-    conv_out = F.silu(conv_out).to(x.dtype)
+    conv_out = F.silu(conv_out).to(xin.dtype)
     new_conv = hist[:, 1:, :].to(cache["conv"].dtype)
     xin = conv_out[..., :d_inner].reshape(B, H, P)
     bc = conv_out[..., d_inner:]
@@ -262,7 +400,4 @@ def mamba_decode_step(p: Dict, cache: Dict, x: torch.Tensor,
              + torch.einsum("bhn,bhp,bh->bhpn", Bh, xf, dt))
     y = torch.einsum("bhn,bhpn->bhp", Ch, state)
     y = (y + xf * p["Dp"][None, :, None]).reshape(B, d_inner)
-    y = rms_norm(y.to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype),
-                 p["gnorm"], cfg.norm_eps)
-    out = x + linear_fn(p, "wo_ssm", y)[:, None, :]
-    return out, {"conv": new_conv, "ssm": state}
+    return y, new_conv, state

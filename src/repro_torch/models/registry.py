@@ -24,7 +24,7 @@ from params["bank"] and the per-request rows from batch["adapter_slots"].
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -103,6 +103,13 @@ class Model:
     # rows travel as params["bank"] (serve/engine.py AdapterBank) and the
     # per-request gather rows as batch["adapter_slots"]
     bank_profiles: Optional[Dict[str, PEFTConfig]] = None
+    # optional sharding-constraint hook `f(path, x) -> x` (the JAX
+    # package's `Model.constrain`), installed by the launch layer (the dry
+    # run's `dryrun_lib.make_constrain`): it sees `fsdp_gather/<name>`
+    # weight slices, `act/hidden` at layer boundaries and `moe/dispatch` /
+    # `moe/tokens`, and redistributes a DTensor to the spec it picks; a
+    # plain tensor passes through
+    constrain: Optional[Callable] = None
 
     def __post_init__(self):
         if self.remat not in transformer.REMAT_MODES:
@@ -122,9 +129,12 @@ class Model:
         self._paged_fns = {}      # (device type, dtype) -> attention fn
 
     def _bank_kwargs(self, params: Dict) -> Dict:
+        """The bank's rows and profiles, and the constraint hook, for a
+        family call."""
+        out = {} if self.constrain is None else {"constrain": self.constrain}
         if self.bank_profiles is None:
-            return {}
-        return {"bank": params.get("bank"),
+            return out
+        return {**out, "bank": params.get("bank"),
                 "bank_profiles": self.bank_profiles}
 
     def _call(self, fn, params: Dict, *args, **kwargs):
@@ -218,7 +228,7 @@ class Model:
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         return self._mod.loss_fn(params["base"], params["peft"], batch,
                                  self.cfg, self.peft, self.sites,
-                                 remat=self.remat)
+                                 remat=self.remat, constrain=self.constrain)
 
     def join(self, trainable: Dict, frozen: Dict) -> Dict:
         """The params tree from the train step's (trainable, frozen) split:

@@ -23,7 +23,8 @@ from repro_torch.core.adapter import torch_dtype
 from repro_torch.models import mamba2
 from repro_torch.models.common import cross_entropy, dense_init
 from repro_torch.models.transformer import (_effective, _greedy, _logits,
-                                            _lookup, _remat)
+                                            _lookup, _remat,
+                                            activation_anchor)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
@@ -39,17 +40,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
 
 def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
             peft: PEFTConfig, sites, *, remat: str = "none", bank=None,
-            bank_profiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            bank_profiles=None,
+            constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), a zero aux loss). `remat` checkpoints each
     block."""
     x = _lookup(params["embed"], batch["tokens"])
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
+
+    act = activation_anchor(constrain)
 
     def body(lp, x):
-        return mamba2.mamba_block(lp, x, cfg, linear_fn=linear)
+        return act(mamba2.mamba_block(lp, act(x), cfg, linear_fn=linear))
 
     body = _remat(body, remat)
+    x = act(x)
     for lp in layers:
         x = body(lp, x)
     return (_logits(params, x, cfg),
@@ -57,9 +62,10 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
 
 
 def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
-            peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
+            peft: PEFTConfig, sites, *, remat: str = "none",
+            constrain=None) -> torch.Tensor:
     logits, _ = forward(params, adapters, batch, cfg, peft, sites,
-                        remat=remat)
+                        remat=remat, constrain=constrain)
     return cross_entropy(logits, batch["labels"])
 
 
@@ -74,16 +80,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
-                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                  bank_profiles=None,
+                  constrain=None) -> Tuple[torch.Tensor, Dict]:
     """One token per sequence, batch["tokens"] (B, 1) -> (logits (B, 1, V),
     cache at pos + 1), the cache written in place."""
     x = _lookup(params["embed"], batch["tokens"])             # (B, 1, d)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
     conv_all, ssm_all = cache["conv"], cache["ssm"]
+    act = activation_anchor(constrain)
     for li, lp in enumerate(layers):
         x, new = mamba2.mamba_decode_step(
-            lp, {"conv": conv_all[li], "ssm": ssm_all[li]}, x, cfg,
+            lp, {"conv": conv_all[li], "ssm": ssm_all[li]}, act(x), cfg,
             linear_fn=linear)
         conv_all[li] = new["conv"]
         ssm_all[li] = new["ssm"]
@@ -93,8 +101,9 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
 
 def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
-                bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                bank_profiles=None,
+                constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy `decode_logits`: (next tokens (B,) int32, cache)."""
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
-                                  sites, bank, bank_profiles)
+                                  sites, bank, bank_profiles, constrain)
     return _greedy(logits), cache

@@ -50,7 +50,8 @@ from torch.utils import checkpoint as ckpt_util
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
 from repro_torch.devices import to_device
-from repro_torch.dist.dtensor import index_put_, unshard_dim, write_at
+from repro_torch.dist.dtensor import (index_put_, local_attention,
+                                     split_heads, unshard_dim, write_at)
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -75,13 +76,18 @@ class SiteApp:
     banked: bool = False
 
 
-def make_linear(apps: Dict[str, List[SiteApp]]):
+def make_linear(apps: Dict[str, List[SiteApp]], constrain=None):
     """Returns linear(lp, name, x): y = x @ lp[name] + bias + the adapter
     applications at `name`, each under its own PEFTConfig (the model's
-    config has no say there)."""
+    config has no say there). `constrain` (the `Model.constrain` hook)
+    sees each 2-D weight slice as `fsdp_gather/<name>`: under FSDP the
+    slice stored `data`-sharded is gathered there, inside the layer
+    loop."""
 
     def linear(lp: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
         w = lp[name]
+        if constrain is not None and w.ndim >= 2:
+            w = constrain("fsdp_gather/" + name, w)
         y = x @ w
         if name + "__b" in lp:
             y = y + lp[name + "__b"].to(y.dtype)
@@ -171,13 +177,22 @@ def _layers(eff: Dict) -> List[Dict]:
 
 
 def _effective(params: Dict, adapters: Dict, sites, peft: PEFTConfig,
-               batch: Dict, bank, bank_profiles):
+               batch: Dict, bank, bank_profiles, constrain=None):
     """(per-layer views of the effective layer tree, its `linear`) for one
     call: the adapters merged or applied, the bank's rows gathered."""
     eff, apps = apply_peft_to_layers(
         params["layers"], adapters, sites, peft, bank=bank,
         bank_profiles=bank_profiles, bank_slots=batch.get("adapter_slots"))
-    return _layers(eff), make_linear(apps)
+    return _layers(eff), make_linear(apps, constrain)
+
+
+def activation_anchor(constrain):
+    """x -> constrain("act/hidden", x): the residual stream pinned at layer
+    boundaries (batch-sharded; the identity without a hook or on plain
+    tensors)."""
+    if constrain is None:
+        return lambda t: t
+    return lambda t: constrain("act/hidden", t)
 
 
 # ---------------------------------------------------------------------------
@@ -263,9 +278,9 @@ def _embed(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
 def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear, positions):
     B = x.shape[0]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = linear(lp, "wq", h).reshape(B, -1, cfg.n_heads, cfg.head_dim)
-    k = linear(lp, "wk", h).reshape(B, -1, cfg.n_kv, cfg.head_dim)
-    v = linear(lp, "wv", h).reshape(B, -1, cfg.n_kv, cfg.head_dim)
+    q = split_heads(linear(lp, "wq", h), cfg.n_heads, cfg.head_dim)
+    k = split_heads(linear(lp, "wk", h), cfg.n_kv, cfg.head_dim)
+    v = split_heads(linear(lp, "wv", h), cfg.n_kv, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -285,27 +300,29 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
     B = x.shape[0]
     q, k, v = _qkv(lp, x, cfg, linear, positions)
     if cache_kv is None:
-        att = attn_mod.attention(q, k, v, causal=True)
+        att = local_attention(attn_mod.attention, q, k, v, causal=True)
         new_kv = (k, v)
     else:
         ck, cv = cache_kv
         S = k.shape[1]
         ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-        att = attn_mod.direct_attention(q, ck, cv, causal=False,
-                                        kv_len=cache_pos + 1)
+        att = local_attention(attn_mod.direct_attention, q, ck, cv,
+                              causal=False, kv_len=cache_pos + 1)
         new_kv = (ck, cv)
     out = linear(lp, "wo", att.reshape(B, -1, cfg.attn_dim))
     return x + out, new_kv
 
 
-def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear
+def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
+               constrain=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """-> (x + the MLP's output, the layer's MoE aux loss; None without
     experts, so the dense path launches nothing for it)."""
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.moe is not None:
-        y, aux = moe_mod.moe_ffn(h, lp, cfg.moe, gated=cfg.gated_mlp)
+        y, aux = moe_mod.moe_ffn(h, lp, cfg.moe, gated=cfg.gated_mlp,
+                                 constrain=constrain)
         return x + y, aux
     hi = linear(lp, "wi", h)
     if cfg.gated_mlp:
@@ -369,7 +386,8 @@ def _remat(fn, mode: str):
 
 def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
             peft: PEFTConfig, sites, *, remat: str = "none", bank=None,
-            bank_profiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            bank_profiles=None,
+            constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal forward over the batch (`_embed`; batch["positions"], when
     given, are the RoPE positions: (B, S), or (3, B, S) for M-RoPE).
     Returns (logits (B, S, V) or (B, S, CB, V), the MoE aux loss averaged
@@ -382,13 +400,16 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
     if positions is None:
         positions = _positions(B, S, x.device)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
+    act = activation_anchor(constrain)
 
     def body(lp, x):
-        x, _ = _attn_block(lp, x, cfg, linear, positions)
-        return _mlp_block(lp, x, cfg, linear)
+        x, _ = _attn_block(lp, act(x), cfg, linear, positions)
+        x, aux_l = _mlp_block(lp, act(x), cfg, linear, constrain)
+        return act(x), aux_l
 
     body = _remat(body, remat)
+    x = act(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
         x, aux_l = body(lp, x)
@@ -398,12 +419,13 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
 
 
 def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
-            peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
+            peft: PEFTConfig, sites, *, remat: str = "none",
+            constrain=None) -> torch.Tensor:
     """Mean token cross-entropy of the causal forward against
     batch["labels"] (B, S) or (B, S, CB), f32, plus the MoE aux loss
     weighted by `aux_loss_weight`."""
     logits, moe_aux = forward(params, adapters, batch, cfg, peft, sites,
-                              remat=remat)
+                              remat=remat, constrain=constrain)
     ce = cross_entropy(logits, batch["labels"])
     if cfg.moe is not None:
         ce = ce + cfg.moe.aux_loss_weight * moe_aux
@@ -412,7 +434,7 @@ def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
 
 def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
             cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
-            bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+            bank_profiles=None, constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Process a (B, S[, CB]) prompt against a fresh dense cache (pos 0),
     writing its KV in place. Returns (next tokens after the last prompt
     token, (B,) or (B, CB); cache at pos S). batch["true_len"] (B,),
@@ -424,13 +446,13 @@ def prefill(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     if positions is None:
         positions = _positions(B, S, x.device)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
     ck_all, cv_all = cache["k"], cache["v"]
     for li, lp in enumerate(layers):
         x, (k, v) = _attn_block(lp, x, cfg, linear, positions)
         ck_all[li, :, :S] = k.to(ck_all.dtype)
         cv_all[li, :, :S] = v.to(cv_all.dtype)
-        x, _ = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, x, cfg, linear, constrain)
     true_len = batch.get("true_len")
     if true_len is None:
         x = x[:, -1:]
@@ -527,7 +549,8 @@ def copy_page(cache: Dict, src: int, dst: int) -> Dict:
 
 def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
-                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                  bank_profiles=None,
+                  constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Shared-prefix tail prefill into the page pool: run only the unshared
     tail of a prompt whose first `prefix_len` tokens are already resident
     in pages, writing the tail's KV through the block table in place.
@@ -552,7 +575,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     prefix_len = int(batch["prefix_len"]) if wt is not None else 0
     positions = _positions(B, T, dev, prefix_len)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
     bt = batch["block_table"]
     ps = cache["pk"].shape[2]
     cap = bt.shape[1] * ps
@@ -586,7 +609,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         # pad rows may collide inside the scratch page — dirt either way
         index_put_(pk, (w_page, w_off), k[0].to(pk.dtype))
         index_put_(pv, (w_page, w_off), v[0].to(pv.dtype))
-        x, _ = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, x, cfg, linear, constrain)
     # a tensor index, not a 0-dim one (which the host would read)
     x = x.index_select(1, (tlen - 1).reshape(1))
     next_tokens = _greedy(_logits(params, x, cfg))
@@ -610,7 +633,8 @@ def paged_attention_op(cfg: ModelConfig, peft: PEFTConfig, device,
 def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites,
                   paged_attention=None, bank=None,
-                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                  bank_profiles=None,
+                  constrain=None) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence: batch["tokens"] (B, 1) ((B, 1, CB) for
     codebooks; vlm: batch["embeds"] (B, 1, d) and batch["positions"]
     (3, B, 1)). Returns (logits (B, 1, V) or (B, 1, CB, V), cache with
@@ -624,19 +648,24 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     if torch.is_tensor(pos):
         logits, cache = verify_logits(params, adapters, cache, batch, cfg,
                                       peft, sites, paged_attention, bank,
-                                      bank_profiles)
+                                      bank_profiles, constrain)
         return logits, {**cache, "pos": pos + 1}
     x = _embed(params, cfg, batch)
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(x.shape[0], 1, x.device, pos)
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
+    # the residual stream anchored at layer boundaries, as in `forward`:
+    # without it DTensor may reduce-scatter a row-parallel output over
+    # `model` and run the next layer on gathered weights
+    act = activation_anchor(constrain)
     for li, lp in enumerate(layers):
-        x, _ = _attn_block(lp, x, cfg, linear, positions,
+        x, _ = _attn_block(lp, act(x), cfg, linear, positions,
                            cache_kv=(cache["k"][li], cache["v"][li]),
                            cache_pos=pos)
-        x, _ = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, act(x), cfg, linear, constrain)
+    x = act(x)
     return _logits(params, x, cfg), {"k": cache["k"], "v": cache["v"],
                                      "pos": pos + 1}
 
@@ -644,18 +673,21 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
 def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 cfg: ModelConfig, peft: PEFTConfig, sites,
                 paged_attention=None, bank=None,
-                bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                bank_profiles=None,
+                constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy `decode_logits`: (next_tokens (B,) or (B, CB) int32,
     cache)."""
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
-                                  sites, paged_attention, bank, bank_profiles)
+                                  sites, paged_attention, bank, bank_profiles,
+                                  constrain)
     return _greedy(logits), cache
 
 
 def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites,
                   paged_attention=None, bank=None,
-                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                  bank_profiles=None,
+                  constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Draft verification: one forward over a window of W consecutive
     tokens per slot. batch["tokens"] (B, W) holds [last accepted token,
     draft_1 .. draft_{W-1}]; window row j sits at position pos + j of a
@@ -686,7 +718,7 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     positions = pos.to(torch.int64)[:, None] + j[None, :]        # (B, W)
     kv_len = pos + 1                          # what query row 0 sees
     layers, linear = _effective(params, adapters, sites, peft, batch, bank,
-                                bank_profiles)
+                                bank_profiles, constrain)
     paged = "pk" in cache
     if paged:
         if paged_attention is None:
@@ -711,6 +743,7 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
         own = torch.clamp(T - 1 - pos.to(torch.int64), 0, W - 1)     # (B,)
         own_col = torch.clamp(pos.to(torch.int64) + own, max=T - 1)
         kk, vk = "k", "v"
+    act = activation_anchor(constrain)      # as in decode_logits
     for li, lp in enumerate(layers):
         q, k, v = _qkv(lp, x, cfg, linear, positions)
         ck, cv = cache[kk][li], cache[vk][li]
@@ -726,9 +759,11 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 if W > 1:               # one row needs no second write
                     index_put_(c, (rows, own_col),
                                t[rows, own].to(c.dtype))
-            att = attn_mod.windowed_decode_attention(q, ck, cv, kv_len)
+            att = local_attention(attn_mod.windowed_decode_attention, q,
+                                  ck, cv, kv_len)
         x = x + linear(lp, "wo", att.reshape(B, W, cfg.attn_dim))
-        x, _ = _mlp_block(lp, x, cfg, linear)
+        x, _ = _mlp_block(lp, act(x), cfg, linear, constrain)
+        x = act(x)
     return _logits(params, x, cfg), {kk: cache[kk], vk: cache[vk],
                                      "pos": pos}
 
@@ -736,10 +771,12 @@ def verify_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
 def verify_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 cfg: ModelConfig, peft: PEFTConfig, sites,
                 paged_attention=None, bank=None,
-                bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                bank_profiles=None,
+                constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy `verify_logits`: (tokens (B, W) int32, cache), tokens[:, j]
     the greedy continuation after window token j."""
     logits, cache = verify_logits(params, adapters, cache, batch, cfg, peft,
-                                  sites, paged_attention, bank, bank_profiles)
+                                  sites, paged_attention, bank, bank_profiles,
+                                  constrain)
     return torch.argmax(unshard_dim(logits, -1),
                         dim=-1).to(torch.int32), cache

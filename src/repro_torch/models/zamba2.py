@@ -33,7 +33,8 @@ from repro_torch.models.common import cross_entropy, dense_init
 from repro_torch.models.transformer import (SiteApp, _app_tag, _attn_block,
                                             _effective, _greedy, _logits,
                                             _lookup, _mlp_block, _positions,
-                                            _remat, make_linear)
+                                            _remat, activation_anchor,
+                                            make_linear)
 
 
 def _split(cfg: ModelConfig) -> Tuple[int, int]:
@@ -100,14 +101,16 @@ def _shared_adapter_rows(adapters: Dict, peft: PEFTConfig):
 
 
 def _shared_block(x, shared: Dict, ad_row: Dict, linear, cfg: ModelConfig,
-                  positions, cache_kv=None, cache_pos: int = 0):
+                  positions, cache_kv=None, cache_pos: int = 0,
+                  act=lambda t: t):
     """The shared attention + MLP on application `ad_row`'s adapter row.
     With `cache_kv` (that application's (k, v) cache) it is the lockstep
-    decode, writing the new rows in place."""
+    decode, writing the new rows in place. `act` anchors the residual
+    between the two (`transformer.activation_anchor`)."""
     lp = {**shared, **ad_row}
     x, _ = _attn_block(lp, x, cfg, linear, positions, cache_kv=cache_kv,
                        cache_pos=cache_pos)
-    x, _ = _mlp_block(lp, x, cfg, linear)
+    x, _ = _mlp_block(lp, act(x), cfg, linear)
     return x
 
 
@@ -132,14 +135,14 @@ def _row_views(cfg: ModelConfig, rows: Dict) -> Tuple[List[Dict],
 
 
 def _parts(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
-           peft: PEFTConfig, sites, bank, bank_profiles):
+           peft: PEFTConfig, sites, bank, bank_profiles, constrain=None):
     """(mamba groups, mamba tail, their linear, application rows, tail row,
     the shared block's linear) for one call: the mamba sites merged or
     applied (and the bank's rows gathered), the shared rows split."""
     mamba_adapters = {k: v for k, v in adapters.items()
                       if k.startswith("layers/")}
     layers, linear = _effective(params, mamba_adapters, sites, peft, batch,
-                                bank, bank_profiles)
+                                bank, bank_profiles, constrain)
     rows, shared_apps = _shared_adapter_rows(adapters, peft)
     main, tail = _group_views(cfg, layers)
     main_rows, tail_row = _row_views(cfg, rows)
@@ -148,20 +151,24 @@ def _parts(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
 
 def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
             peft: PEFTConfig, sites, *, remat: str = "none", bank=None,
-            bank_profiles=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            bank_profiles=None,
+            constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), a zero aux loss)."""
     x = _lookup(params["embed"], batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
     main, tail, linear, main_rows, tail_row, shared_linear = _parts(
-        params, adapters, batch, cfg, peft, sites, bank, bank_profiles)
+        params, adapters, batch, cfg, peft, sites, bank, bank_profiles,
+        constrain)
     shared = params["shared"]
+    act = activation_anchor(constrain)
 
     def group_body(x, group, ad_row):
-        x = _shared_block(x, shared, ad_row, shared_linear, cfg, positions)
+        x = _shared_block(act(x), shared, ad_row, shared_linear, cfg,
+                          positions, act=act)
         for lp in group:
-            x = mamba2.mamba_block(lp, x, cfg, linear_fn=linear)
-        return x
+            x = act(mamba2.mamba_block(lp, act(x), cfg, linear_fn=linear))
+        return act(x)
 
     body = _remat(group_body, remat)
     for group, ad_row in zip(main, main_rows):
@@ -173,9 +180,10 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
 
 
 def loss_fn(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
-            peft: PEFTConfig, sites, *, remat: str = "none") -> torch.Tensor:
+            peft: PEFTConfig, sites, *, remat: str = "none",
+            constrain=None) -> torch.Tensor:
     logits, _ = forward(params, adapters, batch, cfg, peft, sites,
-                        remat=remat)
+                        remat=remat, constrain=constrain)
     return cross_entropy(logits, batch["labels"])
 
 
@@ -194,27 +202,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
-                  bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                  bank_profiles=None,
+                  constrain=None) -> Tuple[torch.Tensor, Dict]:
     """One token per sequence, batch["tokens"] (B, 1) -> (logits (B, 1, V),
     cache at pos + 1); every cache is written in place."""
     x = _lookup(params["embed"], batch["tokens"])             # (B, 1, d)
     pos = cache["pos"]
     positions = _positions(x.shape[0], 1, x.device, pos)
     main, tail, linear, main_rows, tail_row, shared_linear = _parts(
-        params, adapters, batch, cfg, peft, sites, bank, bank_profiles)
+        params, adapters, batch, cfg, peft, sites, bank, bank_profiles,
+        constrain)
     conv_all, ssm_all = cache["conv"], cache["ssm"]
     ck_all, cv_all = cache["attn_k"], cache["attn_v"]
+    act = activation_anchor(constrain)
     groups = list(zip(main, main_rows))
     if tail is not None:
         groups.append((tail, tail_row))
     li = 0
     for gi, (group, ad_row) in enumerate(groups):
-        x = _shared_block(x, params["shared"], ad_row, shared_linear, cfg,
-                          positions, cache_kv=(ck_all[gi], cv_all[gi]),
-                          cache_pos=pos)
+        x = _shared_block(act(x), params["shared"], ad_row, shared_linear,
+                          cfg, positions, cache_kv=(ck_all[gi], cv_all[gi]),
+                          cache_pos=pos, act=act)
         for lp in group:
             x, new = mamba2.mamba_decode_step(
-                lp, {"conv": conv_all[li], "ssm": ssm_all[li]}, x, cfg,
+                lp, {"conv": conv_all[li], "ssm": ssm_all[li]}, act(x), cfg,
                 linear_fn=linear)
             conv_all[li] = new["conv"]
             ssm_all[li] = new["ssm"]
@@ -226,8 +237,9 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
 
 def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                 cfg: ModelConfig, peft: PEFTConfig, sites, bank=None,
-                bank_profiles=None) -> Tuple[torch.Tensor, Dict]:
+                bank_profiles=None,
+                constrain=None) -> Tuple[torch.Tensor, Dict]:
     """Greedy `decode_logits`: (next tokens (B,) int32, cache)."""
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
-                                  sites, bank, bank_profiles)
+                                  sites, bank, bank_profiles, constrain)
     return _greedy(logits), cache

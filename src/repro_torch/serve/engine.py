@@ -405,14 +405,7 @@ class Engine:
         params = tree_to(params, self.device)
         from repro_torch.dist import plan as plan_mod
         from repro_torch.dist import sharding as shd
-        from repro_torch.launch import mesh as mesh_mod
         self.mesh = mesh if shd.is_device_mesh(mesh) else None
-        if self.mesh is not None:
-            mesh_mod.refuse_family_on_mesh(model.cfg, self.mesh)
-            if bank is not None and mesh_mod.mesh_size(self.mesh) > 1:
-                raise NotImplementedError(f"an adapter bank on a "
-                                          f"{mesh_mod.describe(self.mesh)} "
-                                          f"mesh: {mesh_mod.NEXT_SLICE}")
         self.shape = ShapeConfig("serve", max_len, batch_slots, "decode")
         # without a mesh placement is the identity: no plan to resolve
         self.plan_source = plan_mod.RulesSource()

@@ -21,6 +21,14 @@ mode is per thread in torch, so the pump runs everything — ticks,
 submissions, cancellations and `call()`s — without autograd; the
 scheduler's device and copy stream were resolved when it was built.
 
+Across ranks (`torchrun`, a process per rank) every rank must take the
+same scheduler decisions. Rank 0 runs the gateway and this pump; with a
+`RankSync` the pump broadcasts each round's submissions and cancellations
+to the other ranks (`broadcast_object_list` over a gloo group) before it
+ticks, and every other rank runs `follow`: it applies the same commands
+in the same order, then ticks the same scheduler. Only rank 0 opens a
+socket and streams; stopping the pump broadcasts the stop.
+
 Per request the bridge hands back a `RequestHandle` whose asyncio queue
 receives ("token", id), ("done", tokens), ("cancelled", tokens) or
 ("error", message) items; a client disconnect calls `cancel(handle)`,
@@ -49,12 +57,69 @@ class RequestHandle:
         self.closed = False                    # terminal item delivered
 
 
-class SchedulerBridge:
-    """Pumps a ContinuousScheduler from a daemon thread; see module doc."""
+class RankSync:
+    """The pump's round broadcast from rank 0 (module docstring): `send`
+    on rank 0, `receive` on the others, over `group` (a gloo group; the
+    default group when None)."""
 
-    def __init__(self, sched, idle_wait_s: float = 0.005):
+    def __init__(self, group=None):
+        self.group = group
+
+    def send(self, ops: List) -> None:
+        import torch.distributed as dist
+        dist.broadcast_object_list([ops], src=0, group=self.group)
+
+    def receive(self) -> List:
+        import torch.distributed as dist
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+@torch.no_grad()
+def follow(sched, sync: RankSync) -> int:
+    """The pump of a rank other than 0: each round, apply rank 0's
+    submissions and cancellations in its order, then tick; until rank 0
+    stops. A failed tick cancels every live request, as rank 0's pump
+    does. Returns the rounds followed."""
+    live = set()
+    rounds = 0
+    while True:
+        ops = sync.receive()
+        for op in ops:
+            if op[0] == "stop":
+                return rounds
+            if op[0] == "submit":
+                live.add(sched.submit(op[1], arrival=op[2]))
+            else:
+                sched.cancel(op[1])
+                live.discard(op[1])
+        try:
+            events = sched.tick()
+        except Exception:                      # noqa: BLE001 — as rank 0
+            for rid in list(live):
+                try:
+                    sched.cancel(rid)
+                except Exception:               # noqa: BLE001 — best effort
+                    pass
+            live.clear()
+            events = []
+        for ev in events:
+            if ev[0] == "done":
+                live.discard(ev[1])
+        rounds += 1
+
+
+class SchedulerBridge:
+    """Pumps a ContinuousScheduler from a daemon thread; see module doc.
+    `sync`: a RankSync when other ranks follow this pump."""
+
+    def __init__(self, sched, idle_wait_s: float = 0.005,
+                 sync: Optional[RankSync] = None):
         self.sched = sched
         self.idle_wait_s = idle_wait_s
+        self.sync = sync
+        self._round: List = []                 # this round's commands
         self._cmds: "_queue.SimpleQueue" = _queue.SimpleQueue()
         self._handles: Dict[int, RequestHandle] = {}
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -163,10 +228,12 @@ class SchedulerBridge:
                         raise RuntimeError(veto)
                 handle = RequestHandle()
                 # live traffic arrives NOW on the decode-step clock
-                handle.rid = self.sched.submit(request, arrival=self.sched.t)
+                arrival = self.sched.t
+                handle.rid = self.sched.submit(request, arrival=arrival)
             except Exception as e:              # noqa: BLE001 — to caller
                 self._resolve(fut, error=e)
                 return
+            self._round.append(("submit", request, arrival))
             self._handles[handle.rid] = handle
             self._resolve(fut, value=handle)
         elif kind == "cancel":
@@ -176,6 +243,7 @@ class SchedulerBridge:
                 return                          # already finished / unknown
             del self._handles[rid]
             self.sched.cancel(rid)
+            self._round.append(("cancel", rid))
             self._post(handle, ("cancelled", []))
         elif kind == "call":
             _, fn, fut = cmd
@@ -204,6 +272,10 @@ class SchedulerBridge:
                     self._exec(self._cmds.get_nowait())
                 except _queue.Empty:
                     break
+            if self.sync is not None:
+                # the other ranks apply this round's commands, then tick
+                self.sync.send(self._round)
+            self._round = []
             try:
                 events = sched.tick()
             except Exception as e:             # noqa: BLE001 — fail streams
@@ -227,3 +299,5 @@ class SchedulerBridge:
                     self._exec(self._cmds.get(timeout=self.idle_wait_s))
                 except _queue.Empty:
                     pass
+        if self.sync is not None:
+            self.sync.send([("stop",)])

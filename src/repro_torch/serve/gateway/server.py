@@ -58,13 +58,15 @@ class GatewayServer:
     request_timeout_s:    end-to-end deadline per request (None = off);
                           overruns cancel the request mid-stream.
     default_max_new:      `max_tokens` default when the client omits it.
+    sync:                 a `bridge.RankSync` when other ranks follow
+                          this gateway's pump (rank 0 of a group).
     """
 
     def __init__(self, sched, eos_id: Optional[int] = None,
                  max_queue: int = 32, min_free_page_frac: float = 0.0,
                  retry_after_s: float = 1.0,
                  request_timeout_s: Optional[float] = None,
-                 default_max_new: int = 16):
+                 default_max_new: int = 16, sync=None):
         self.sched = sched
         self.eos_id = eos_id
         self.max_queue = max_queue
@@ -75,7 +77,7 @@ class GatewayServer:
         self.vocab = int(sched.model.cfg.vocab)
         self.max_len = int(sched.max_len)
         self.base_aliases = (sched.model.cfg.name,)
-        self.bridge = SchedulerBridge(sched)
+        self.bridge = SchedulerBridge(sched, sync=sync)
         self.responses: Dict[int, int] = {}    # HTTP status -> count
         self._ids = 0
         self._server: Optional[asyncio.base_events.Server] = None

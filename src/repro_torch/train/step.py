@@ -129,9 +129,18 @@ def _value_and_grad(loss_f: Callable, trainable: Dict, frozen: Dict,
 
 def _microbatch(key: str, x: torch.Tensor, k: int, i: int) -> torch.Tensor:
     """Microbatch i of k of one batch entry, split along the batch axis:
-    axis 1 of the (3, B, S) M-RoPE positions, axis 0 of everything else."""
+    axis 1 of the (3, B, S) M-RoPE positions, axis 0 of everything else.
+    A batch placed on a mesh (a DTensor, its rows sharded over the batch
+    axes) takes every k-th row instead of k contiguous slices, so each
+    rank splits the rows it holds: the same k microbatches' sum, in
+    other groupings."""
+    strided = dtensor.is_dtensor(x)
     if key == "positions" and x.ndim == 3:
+        if strided:
+            return x.reshape((3, x.shape[1] // k, k) + x.shape[2:])[:, :, i]
         return x.reshape((3, k, x.shape[1] // k) + x.shape[2:])[:, i]
+    if strided:
+        return x.reshape((x.shape[0] // k, k) + x.shape[1:])[:, i]
     return x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
 
 

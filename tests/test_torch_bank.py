@@ -597,3 +597,65 @@ def test_launcher_serves_a_bank(world, tmp_path, capsys):
     assert "continuous: 6 requests" in out
     loads = int(out.split("bank: ")[-1].split(" loads")[0])
     assert loads >= 4                      # 2 resident + reloads mid-trace
+
+
+# ---------------------------------------------------------------------------
+# The bank on a mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_bank_worker(rank, world_size, workdir):
+    """Two ranks (1x2, model-parallel): the three-tenant bank engine on a
+    DTensor mesh, lockstep generate and paged continuous serving."""
+    import os
+    from repro_torch.launch import mesh as mesh_mod
+    saved = torch.load(os.path.join(workdir, "bank_world.pt"))
+    model = build(_cfgs()[1], PEFTConfig(method="none"))
+    bank = AdapterBank(model, _profiles(), capacity=4, device="cpu")
+    for tid, m in zip(TENANTS, METHODS):
+        bank.load(tid, saved["trees"][m], PEFTConfig(**_kw(m)))
+    eng = Engine(model, saved["params"], batch_slots=3, max_len=32,
+                 bank=bank, device="cpu", mesh=mesh_mod.make_host_mesh(2))
+    outs = eng.generate(PROMPTS, max_new=6, adapter_ids=list(TENANTS))
+    sched = ContinuousScheduler(eng, page_size=8)
+    reqs = [Request(PROMPTS[i], max_new=4, adapter_id=tid)
+            for i, tid in enumerate(TENANTS)]
+    sched.serve(reqs)
+    if rank == 0:
+        torch.save({"generate": _lists(outs),
+                    "continuous": [r.out for r in reqs],
+                    "placed": type(eng.params["base"]["layers"]["wq"])
+                    .__name__},
+                   os.path.join(workdir, "bank_mesh.pt"))
+
+
+def test_mesh_sharded_bank_engine_matches(world, tmp_path):
+    """tests/test_adapter_bank.py's mesh case on two gloo ranks: the bank
+    engine on a model-parallel DTensor mesh (the bank's rows replicated)
+    streams JAX's unsharded bank engine's tokens and the port's, and its
+    continuous serving the port's unsharded scheduler's."""
+    import os
+    from repro_torch.launch import mesh as mesh_mod
+    jmodel, jparams, model, params, jtrees, trees = world
+    torch.save({"params": params, "trees": trees},
+               str(tmp_path / "bank_world.pt"))
+    mesh_mod.spawn_cpu_ranks(_mesh_bank_worker, 2, str(tmp_path),
+                             str(tmp_path))
+    got = torch.load(os.path.join(str(tmp_path), "bank_mesh.pt"))
+    assert got["placed"] == "DTensor"
+    jprof = {m: JaxPEFT(**_kw(m)) for m in METHODS}
+    jbank = JaxBank(jmodel, jprof, capacity=4)
+    for tid, m in zip(TENANTS, METHODS):
+        jbank.load(tid, jtrees[m], jprof[m])
+    jouts = JaxEngine(jmodel, jparams, batch_slots=3, max_len=32,
+                      bank=jbank).generate([jnp.asarray(p.numpy())
+                                            for p in PROMPTS], max_new=6,
+                                           adapter_ids=list(TENANTS))
+    plain = _engine(world, _bank(world))
+    assert got["generate"] == [np.asarray(o).tolist() for o in jouts] \
+        == _lists(plain.generate(PROMPTS, max_new=6,
+                                 adapter_ids=list(TENANTS)))
+    sched = ContinuousScheduler(_engine(world, _bank(world)), page_size=8)
+    reqs = [Request(PROMPTS[i], max_new=4, adapter_id=tid)
+            for i, tid in enumerate(TENANTS)]
+    sched.serve(reqs)
+    assert got["continuous"] == [r.out for r in reqs]

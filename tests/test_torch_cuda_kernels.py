@@ -969,3 +969,43 @@ def test_codebook_model_trains_and_generates_on_the_card(cuda_device):
                                                               max_new=6)]
     assert outs["auto"] == outs["einsum"]
     assert [np.asarray(o).shape for o in outs["auto"]] == [(6, 4)] * 2
+
+
+def test_custom_ops_launch_the_kernels_on_real_tensors(cuda_device):
+    """K1–K5's custom ops (`kernels.custom_ops`, what the dry run traces on
+    fake tensors) launch the same kernels on real CUDA tensors: the same
+    bits as the wrappers, each launch counted; K1's op differentiates
+    through K2's."""
+    from repro_torch.kernels import custom_ops
+    d1, d2, n, L = 512, 96, 64, 2
+    E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
+    u, v = E[0].to(torch.int32).contiguous(), E[1].to(torch.int32) \
+        .contiguous()
+    c = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(L, n)).astype(np.float32)).to(cuda_device)
+    g = torch.randn((L, d1, d2), device=cuda_device)
+    for name, mod in (("fourier", fdk), ("dct", ddk)):
+        before = (mod.launches, mod.dc_launches)
+        dw = custom_ops.op(f"{name}_deltaw")(c, u, v, d1, d2, 300.0)
+        dc = custom_ops.op(f"{name}_dc")(g, u, v, d1, d2, 300.0)
+        assert (mod.launches, mod.dc_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        assert torch.equal(dw, mod.deltaw(c, u, v, d1, d2, 300.0))
+        assert torch.equal(dc, mod.dc(g, u, v, d1, d2, 300.0))
+    cg = c.clone().requires_grad_(True)
+    before = fdk.dc_launches
+    dw = custom_ops.op("fourier_deltaw")(cg, u, v, d1, d2, 300.0)
+    (grad,) = torch.autograd.grad((dw * g).sum(), [cg])
+    assert fdk.dc_launches == before + 1
+    assert torch.equal(grad, fdk.dc(g, u, v, d1, d2, 300.0))
+    B, W, H, K, dh, ps, pps = 2, 1, 8, 2, 64, 16, 4
+    q = torch.randn((B, W, H, dh), device=cuda_device, dtype=torch.bfloat16)
+    kp = torch.randn((B * pps + 1, ps, K, dh), device=cuda_device,
+                     dtype=torch.bfloat16)
+    bt = (torch.arange(B * pps, dtype=torch.int32, device=cuda_device)
+          .reshape(B, pps) + 1)
+    kv = torch.tensor([50, 9], dtype=torch.int32, device=cuda_device)
+    before = pa.launches
+    out = custom_ops.op("paged_attention")(q, kp, kp, bt, kv)
+    assert pa.launches == before + 1
+    assert torch.equal(out, pa.paged_attention(q, kp, kp, bt, kv))

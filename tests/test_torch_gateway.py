@@ -772,8 +772,8 @@ def test_api_launcher_refuses_mesh_flags(monkeypatch):
     at world size 1 (with no process group the mesh is the one device:
     nothing is placed, so no plan is resolved), a model axis wider than
     the ranks is refused (as the JAX launcher's make_host_mesh refuses
-    it), and more than one rank is refused with the slice that brings the
-    gateway across ranks."""
+    it). More ranks than one serve: see
+    test_api_launcher_across_two_ranks_streams_the_replay."""
     ap = launch_api.argparse.ArgumentParser()
     launch_api.add_model_args(ap)
     base = ["--arch", "yi-6b", "--reduced", "--device", "cpu"]
@@ -789,6 +789,78 @@ def test_api_launcher_refuses_mesh_flags(monkeypatch):
     assert len(runs["search"]) == 5 and runs["search"] == runs["rules"]
     with pytest.raises(ValueError, match="does not divide"):
         launch_api.main(base + ["--port", "0", "--model-parallel", "2"])
-    monkeypatch.setattr(launch_api.mesh_mod, "world_size", lambda: 2)
-    with pytest.raises(SystemExit, match="gateway across ranks"):
-        launch_api.main(base + ["--port", "0"])
+
+
+def test_api_launcher_across_two_ranks_streams_the_replay(tmp_path):
+    """`torchrun --nproc-per-node 2 -m repro_torch.launch.api` on gloo CPU
+    ranks (a 1x2 model-parallel mesh, the demo bank): rank 0 serves, its
+    pump broadcasts each round's submissions and cancellations and rank 1
+    follows. A client that disconnects mid-stream is cancelled on both
+    ranks (the next streams stay the replay's, which they could not if the
+    ranks' schedulers parted), the HTTP streams equal the in-process
+    replay of a scheduler from the same flags, and a SIGTERM to rank 0
+    stops both ranks (torchrun exits 0)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    flags = ["--arch", "yi-6b", "--reduced", "--device", "cpu",
+             "--max-len", "64", "--slots", "2", "--dtype", "float32"]
+    demo = str(tmp_path / "demo")
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.api", *flags,
+         "--export-demo-bank", demo], env=env, capture_output=True,
+        text=True, timeout=120)
+    assert done.returncode == 0, done.stderr
+    flags += ["--bank-dir", demo]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.api", *flags,
+         "--model-parallel", "2", "--port", "0"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT))
+    asks = [("adapter:t0", [1, 2, 3], 5), ("base", [4, 5, 6, 7], 6),
+            ("adapter:t1", [2, 9], 4)]
+    try:
+        line = proc.stdout.readline()
+        assert "gateway listening on http://127.0.0.1:" in line \
+            and "2 ranks" in line, line + proc.stderr.read()
+        port = int(line.split("127.0.0.1:")[1].split()[0])
+        pid = int(line.split("pid ")[1].split(")")[0])
+
+        async def disconnect():
+            body = json.dumps(_completion("adapter:t1", [3, 3, 3], 40))
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           port)
+            writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                          f"Content-Length: {len(body)}\r\n\r\n"
+                          + body).encode())
+            await writer.drain()
+            await reader.readuntil(b"data: ")      # one token in: leave
+            writer.close()
+
+        asyncio.run(disconnect())
+        streams = []
+        for model, prompt, n in asks:
+            status, _, body = asyncio.run(_post(
+                "127.0.0.1", port, "/v1/completions",
+                _completion(model, prompt, n)))
+            assert status == 200
+            tokens, finish, done_ = _sse_parse(body)
+            assert done_ and finish == "length"
+            streams.append(tokens)
+        os.kill(pid, signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    assert out.count("gateway shutting down") == 1
+    ap = launch_api.argparse.ArgumentParser()
+    launch_api.add_model_args(ap)
+    sched, _ = launch_api.build_scheduler(ap.parse_args(flags))
+    want = []
+    for model, prompt, n in asks:
+        req = _req(prompt, n, adapter_id=None if model == "base"
+                   else model.split(":")[1])
+        sched.serve([req])
+        want.append(req.out)
+    assert streams == want

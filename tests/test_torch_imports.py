@@ -73,6 +73,17 @@ def test_walk_covers_the_dist_modules():
                                      "sharding"}
 
 
+def test_walk_covers_the_dryrun_and_custom_op_modules():
+    walked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("launch/dryrun.py", "launch/dryrun_lib.py",
+                "launch/roofline.py", "kernels/custom_ops.py"):
+        assert f"src/repro_torch/{rel}" in walked
+    from repro_torch.launch import mesh as mesh_mod
+    # the mesh refusals of the families and the bank are gone
+    assert not hasattr(mesh_mod, "refuse_family_on_mesh")
+    assert not hasattr(mesh_mod, "NEXT_SLICE")
+
+
 def _tiny():
     cfg = configs.reduced(configs.get("yi-6b")).replace(
         vocab=64, param_dtype="float32", dtype="float32")

@@ -4,7 +4,7 @@ adapter method, abstract mesh and FSDP setting; the planner's plan JSON for
 the same cell and the same ClusterEnv; plan files crossing between the
 packages; the planner's gate at the production 16x16 cell; the sharding
 audit and its seeded regression; the launchers under `torchrun` on four
-CPU ranks; and the refusals that name the next slice.
+CPU ranks.
 
 The JAX side evaluates `MeshSpec` in process (no devices); the port walks
 meta tensors. The H100 defaults differ from JAX's v5e ones, so the parity
@@ -245,18 +245,6 @@ def test_sharding_audit_clean_and_seeded_regression(monkeypatch):
     assert [f.rule for f in findings] == ["uncovered"]
     assert "A_log" in findings[0].where
     assert report.gate(findings, {}) == 1
-
-
-def test_non_dense_families_refuse_a_multi_rank_mesh():
-    two = mesh_mod.abstract_mesh((2, 2), ("data", "model"))
-    one = mesh_mod.abstract_mesh((1, 1), ("data", "model"))
-    for arch in ("olmoe-1b-7b", "musicgen-medium", "qwen2-vl-72b",
-                 "mamba2-2.7b", "zamba2-7b"):
-        cfg = configs.get(arch)
-        with pytest.raises(SystemExit, match="next slice"):
-            mesh_mod.refuse_family_on_mesh(cfg, two)
-        mesh_mod.refuse_family_on_mesh(cfg, one)
-    mesh_mod.refuse_family_on_mesh(configs.get("yi-6b"), two)
 
 
 def _torchrun(args, timeout=240):
