@@ -74,7 +74,6 @@ def lint_train(model, params, batches: Sequence[Dict], device, mesh=None
     findings, the recorder). The first step is recorded like the rest
     (nothing is compiled in eager PyTorch)."""
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.dist import sharding as shd
     from repro_torch.train import step as train_step
     label = "train_step" if mesh is None else "train_step/mesh"
     tcfg = TrainConfig(total_steps=max(4, len(batches)))
@@ -86,7 +85,8 @@ def lint_train(model, params, batches: Sequence[Dict], device, mesh=None
             model, state, frozen, mesh)
         step, b_sh = train_step.make_sharded_train_step(
             model, tcfg, mesh, batches[0])
-        batches = [shd.distribute(b, b_sh, mesh) for b in batches]
+        batches = [train_step.place_batch(b, b_sh, mesh, tcfg.microbatch)
+                   for b in batches]
     rec = DispatchRecorder(device)
     out: List[Finding] = []
     with rec:

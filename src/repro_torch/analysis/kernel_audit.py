@@ -9,8 +9,12 @@ passes.
 
 - **K1/K2 and K4/K5** (`fft_rows` caps, `kernels/fft_plan.py`; one plan
   and one set of limits for the four kernels):
-  - `MAX_D2` from the shared memory a block may request: one unpadded
-    complex f32 row of d2 points (`smem_bytes // point_bytes`);
+  - `MAX_D2` from the shared memory a block may request and the blocks of
+    the cluster one row may span: an unpadded complex f32 row of d2 points
+    split over `cluster` blocks (`cluster · smem_bytes // point_bytes`);
+    the C side must launch that cluster (`cudaLaunchAttributeClusterDimension`
+    after `cudaOccupancyMaxActiveClusters`, FFT_CLUSTER blocks), or the
+    caps' cluster is a `constant-drift`;
   - `MAX_D1` from the phase products: K1/K2 reduce `j·u mod d1` with
     j, u < d1 in one product of `phase_bits` (unsigned 32-bit, so
     (d1 − 1)² < 2³²; a signed product would allow only (d1 − 1)² < 2³¹),
@@ -76,8 +80,12 @@ def csrc_constants(csrc: Path = CSRC) -> Dict[str, Dict]:
     """{"fft": constants of fft_rows.cuh and fft_smem.cuh, "k3": those of
     paged_attention.cu with its shared-memory request and limits and the
     (head class, CHUNK[, MAXR]) of each instance `dispatch` picks}."""
+    rows = (csrc / "fft_rows.cuh").read_text()
     fft = {**_constexprs((csrc / "fft_smem.cuh").read_text()),
-           **_constexprs((csrc / "fft_rows.cuh").read_text())}
+           **_constexprs(rows)}
+    # the cluster launch: its dimension attribute and the occupancy check
+    fft["cluster_launch"] = ("cudaLaunchAttributeClusterDimension" in rows
+                             and "cudaOccupancyMaxActiveClusters" in rows)
     text = (csrc / "paged_attention.cu").read_text()
     k3 = _constexprs(text)
 
@@ -140,7 +148,7 @@ def derived_fft_limits(caps: Dict, smem_bytes: Optional[int] = None
     chunk = caps["entry_chunk"]
     n = (smem - caps["scatter_static_bytes"]) // caps["scatter_entry_bytes"]
     regs = caps["odd_radix_regs"]
-    return {"MAX_D2": smem // caps["point_bytes"],
+    return {"MAX_D2": caps.get("cluster", 1) * smem // caps["point_bytes"],
             "MAX_D1": derived_d1(caps),
             "MAX_N": n // chunk * chunk,
             "MAX_RADIX": regs if regs % 2 else regs - 1}
@@ -161,9 +169,10 @@ def _smooth(d: int, most: int) -> bool:
 
 def fft_probes(lim: Dict[str, int]):
     """(limit name, d1, d2, n) shapes just past each limit of `lim`, each
-    inside the other limits (d2 7-smooth, so only the width can refuse)."""
+    inside the other limits (d2 even and 7-smooth, so only the width can
+    refuse: a cluster takes even rows)."""
     d2 = lim["MAX_D2"] + 1
-    while not _smooth(d2, 7):
+    while d2 % 2 or not _smooth(d2, 7):
         d2 += 1
     p = lim["MAX_RADIX"] + 2
     while any(p % q == 0 for q in range(3, int(p ** 0.5) + 1, 2)):
@@ -367,6 +376,8 @@ def declared_constants_findings(csrc: Path = CSRC) -> List[Finding]:
     pairs = [
         ("fft_plan.SMEM_BYTES", fft_plan.SMEM_BYTES, "SMEM_MAX",
          fft.get("SMEM_MAX")),
+        ("fft_plan.CLUSTER", fft_plan.CLUSTER, "FFT_CLUSTER",
+         fft.get("FFT_CLUSTER")),
         ("fft_plan.MAX_D1", fft_plan.MAX_D1, "MAX_D1", fft.get("MAX_D1")),
         ("fft_plan.MAX_N", fft_plan.MAX_N, "MAX_N", fft.get("MAX_N")),
         ("fft_plan.MAX_STAGES", fft_plan.MAX_STAGES, "FFT_MAX_STAGES",
@@ -391,7 +402,12 @@ def declared_constants_findings(csrc: Path = CSRC) -> List[Finding]:
             (f"{tag}.scatter_static_bytes", caps["scatter_static_bytes"],
              "4 * SORT_THREADS", 4 * fft["SORT_THREADS"]
              if "SORT_THREADS" in fft else None),
+            (f"{tag}.cluster", caps.get("cluster", 1), "FFT_CLUSTER",
+             fft.get("FFT_CLUSTER", 1)),
         ]
+        if caps.get("cluster", 1) > 1 and not fft.get("cluster_launch"):
+            pairs.append((f"{tag}.cluster", caps["cluster"],
+                          "a cluster launch in fft_rows.cuh", None))
     pc = pak.CAPS
     pairs += [
         ("paged_attention.CAPS.threads", pc["threads"], "THREADS",

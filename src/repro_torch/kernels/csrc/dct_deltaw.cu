@@ -48,7 +48,8 @@
 // and K2; their earlier design evaluated the direct sum, 2·d1·d2·n FP32
 // FMAs per layer, about 60× that floor at yi-6b's wq. The passes,
 // determinism (no float atomics: the same bits on a second launch) and
-// limits are fft_rows.cuh's: d2 ≤ 29056 with odd prime factors ≤ 63,
+// limits are fft_rows.cuh's: d2 ≤ 29056 in one block, even d2 ≤ 58112
+// over a cluster of two blocks, odd prime factors ≤ 63,
 // d1 ≤ 65535, n ≤ 16384 for K4, n a multiple of 16 (the wrapper pads with
 // zero entries and c = 0, and drops their dc).
 #include <cuda_runtime.h>

@@ -68,16 +68,45 @@
 // by integer atomics, changes no sum); the dc partials and their reduction
 // have a fixed order. A second launch gives the same bits.
 //
+// Rows past one block (the cluster path). A row of d2 ≤ 29056 points
+// lives in one block's shared memory. A longer row (even d2 ≤ 58112) is
+// given to a thread-block cluster of FFT_CLUSTER = 2 blocks, which Hopper
+// runs on neighbouring SMs: block r holds points [r·N/2, (r+1)·N/2) of the
+// row pair's buffer (padded as one block's row), and the plan's radices are
+// those of N/2 followed by a radix-2 stage of span N/2 (fft_plan.py). So
+// every stage but that one acts within a half and runs in its block alone
+// (`fft_smem_dit`/`fft_smem_dif` on the half plan), and `cluster_stage`
+// pairs point k of block 0 with point k + N/2 of block 1 through
+// distributed shared memory, between two cluster barriers, each block
+// taking half the k range. DIT (K1, K4): the scatter adds only the slots
+// whose digit-reversed place lies in the block's half, the half's stages
+// run, then the cross stage; each block stores its own N/2 columns (K4's
+// store reads place(k) from whichever block holds it). DIF (K2, K5): each
+// block loads its own N/2 columns and writes them to their places in
+// either block, the cross stage runs first, then each half's stages; an
+// entry's two places share a block (d2 even: v and d2 - v have one
+// parity, and the last digit of the position is that parity), and that
+// block alone gathers the entry and writes its partial sum, so the
+// fixed-order reduction and its bit-identical relaunch are as for one
+// block. The launch sets the cluster dimension (cudaLaunchKernelEx) after
+// `cudaOccupancyMaxActiveClusters` says such a cluster fits. One launch,
+// the row never leaves the chip; a four-step transform through device
+// memory would need a second launch or a grid barrier and a round trip
+// of the row through L2. Below 29056 nothing of the one-block path
+// changes.
+//
 // Limits (the entry points refuse with cudaErrorInvalidValue; the wrappers
-// raise first, naming the limit): d2 ≤ 29056 (one complex f32 row, 8·d2
-// bytes, in the 232,448 bytes of shared memory a block can have; rows of at
-// most 4096 share a block, about 32 KB of buffers), every odd prime factor
-// of d2 ≤ 63, d1 ≤ 65535 (the Fourier row phase j·u is one 32-bit product;
-// the DCT's is a 64-bit one), n ≤ 16384 for ΔW (pass 0 holds 2n ints in
+// raise first, naming the limit): d2 ≤ 29056 in one block (one complex f32
+// row, 8·d2 bytes, in the 232,448 bytes of shared memory a block can have;
+// rows of at most 4096 share a block, about 32 KB of buffers), even
+// d2 ≤ 58112 over a cluster of two, every odd prime factor of d2 ≤ 63,
+// d1 ≤ 65535 (the Fourier row phase j·u is one 32-bit product; the DCT's
+// is a 64-bit one), n ≤ 16384 for ΔW (pass 0 holds 2n ints in
 // shared memory), n a multiple of 16 (the wrapper pads with zero entries
 // and c = 0, and drops their dc). c and g are f32 and contiguous, g
 // unpadded (L, d1, d2). No tensor cores.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fft_smem.cuh"
@@ -93,6 +122,9 @@ constexpr int SMEM_MAX = 232448;    // shared memory one block can have
 constexpr int SMEM_DEFAULT = 49152; // above this a kernel needs the attribute
 constexpr int MAX_D1 = 65535;
 constexpr int MAX_N = 16384;        // pass 0 holds 2n ints in shared memory
+constexpr int FFT_CLUSTER = 2;      // blocks of the cluster a long row spans
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ unsigned reduce_entry(int e, int d) {
   return static_cast<unsigned>(((e % d) + d) % d);
@@ -132,11 +164,16 @@ __device__ __forceinline__ unsigned odd_phase(unsigned i, unsigned u,
 }
 
 // plan ints (kernels/fft_plan.py::FftPlan.as_ints): stages, radices padded to
-// FFT_MAX_STAGES, pairs, slabs, shift. False unless the radices multiply to
-// d2 and each is 2, 4, 8 or an odd number ≤ 63. An odd stage's roots follow
-// the N - 1 stage twiddles in the table (fft_plan.stage_twiddles).
+// FFT_MAX_STAGES, pairs, slabs, shift, cluster. False unless the radices
+// multiply to d2 and each is 2, 4, 8 or an odd number ≤ 63. An odd stage's
+// roots follow the N - 1 stage twiddles in the table
+// (fft_plan.stage_twiddles). For a cluster (FFT_CLUSTER blocks: the last
+// radix 2, one row pair a block, d2 even) `plan` is the half plan each
+// block runs: N/2 points, the stages but the last, whose span N/2 is
+// plan->span[plan->stages]; the twiddle and root offsets stay those of the
+// length-N table.
 bool read_plan(const int* ints, int d2, FftPlan* plan, int* pairs,
-               int* slabs) {
+               int* slabs, int* cluster) {
   const int stages = ints[0];
   if (stages < 0 || stages > FFT_MAX_STAGES) return false;
   plan->n = d2;
@@ -157,8 +194,17 @@ bool read_plan(const int* ints, int d2, FftPlan* plan, int* pairs,
   *pairs = ints[1 + FFT_MAX_STAGES];
   *slabs = ints[2 + FFT_MAX_STAGES];
   plan->shift = ints[3 + FFT_MAX_STAGES];
+  *cluster = ints[4 + FFT_MAX_STAGES];
   if (plan->shift != 4 && plan->shift != 30) return false;
-  plan->stride = d2 + ((d2 - 1) >> plan->shift);
+  if (*cluster == FFT_CLUSTER) {
+    if (stages < 1 || plan->radix[stages - 1] != 2 || d2 % 2 || *pairs != 1)
+      return false;
+    plan->n = d2 / 2;
+    plan->stages = stages - 1;
+  } else if (*cluster != 1) {
+    return false;
+  }
+  plan->stride = plan->n + ((plan->n - 1) >> plan->shift);
   return span == d2 && *pairs >= 1 && *slabs >= 1;
 }
 
@@ -170,6 +216,81 @@ int allow_smem(Kernel kernel, int bytes, int* allowed) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) *allowed = bytes;
   return static_cast<int>(err);
+}
+
+// The radix-2 stage of span H = plan.n that joins the two halves of a row
+// held by a cluster (block r holds points r·H + i at its local i): the last
+// stage of a DIT, the first of a DIF. It pairs point k (block 0) with point
+// k + H (block 1), both at local place fft_phys(k); block r does the
+// butterflies k in [r·⌈H/2⌉, (r+1)·⌈H/2⌉), reading and writing both points
+// through distributed shared memory, so no point is touched twice. Its
+// twiddles exp(2πi k / 2H) are the stage table's entries H - 1 + k. Cluster
+// barriers before (both halves' earlier stages, or loads, are done) and
+// after (what reads the halves next sees this stage's writes).
+template <bool DIF>
+__device__ void cluster_stage(float2* buf, const FftPlan& plan,
+                              const float2* __restrict__ tw) {
+  using namespace fft_detail;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int H = plan.n;
+  const int rank = static_cast<int>(cluster.block_rank());
+  float2* lo = cluster.map_shared_rank(buf, 0);
+  float2* hi = cluster.map_shared_rank(buf, 1);
+  const float2* __restrict__ ts = tw + (H - 1);
+  const int per = (H + 1) / 2;
+  const int k1 = min(H, (rank + 1) * per);
+  cluster.sync();
+  for (int k = rank * per + threadIdx.x; k < k1; k += blockDim.x) {
+    const int i = fft_phys(plan, k);
+    float2 x[2] = {lo[i], hi[i]};
+    if (!DIF && k > 0) x[1] = cmul(x[1], twiddle<1>(ts, k));
+    dft2(x);
+    if (DIF && k > 0) x[1] = cmul(x[1], twiddle<1>(ts, k));
+    lo[i] = x[0];
+    hi[i] = x[1];
+  }
+  cluster.sync();
+}
+
+// Where point p (< 2·plan.n) of a cluster's row lives: block p >= plan.n,
+// at its local fft_phys place.
+__device__ __forceinline__ int cluster_owner(const FftPlan& plan, int p) {
+  return p >= plan.n ? 1 : 0;
+}
+
+// A launch of `kernel` over clusters of FFT_CLUSTER blocks (grid.x counts
+// blocks: clusters × FFT_CLUSTER): the dynamic shared memory attribute,
+// then cudaOccupancyMaxActiveClusters must place at least one such cluster
+// on the card, then cudaLaunchKernelEx with the cluster dimension. Returns
+// the CUDA error code of the launch (cudaErrorInvalidConfiguration when no
+// cluster fits).
+template <typename... Params, typename... Args>
+int launch_clustered(void (*kernel)(Params...), dim3 grid, int smem,
+                     cudaStream_t s, int* allowed, int* fits, Args... args) {
+  if (int err = allow_smem(kernel, smem, allowed)) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = FFT_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (smem > *fits) {
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel,
+                                                           &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    *fits = smem;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 namespace rows {
@@ -343,8 +464,11 @@ scatter_plan_kernel(const float* __restrict__ c, const int* __restrict__ u,
 // round, runs the inverse transform, stores scale/2 · (Re, Im) to rows j,
 // j + 1. A slot reads its 2·P row factors' table entries at once: Fourier
 // cos1/sin1 (d1,) at θ's phase j·u mod d1, DCT cos1 (4·d1,) at
-// (2j+1)·u mod 4·d1 (sin1 unused).
-template <Basis B, int P>
+// (2j+1)·u mod 4·d1 (sin1 unused). CL: one row pair a cluster of two
+// blocks (grid.x = 2 × row pairs), `plan` the half plan; the block adds
+// the slots of its half, runs its half's stages and the cross stage, and
+// stores its N/2 columns.
+template <Basis B, int P, bool CL>
 __global__ void __launch_bounds__(THREADS, 4)
 deltaw_kernel(const Scatter s,
               const float* __restrict__ cos1, const float* __restrict__ sin1,
@@ -352,9 +476,11 @@ deltaw_kernel(const Scatter s,
               const FftPlan plan, int n, int d1, float scale) {
   constexpr int pairs = P;
   extern __shared__ float2 buf[];             // P × plan.stride
-  const int N = plan.n;
+  const int H = plan.n;                       // points of a row in a block
+  const int N = CL ? 2 * H : H;
+  const int rank = CL ? static_cast<int>(blockIdx.x & 1u) : 0;
   const int layer = blockIdx.y;
-  const unsigned j0 = blockIdx.x * 2u * pairs;
+  const unsigned j0 = (CL ? blockIdx.x >> 1 : blockIdx.x) * 2u * pairs;
   const unsigned ud1 = static_cast<unsigned>(d1);
   const int* __restrict__ roff = s.roff;
   const int* __restrict__ spos = s.spos;
@@ -371,8 +497,13 @@ deltaw_kernel(const Scatter s,
     const int hi = roff[r + 1];
 #pragma unroll 2
     for (int x = roff[r] + threadIdx.x; x < hi; x += blockDim.x) {
+      int t = spos[x];
+      if constexpr (CL) {
+        if (cluster_owner(plan, t) != rank) continue;   // the other half's
+        t -= rank * H;
+      }
       const unsigned us = static_cast<unsigned>(su[x]);
-      const int px = fft_phys(plan, spos[x]);
+      const int px = fft_phys(plan, t);
       if constexpr (B == Basis::dct) {
         // s·c·φ (conjugated: a mirror)
         const float2 cf = reinterpret_cast<const float2*>(cs)[x];
@@ -420,24 +551,38 @@ deltaw_kernel(const Scatter s,
     }
   }
   fft_smem_dit<1>(buf, pairs, plan, tw);
+  if constexpr (CL) cluster_stage<false>(buf, plan, tw);
 
   const float half = 0.5f * scale;
   float* ol = out + static_cast<size_t>(layer) * d1 * N;
-  for (int idx = threadIdx.x; idx < pairs * N; idx += blockDim.x) {
-    const int b = idx / N;
-    const int k = idx - b * N;
+  for (int idx = threadIdx.x; idx < pairs * H; idx += blockDim.x) {
+    const int b = idx / H;
+    const int k = (CL ? rank * H : 0) + idx - b * H;
     const unsigned ja = j0 + 2u * b;
     const int src = B == Basis::dct ? dct_place(k, N) : k;
-    const float2 z = buf[b * plan.stride + fft_phys(plan, src)];
+    float2 z;
+    if constexpr (CL) {
+      // K4 reads place(k) from whichever block holds it
+      const int owner = cluster_owner(plan, src);
+      const float2* row = owner == rank
+          ? buf : cg::this_cluster().map_shared_rank(buf, owner);
+      z = row[fft_phys(plan, src - owner * H)];
+    } else {
+      z = buf[b * plan.stride + fft_phys(plan, src)];
+    }
     if (ja < ud1) ol[static_cast<size_t>(ja) * N + k] = half * z.x;
     if (ja + 1 < ud1) ol[static_cast<size_t>(ja + 1) * N + k] = half * z.y;
   }
+  // the other block may still read this one's half
+  if constexpr (CL && B == Basis::dct) cg::this_cluster().sync();
 }
 
 // Per entry, once per launch: the places of T[v] and T[d2 - v] in a padded
 // row (16 bits each) and u reduced by the row phase's period; for the DCT
-// also s·φ_v (0 for an entry that adds nothing).
-template <Basis B>
+// also s·φ_v (0 for an entry that adds nothing). CL: `plan` is the half
+// plan, and each place is its block's local place with the block in bit
+// 15 (a half row's places are below 2^15; the two places share a block).
+template <Basis B, bool CL>
 __global__ void entry_table_kernel(const int* __restrict__ u,
                                    const int* __restrict__ v,
                                    const int* __restrict__ pos,
@@ -449,7 +594,7 @@ __global__ void entry_table_kernel(const int* __restrict__ u,
                                    const FftPlan plan, int n, int d1) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < n) {
-    const int N = plan.n;
+    const int N = CL ? 2 * plan.n : plan.n;
     int ve;
     if constexpr (B == Basis::dct) {
       float sign;
@@ -460,12 +605,24 @@ __global__ void entry_table_kernel(const int* __restrict__ u,
       ve = static_cast<int>(reduce_entry(v[e], N));
       eu[e] = reduce_entry(u[e], d1);
     }
-    et[e] = static_cast<unsigned>(fft_phys(plan, pos[ve]))
-            | static_cast<unsigned>(fft_phys(plan, pos[ve ? N - ve : 0])) << 16;
+    int pv = pos[ve], pm = pos[ve ? N - ve : 0];
+    unsigned owner = 0;
+    if constexpr (CL) {
+      owner = static_cast<unsigned>(cluster_owner(plan, pv)) << 15;
+      pv -= cluster_owner(plan, pv) * plan.n;
+      pm -= cluster_owner(plan, pm) * plan.n;
+    }
+    et[e] = (static_cast<unsigned>(fft_phys(plan, pv)) | owner)
+            | (static_cast<unsigned>(fft_phys(plan, pm)) | owner) << 16;
   }
 }
 
-template <Basis B>
+// Pass 1 of dc: grid (row blocks, L). CL: one row pair a cluster of two
+// blocks (grid.x = 2 × row blocks), `plan` the half plan; each block loads
+// its N/2 columns into their places in either block, the cross stage and
+// then its half's stages run, and the block gathers the entries whose
+// places it holds.
+template <Basis B, bool CL>
 __global__ void __launch_bounds__(THREADS, 4)
 dc_partial_kernel(const float* __restrict__ g,
                   const unsigned* __restrict__ et,
@@ -477,30 +634,48 @@ dc_partial_kernel(const float* __restrict__ g,
                   float* __restrict__ partial, const FftPlan plan, int pairs,
                   int slabs, int L, int n, int d1) {
   extern __shared__ float2 buf[];             // pairs × plan.stride
-  const int N = plan.n;
+  const int H = plan.n;                       // points of a row in a block
+  const int N = CL ? 2 * H : H;
+  const int rank = CL ? static_cast<int>(blockIdx.x & 1u) : 0;
+  const unsigned rb = CL ? blockIdx.x >> 1 : blockIdx.x;   // the row block
   const int layer = blockIdx.y;
   const unsigned ud1 = static_cast<unsigned>(d1);
   const float* gl = g + static_cast<size_t>(layer) * d1 * N;
-  float* pl = partial + (static_cast<size_t>(blockIdx.x) * L + layer) * n;
+  float* pl = partial + (static_cast<size_t>(rb) * L + layer) * n;
 
   for (int slab = 0; slab < slabs; ++slab) {
-    const unsigned j0 = (blockIdx.x * static_cast<unsigned>(slabs) + slab)
+    const unsigned j0 = (rb * static_cast<unsigned>(slabs) + slab)
                         * 2u * pairs;
     if (j0 >= ud1) break;                     // the same for the whole block
-    __syncthreads();                          // the last group's reads are done
-    for (int idx = threadIdx.x; idx < pairs * N; idx += blockDim.x) {
-      const int b = idx / N;
-      const int k = idx - b * N;
+    // the last group's reads are done (CL: in both blocks, whose halves
+    // this group's loads write)
+    if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
+    for (int idx = threadIdx.x; idx < pairs * H; idx += blockDim.x) {
+      const int b = idx / H;
+      const int k = (CL ? rank * H : 0) + idx - b * H;
       const unsigned ja = j0 + 2u * b;
       const int dst = B == Basis::dct ? dct_place(k, N) : k;
-      buf[b * plan.stride + fft_phys(plan, dst)] = make_float2(
+      const float2 z = make_float2(
           ja < ud1 ? gl[static_cast<size_t>(ja) * N + k] : 0.f,
           ja + 1 < ud1 ? gl[static_cast<size_t>(ja + 1) * N + k] : 0.f);
+      if constexpr (CL) {
+        const int owner = cluster_owner(plan, dst);
+        float2* row = owner == rank
+            ? buf : cg::this_cluster().map_shared_rank(buf, owner);
+        row[fft_phys(plan, dst - owner * H)] = z;
+      } else {
+        buf[b * plan.stride + fft_phys(plan, dst)] = z;
+      }
     }
+    if constexpr (CL) cluster_stage<true>(buf, plan, tw);
     fft_smem_dif<1>(buf, pairs, plan, tw);
 
     for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const unsigned places = et[e];
+      unsigned places = et[e];
+      if constexpr (CL) {
+        if (static_cast<int>(places >> 15 & 1u) != rank) continue;
+        places &= 0x7fff7fffu;
+      }
       const unsigned ue = eu[e];
       const int pv = static_cast<int>(places & 0xffffu);
       const int pm = static_cast<int>(places >> 16);
@@ -578,13 +753,29 @@ int launch_deltaw(const Scatter& sc, const void* cos1, const void* sin1,
                   const void* tw, void* out, const FftPlan& plan, int L,
                   int n, int d1, float scale, int smem, cudaStream_t s) {
   static int allowed = 0;
-  if (int err = allow_smem(deltaw_kernel<B, P>, smem, &allowed)) return err;
+  if (int err = allow_smem(deltaw_kernel<B, P, false>, smem, &allowed))
+    return err;
   const int blocks = (d1 + 2 * P - 1) / (2 * P);
-  deltaw_kernel<B, P><<<dim3(blocks, L), THREADS, smem, s>>>(
+  deltaw_kernel<B, P, false><<<dim3(blocks, L), THREADS, smem, s>>>(
       sc, static_cast<const float*>(cos1), static_cast<const float*>(sin1),
       static_cast<const float2*>(tw), static_cast<float*>(out), plan, n, d1,
       scale);
   return 0;
+}
+
+// The ΔW kernel's pass 1 over clusters: one row pair a cluster.
+template <Basis B>
+int launch_deltaw_cluster(const Scatter& sc, const void* cos1,
+                          const void* sin1, const void* tw, void* out,
+                          const FftPlan& plan, int L, int n, int d1,
+                          float scale, int smem, cudaStream_t s) {
+  static int allowed = 0, fits = 0;
+  const int pairs = (d1 + 1) / 2;
+  return launch_clustered(
+      deltaw_kernel<B, 1, true>, dim3(FFT_CLUSTER * pairs, L), smem, s,
+      &allowed, &fits, sc, static_cast<const float*>(cos1),
+      static_cast<const float*>(sin1), static_cast<const float2*>(tw),
+      static_cast<float*>(out), plan, n, d1, scale);
 }
 
 // A ΔW launch of basis B (the entry points' arguments; phic/phis and sin1
@@ -596,9 +787,10 @@ int deltaw_launch(const void* c, const void* u, const void* v,
                   void* scratch, void* out, const int* plan_ints, int L,
                   int n, int d1, int d2, float scale, void* stream) {
   FftPlan plan;
-  int pairs, slabs;
+  int pairs, slabs, cluster;
   if (L < 1 || L > 65535 || n < NC || n % NC != 0 || n > MAX_N || d1 < 1 ||
-      d1 > MAX_D1 || d2 < 1 || !read_plan(plan_ints, d2, &plan, &pairs, &slabs))
+      d1 > MAX_D1 || d2 < 1 ||
+      !read_plan(plan_ints, d2, &plan, &pairs, &slabs, &cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = 8LL * plan.stride * pairs;
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -626,7 +818,8 @@ int deltaw_launch(const void* c, const void* u, const void* v,
       static_cast<const int*>(v), static_cast<const int*>(pos),
       static_cast<const float*>(phic), static_cast<const float*>(phis), sc,
       L, n, d1, d2);
-  const auto launch = pairs == 1 ? launch_deltaw<B, 1>
+  const auto launch = cluster > 1 ? launch_deltaw_cluster<B>
+                      : pairs == 1 ? launch_deltaw<B, 1>
                       : pairs == 2 ? launch_deltaw<B, 2>
                       : pairs == 4 ? launch_deltaw<B, 4> : launch_deltaw<B, 8>;
   const int err = launch(sc, cos1, sin1, tw, out, plan, L, n, d1, scale,
@@ -642,17 +835,19 @@ int dc_launch(const void* g, const void* u, const void* v, const void* cos1,
               const int* plan_ints, int L, int n, int d1, int d2, float scale,
               void* stream) {
   FftPlan plan;
-  int pairs, slabs;
+  int pairs, slabs, cluster;
   if (L < 1 || L > 65535 || n < NC || n % NC != 0 || d1 < 1 ||
       d1 > MAX_D1 || d2 < 1 || static_cast<long long>(L) * n > (1LL << 26) ||
-      !read_plan(plan_ints, d2, &plan, &pairs, &slabs))
+      !read_plan(plan_ints, d2, &plan, &pairs, &slabs, &cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = 8LL * plan.stride * pairs;
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   static int allowed = 0;
-  if (int err = allow_smem(dc_partial_kernel<B>, static_cast<int>(smem),
-                           &allowed))
-    return err;
+  if (cluster == 1) {
+    if (int err = allow_smem(dc_partial_kernel<B, false>,
+                             static_cast<int>(smem), &allowed))
+      return err;
+  }
   const int rows = 2 * pairs * slabs;
   const int blocks = (d1 + rows - 1) / rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -662,15 +857,31 @@ int dc_launch(const void* g, const void* u, const void* v, const void* cos1,
       static_cast<float*>(partial) + static_cast<size_t>(blocks) * L * n);
   unsigned* eu = et + n;
   float2* ephi = reinterpret_cast<float2*>(eu + n);
-  entry_table_kernel<B><<<(n + 255) / 256, 256, 0, s>>>(
+  const auto entries = cluster > 1 ? entry_table_kernel<B, true>
+                                   : entry_table_kernel<B, false>;
+  entries<<<(n + 255) / 256, 256, 0, s>>>(
       static_cast<const int*>(u), static_cast<const int*>(v),
       static_cast<const int*>(pos), static_cast<const float*>(phic),
       static_cast<const float*>(phis), et, eu, ephi, plan, n, d1);
-  dc_partial_kernel<B><<<dim3(blocks, L), THREADS, smem, s>>>(
-      static_cast<const float*>(g), et, eu, ephi,
-      static_cast<const float*>(cos1), static_cast<const float*>(sin1),
-      static_cast<const float2*>(tw), static_cast<float*>(partial), plan,
-      pairs, slabs, L, n, d1);
+  if (cluster > 1) {
+    static int cl_allowed = 0, fits = 0;
+    if (int err = launch_clustered(
+            dc_partial_kernel<B, true>, dim3(FFT_CLUSTER * blocks, L),
+            static_cast<int>(smem), s, &cl_allowed, &fits,
+            static_cast<const float*>(g),
+            static_cast<const unsigned*>(et), static_cast<const unsigned*>(eu),
+            static_cast<const float2*>(ephi),
+            static_cast<const float*>(cos1), static_cast<const float*>(sin1),
+            static_cast<const float2*>(tw), static_cast<float*>(partial),
+            plan, pairs, slabs, L, n, d1))
+      return err;
+  } else {
+    dc_partial_kernel<B, false><<<dim3(blocks, L), THREADS, smem, s>>>(
+        static_cast<const float*>(g), et, eu, ephi,
+        static_cast<const float*>(cos1), static_cast<const float*>(sin1),
+        static_cast<const float2*>(tw), static_cast<float*>(partial), plan,
+        pairs, slabs, L, n, d1);
+  }
   const int ln = L * n;
   const long long threads = 32LL * ln;
   dc_reduce_kernel<<<static_cast<int>((threads + 255) / 256), 256, 0, s>>>(

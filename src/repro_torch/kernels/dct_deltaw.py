@@ -25,8 +25,9 @@ versions they are held against. The contract is `fourier_deltaw`'s:
 C1 (d1, n) and C2 (d2, n) are `core.adapter.dct_bases`. For a CPU tensor a
 wrapper computes the plain version, at any shape. For any other tensor it
 first takes the plan, which raises ValueError naming the limit a shape
-breaks (`fft_plan`: d2 ≤ 29056 with odd prime factors ≤ 63, d1 ≤ 65535,
-and for K4 n ≤ 16384), then launches the kernel on a CUDA tensor or
+breaks (`fft_plan`: d2 ≤ 29056 in one block, even d2 ≤ 58112 over a
+cluster of two blocks, odd prime factors ≤ 63, d1 ≤ 65535, and for K4
+n ≤ 16384), then launches the kernel on a CUDA tensor or
 raises: nothing falls back to the plain version off the CPU.
 `kernels.ops.DCTDeltaW` is the autograd Function whose forward is `deltaw`
 and whose backward is `dc`.
@@ -44,6 +45,9 @@ NC = 16                 # the kernels' chunk of entries: n must divide by it
 
 launches = 0            # kernel launches made by `deltaw` (chip_smoke reads it)
 dc_launches = 0         # kernel launches made by `dc`
+# of those, the launches over a cluster of two blocks (d2 > CTA_ROW)
+cluster_launches = 0
+cluster_dc_launches = 0
 
 
 def deltaw_reference(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -90,7 +94,7 @@ def _deltaw_launch(c, u, v, d1: int, d2: int, alpha: float, plan=None):
     plan = plan or fp.fft_plan(d1, d2, n)
     from repro_torch.kernels import build
     lib = build.library("dct_deltaw")
-    global launches
+    global launches, cluster_launches
     dev = c.device
     out = torch.empty((L, d1, d2), dtype=torch.float32, device=dev)
     # pass 0's bins, rounds and slots, then each slot's s·c·φ per layer
@@ -107,6 +111,7 @@ def _deltaw_launch(c, u, v, d1: int, d2: int, alpha: float, plan=None):
             d1, d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "dct_deltaw_launch")
     launches += 1
+    cluster_launches += plan.cluster > 1
     return out
 
 
@@ -131,7 +136,7 @@ def _dc_launch(g, u, v, d1: int, d2: int, alpha: float):
     plan = fp.fft_plan(d1, d2)
     from repro_torch.kernels import build
     lib = build.library("dct_deltaw")
-    global dc_launches
+    global dc_launches, cluster_dc_launches
     dev = g.device
     out = torch.empty((L, n), dtype=torch.float32, device=dev)
     # the row blocks' partial sums, then the entry table (places, u, s·φ)
@@ -147,6 +152,7 @@ def _dc_launch(g, u, v, d1: int, d2: int, alpha: float):
             d1, d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "dct_dc_launch")
     dc_launches += 1
+    cluster_dc_launches += plan.cluster > 1
     return out
 
 

@@ -24,8 +24,8 @@ plain versions they are held against.
 
 For a CPU tensor a wrapper computes the plain version; for a CUDA tensor it
 launches the kernel or raises, also for a shape beyond the kernels' limits
-(`fft_plan`: d2 ≤ 29056 with odd prime factors ≤ 63, d1 ≤ 65535,
-n ≤ 16384). `kernels.ops.FourierDeltaW` is the autograd Function whose
+(`fft_plan`: d2 ≤ 29056 in one block, even d2 ≤ 58112 over a cluster
+of two blocks, odd prime factors ≤ 63, d1 ≤ 65535, n ≤ 16384). `kernels.ops.FourierDeltaW` is the autograd Function whose
 forward is `deltaw` and whose backward is `dc`.
 """
 from __future__ import annotations
@@ -43,6 +43,9 @@ NC = 16                 # the kernels' chunk of entries: n must divide by it
 
 launches = 0            # kernel launches made by `deltaw` (chip_smoke reads it)
 dc_launches = 0         # kernel launches made by `dc`
+# of those, the launches over a cluster of two blocks (d2 > CTA_ROW)
+cluster_launches = 0
+cluster_dc_launches = 0
 
 
 def deltaw_reference(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -172,7 +175,7 @@ def deltaw(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int,
 def _deltaw_launch(c, u, v, d1: int, d2: int, alpha: float):
     from repro_torch.kernels import build
     lib = build.library("fourier_deltaw")
-    global launches
+    global launches, cluster_launches
     L, n = c.shape
     plan = fp.fft_plan(d1, d2, n)
     dev = c.device
@@ -192,6 +195,7 @@ def _deltaw_launch(c, u, v, d1: int, d2: int, alpha: float):
             d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "fourier_deltaw_launch")
     launches += 1
+    cluster_launches += plan.cluster > 1
     return out
 
 
@@ -213,7 +217,7 @@ def dc(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor, d1: int, d2: int,
 def _dc_launch(g, u, v, d1: int, d2: int, alpha: float):
     from repro_torch.kernels import build
     lib = build.library("fourier_deltaw")
-    global dc_launches
+    global dc_launches, cluster_dc_launches
     L, n = g.shape[0], u.shape[0]
     plan = fp.fft_plan(d1, d2)
     dev = g.device
@@ -232,6 +236,7 @@ def _dc_launch(g, u, v, d1: int, d2: int, alpha: float):
             d2, float(alpha / (d1 * d2)), stream)
     build.check(code, "fourier_dc_launch")
     dc_launches += 1
+    cluster_dc_launches += plan.cluster > 1
     return out
 
 

@@ -9,7 +9,8 @@ Each step reads one value back to the host, its loss, as the JAX loop does.
 Data is step-keyed (stateless), so resume replays nothing. Batches are
 moved to the device of the state's step counter. In mesh mode every rank
 makes the same global batch and places it by `batch_sharding` (each keeps
-its shard), and a restored state is re-placed onto `state_sharding`
+its shard; `train.step.place_batch` orders its rows for the microbatch
+split), and a restored state is re-placed onto `state_sharding`
 (elastic resume onto another mesh).
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.dtensor import to_plain
+from repro_torch.train.step import place_batch
 from repro_torch.tree import tree_map
 
 
@@ -80,7 +82,8 @@ def run(train_step: Callable, state: Dict, frozen: Dict, data,
             batch = {k: v.to(device, non_blocking=True)
                      for k, v in batch.items()}
             if batch_sharding is not None:
-                batch = shd.distribute(batch, batch_sharding, mesh)
+                batch = place_batch(batch, batch_sharding, mesh,
+                                    tcfg.microbatch)
             state, metrics = train_step(state, frozen, batch)
             loss = float(to_plain(metrics["loss"]))
             dt = time.perf_counter() - t0

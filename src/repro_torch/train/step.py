@@ -132,8 +132,8 @@ def _microbatch(key: str, x: torch.Tensor, k: int, i: int) -> torch.Tensor:
     axis 1 of the (3, B, S) M-RoPE positions, axis 0 of everything else.
     A batch placed on a mesh (a DTensor, its rows sharded over the batch
     axes) takes every k-th row instead of k contiguous slices, so each
-    rank splits the rows it holds: the same k microbatches' sum, in
-    other groupings."""
+    rank splits the rows it holds without communication; `place_batch`
+    ordered its rows so that these are JAX's contiguous microbatches."""
     strided = dtensor.is_dtensor(x)
     if key == "positions" and x.ndim == 3:
         if strided:
@@ -157,8 +157,10 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         k = tcfg.microbatch
         if not k or k <= 0:
             return _value_and_grad(loss_f, trainable, frozen, batch)
-        # k contiguous slices of the batch; losses and f32 gradients are
-        # summed in order, then scaled by 1/k (JAX's scan over microbatches)
+        # k contiguous slices of the batch (on a mesh, every k-th placed
+        # row: the same slices, `place_batch`); losses and f32 gradients
+        # are summed in order, then scaled by 1/k (JAX's scan over
+        # microbatches)
         mbs = [{key: _microbatch(key, x, k, i) for key, x in batch.items()}
                for i in range(k)]
         ref = batch.get("tokens", batch.get("embeds"))
@@ -259,14 +261,48 @@ def shard_train_state(model: Model, state: Dict, frozen: Dict, mesh,
             shd.distribute(frozen, fr_sh, mesh), st_sh, fr_sh)
 
 
+def microbatch_order(batch: Dict, k: int) -> Dict:
+    """The global batch with its rows reordered for the placed step's
+    microbatch split: row m·k + i of the result is row i·(B/k) + m of
+    `batch` (axis 1 of the (3, B, S) positions, axis 0 of every other
+    entry). The step takes every k-th placed row as microbatch i, so
+    microbatch i is JAX's contiguous slice i, its rows in their order,
+    and each rank's share of it is a contiguous run of that slice. The
+    identity at k <= 1."""
+    if not k or k <= 1:
+        return batch
+
+    def order(key, x):
+        axis = 1 if key == "positions" and x.ndim == 3 else 0
+        B = x.shape[axis]
+        if B % k:
+            raise ValueError(f"batch {key!r} has {B} rows, not a multiple "
+                             f"of microbatch {k}")
+        idx = torch.arange(B, device=x.device).reshape(k, B // k).T
+        return x.index_select(axis, idx.reshape(-1))
+    return {key: order(key, x) for key, x in batch.items()}
+
+
+def place_batch(batch: Dict, placements, mesh, microbatch: int = 0) -> Dict:
+    """Place a global batch for the sharded step: on a device mesh, rows
+    ordered by `microbatch_order` (so its microbatches are JAX's) and
+    distributed by `placements` (from `make_sharded_train_step`); on the
+    abstract mesh (or None) the batch as it is."""
+    from repro_torch.dist import sharding as shd
+    if not shd.is_device_mesh(mesh):
+        return batch
+    return shd.distribute(microbatch_order(batch, microbatch), placements,
+                          mesh)
+
+
 def make_sharded_train_step(model: Model, tcfg: TrainConfig, mesh,
                             batch_example: Dict, plan=None):
     """The train step for a state placed on `mesh` (by shard_train_state:
     a DTensor carries its own placements, so the step needs nothing more),
     and the placements of its batches. `batch_example`'s leading dim is
     the global batch. Returns (step, batch_placements) — place batches
-    with `sharding.distribute(batch, batch_placements, mesh)` (train/loop.py
-    does this when given `batch_sharding`)."""
+    with `place_batch(batch, batch_placements, mesh, tcfg.microbatch)`
+    (train/loop.py does this when given `batch_sharding`)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.dist import sharding as shd
     src = _plan_source(plan)

@@ -17,6 +17,7 @@ from repro_torch.configs.base import PEFTConfig
 from repro_torch.core import fourierft
 from repro_torch.core.adapter import dct_delta
 from repro_torch.kernels import dct_deltaw as ddk
+from repro_torch.kernels import fft_plan as fp
 from repro_torch.kernels import fourier_deltaw as fdk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -63,20 +64,21 @@ def test_deltaw_kernel_matches_plain(cuda_device, d1, d2, n, L):
                                atol=2e-4)
 
 
-@pytest.mark.parametrize("d1,d2,n", [(64, 29058, 16), (64, 67 * 8, 16),
-                                     (65536, 64, 16)])
+@pytest.mark.parametrize("d1,d2,n", [(64, 58114, 16), (64, 29057, 16),
+                                     (64, 67 * 8, 16), (65536, 64, 16)])
 def test_fourier_kernels_raise_beyond_their_limits(cuda_device, d1, d2, n):
-    """A shape the FFT-structured kernels cannot take (d2 > 29056, an odd
-    prime factor above 63, d1 > 65535) raises naming the limit; nothing
-    falls back to the plain version on the card."""
+    """A shape the FFT-structured kernels cannot take (d2 > 58112, an odd
+    d2 past one block's 29056 columns, an odd prime factor above 63,
+    d1 > 65535) raises naming the limit; nothing falls back to the plain
+    version on the card."""
     u = torch.zeros((n,), dtype=torch.int32, device=cuda_device)
     c = torch.zeros((1, n), dtype=torch.float32, device=cuda_device)
     before = (fdk.launches, fdk.dc_launches)
-    with pytest.raises(ValueError, match="29056|63|65535"):
+    with pytest.raises(ValueError, match="58112|even|63|65535"):
         fdk.deltaw(c, u, u, d1, d2, 1.0)
     if d1 * d2 <= 2 ** 22:
         g = torch.zeros((1, d1, d2), dtype=torch.float32, device=cuda_device)
-        with pytest.raises(ValueError, match="29056|63|65535"):
+        with pytest.raises(ValueError, match="58112|even|63|65535"):
             fdk.dc(g, u, u, d1, d2, 1.0)
     assert (fdk.launches, fdk.dc_launches) == before
 
@@ -157,21 +159,22 @@ def test_dct_kernels_take_any_integer_entry(cuda_device, d1, d2):
         atol=1e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("d1,d2,n", [(64, 29058, 16), (64, 67 * 8, 16),
-                                     (65536, 64, 16), (64, 64, 16400)])
+@pytest.mark.parametrize("d1,d2,n", [(64, 58114, 16), (64, 29057, 16),
+                                     (64, 67 * 8, 16), (65536, 64, 16),
+                                     (64, 64, 16400)])
 def test_dct_kernels_raise_beyond_their_limits(cuda_device, d1, d2, n):
     """K4 and K5 take the FFT kernels' plan: a CUDA tensor beyond its limits
-    (d2 > 29056, an odd prime factor above 63, d1 > 65535, and for K4
-    n > 16384) raises naming the limit and launches nothing; nothing falls
-    back to the plain version on the card."""
+    (d2 > 58112, an odd d2 past 29056, an odd prime factor above 63,
+    d1 > 65535, and for K4 n > 16384) raises naming the limit and launches
+    nothing; nothing falls back to the plain version on the card."""
     u = torch.zeros((n,), dtype=torch.int32, device=cuda_device)
     c = torch.zeros((1, n), dtype=torch.float32, device=cuda_device)
     before = (ddk.launches, ddk.dc_launches)
-    with pytest.raises(ValueError, match="29056|63|65535|16384"):
+    with pytest.raises(ValueError, match="58112|even|63|65535|16384"):
         ddk.deltaw(c, u, u, d1, d2, 1.0)
     if d1 * d2 <= 2 ** 22 and n <= 16384:
         g = torch.zeros((1, d1, d2), dtype=torch.float32, device=cuda_device)
-        with pytest.raises(ValueError, match="29056|63|65535"):
+        with pytest.raises(ValueError, match="58112|even|63|65535"):
             ddk.dc(g, u, u, d1, d2, 1.0)
     assert (ddk.launches, ddk.dc_launches) == before
 
@@ -833,6 +836,61 @@ def test_cancel_frees_pages_while_a_spill_is_in_flight(cuda_device):
 
 # ---------------------------------------------------------------------------
 # Long sequences and the other transformer families
+# rows past one block's 29056 columns, on a cluster of two blocks:
+# qwen2-vl-72b's 29568, padded halves (30720, 32400 with radices 3 and 5,
+# 46080) and the unpadded halves of 57344 (shift 30); small d1
+CLUSTER_WIDTHS = [29568, 30720, 32400, 46080, 57344]
+REL_TO_PLAIN = 1e-5     # chip_smoke's: of the plain version's largest |value|
+
+
+def _held(out, plain, tag):
+    err = float((out - plain).abs().max())
+    scale = float(plain.abs().max())
+    assert torch.isfinite(out).all(), tag
+    assert err <= REL_TO_PLAIN * scale, (tag, err, scale)
+
+
+@pytest.mark.parametrize("d2", CLUSTER_WIDTHS)
+def test_cluster_widths_match_plain(cuda_device, d2):
+    """K1, K2, K4 and K5 at d2 past one block's shared memory: each launch
+    goes over a cluster of two blocks (the wrappers' cluster counts), is
+    held to its plain version within REL_TO_PLAIN of the plain version's
+    largest |value| and within its own kernel test's atol/rtol, and gives
+    the same bits on a relaunch."""
+    d1, n, L = 64, 200, 2
+    plan = fp.fft_plan(d1, d2, n)
+    assert plan.cluster == 2
+    assert plan.shift == (30 if d2 == 57344 else 4)
+    E = fourierft.sample_entries(d1, d2, n, seed=7).to(cuda_device)
+    rng = np.random.default_rng(8)
+    c = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.normal(size=(L, d1, d2)).astype(
+        np.float32)).to(cuda_device)
+    for mod, atol_w, rtol_w, atol_c, rtol_c in (
+            (fdk, 2e-4, 0.0, 2e-3, 1e-4), (ddk, 2e-5, 1e-5, 1e-4, 1e-3)):
+        npad = -(-n // mod.NC) * mod.NC
+        e = torch.zeros((2, npad), dtype=torch.int32, device=cuda_device)
+        e[:, :n] = E
+        u, v = e[0].contiguous(), e[1].contiguous()
+        cp = torch.zeros((L, npad), dtype=torch.float32, device=cuda_device)
+        cp[:, :n] = c
+        before = (mod.launches, mod.cluster_launches, mod.dc_launches,
+                  mod.cluster_dc_launches)
+        out = mod.deltaw(cp, u, v, d1, d2, 300.0)
+        got = mod.dc(g, u, v, d1, d2, 300.0)
+        assert (mod.launches, mod.cluster_launches, mod.dc_launches,
+                mod.cluster_dc_launches) == tuple(b + 1 for b in before)
+        plain = mod.deltaw_reference(cp, u, v, d1, d2, 300.0)
+        _held(out, plain, (mod.__name__, "deltaw", d2))
+        torch.testing.assert_close(out, plain, atol=atol_w, rtol=rtol_w)
+        assert torch.equal(mod.deltaw(cp, u, v, d1, d2, 300.0), out)
+        plain = mod.dc_reference(g, u, v, d1, d2, 300.0)
+        _held(got, plain, (mod.__name__, "dc", d2))
+        torch.testing.assert_close(got, plain, atol=atol_c, rtol=rtol_c)
+        assert torch.equal(mod.dc(g, u, v, d1, d2, 300.0), got)
+
+
 # ---------------------------------------------------------------------------
 
 # the families' q/v stacks: olmoe-1b-7b 2048x2048 (L 16), phi3.5-moe's wv

@@ -456,8 +456,9 @@ def test_musicgen_lockstep_streams_match_jax():
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_qv_sites_resolve_to_the_cuda_kernels(arch):
     """Every new q/v shape is within K1/K2's limits (resolution needs no
-    card); qwen2-vl's 29568-wide MLP is beyond MAX_D2 and refused, naming
-    the limit."""
+    card); qwen2-vl's 29568-wide MLP, past one block's 29056 columns,
+    resolves to the kernels too, its rows on a cluster of two blocks."""
+    from repro_torch.kernels import fft_plan
     cfg = configs.get(arch)
     for site in adapter_sites(cfg):
         peft = PEFTConfig(n=1000)
@@ -466,11 +467,11 @@ def test_qv_sites_resolve_to_the_cuda_kernels(arch):
             assert kernel_api.resolve_op("deltaw", "fourierft", peft,
                                          site.d_in, site.d_out,
                                          device="cuda").backend == "cuda"
-        elif name == "wi" and cfg.d_ff > 29056:
-            with pytest.raises(kernel_api.KernelUnavailableError,
-                               match="29056"):
-                kernel_api.resolve_op("deltaw", "fourierft", peft,
-                                      site.d_in, site.d_out, device="cuda")
+        elif name == "wi" and cfg.d_ff > fft_plan.CTA_ROW:
+            assert kernel_api.resolve_op("deltaw", "fourierft", peft,
+                                         site.d_in, site.d_out,
+                                         device="cuda").backend == "cuda"
+            assert fft_plan.fft_plan(site.d_in, site.d_out).cluster == 2
 
 
 def test_launchers_on_the_families(capsys):

@@ -2,13 +2,17 @@
 (`repro_torch.kernels.fft_plan`) and their algorithm, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_cuda_kernels.py).
-Here the plan is checked for every site shape of the four configured archs,
-and a numpy emulation of the kernels' steps — K1's scatter plan (direct
+Here the plan is checked for every site shape of every registered arch and
+paper model (rows past one block's shared memory, qwen2-vl-72b's MLP, go
+to a cluster of two blocks), and a numpy emulation of the kernels' steps — K1's scatter plan (direct
 and mirrored entries in collision-free rounds), the Hermitian pairing of
 two rows per complex transform, the in-place decimation-in-time and
 decimation-in-frequency stages on the plan's radices, digit-reversed
-positions and stage twiddles, K2's per-entry gather — is held against the
-plain versions `deltaw_reference` and `dc_reference` and against `np.fft`."""
+positions and stage twiddles, K2's per-entry gather; for a cluster each
+half's stages and the radix-2 stage that joins them, each block doing half
+of its butterflies, and the entries gathered by the block that holds their
+places — is held against the plain versions `deltaw_reference` and
+`dc_reference` and against `np.fft`."""
 import numpy as np
 import pytest
 import torch
@@ -20,12 +24,13 @@ from repro_torch.kernels import fft_plan as fp
 from repro_torch.kernels import fourier_deltaw as fdk
 from repro_torch.models.registry import adapter_sites
 
-ARCHS = ("yi-6b", "yi-9b", "qwen3-4b", "qwen2.5-32b")
+ARCHS = tuple(configs.ARCHS) + tuple(configs.PAPER_MODELS)
 
 
 def _site_shapes():
-    """(arch, site, d1, d2) of every adapter site, and the transposed
-    (d2, d1) of the MLP site (the down projection's shape)."""
+    """(arch, site, d1, d2) of every adapter site of every registered arch
+    and paper model at its published widths, and the transposed (d2, d1)
+    of the MLP site (the down projection's shape)."""
     out = []
     for arch in ARCHS:
         for s in adapter_sites(configs.get(arch)):
@@ -42,11 +47,22 @@ def test_plan_takes_every_site_shape(arch, site, d1, d2):
     assert all(r in (2, 4, 8) or (r % 2 and 3 <= r <= fp.MAX_RADIX)
                for r in plan.radices)
     assert len(plan.radices) <= fp.MAX_STAGES
-    assert plan.smem_bytes == 8 * fp.row_words(d2, plan.shift) * plan.pairs
+    # one block below CTA_ROW points, a cluster of two past it: half a row
+    # a block, the last stage radix 2, one row pair a cluster
+    assert plan.cluster == (1 if d2 <= fp.CTA_ROW else fp.CLUSTER)
+    points = d2 // plan.cluster
+    if plan.cluster > 1:
+        assert plan.radices[-1] == 2 and plan.pairs == 1
+        assert plan.radices[:-1] == fp.factor(points)
+    assert plan.smem_bytes == 8 * fp.row_words(points, plan.shift) \
+        * plan.pairs
     assert plan.smem_bytes <= fp.SMEM_BYTES
     # padded wherever the padded rows fit
     assert (plan.shift == fp.PAD_SHIFT) == (
-        8 * fp.row_words(d2, fp.PAD_SHIFT) * plan.pairs <= fp.SMEM_BYTES)
+        8 * fp.row_words(points, fp.PAD_SHIFT) * plan.pairs
+        <= fp.SMEM_BYTES)
+    # a half row's places fit the entry table's 15 bits
+    assert plan.cluster == 1 or fp.row_words(points, plan.shift) < 2 ** 15
     assert plan.pairs in (1, 2, 4, 8) and plan.pairs <= fp.MAX_PAIRS
     # K2's row blocks cover the rows once, each block at least one row
     rows = 2 * plan.pairs * plan.k2_slabs
@@ -63,15 +79,18 @@ def test_plan_takes_every_site_shape(arch, site, d1, d2):
     (1, ()), (7, (7,)), (96, (3, 8, 4)), (512, (8, 8, 8)),
     (520, (5, 13, 8)), (1024, (8, 8, 4, 4)), (2560, (5, 8, 8, 8)),
     (4096, (8, 8, 8, 8)), (9728, (19, 8, 8, 8)), (11008, (43, 8, 8, 4)),
-    (27648, (3, 3, 3, 8, 8, 4, 4))])
+    (27648, (3, 3, 3, 8, 8, 4, 4)), (29568, (3, 7, 11, 8, 8, 2)),
+    (46080, (3, 3, 5, 8, 8, 8, 2))])
 def test_factor(d2, radices):
     assert fp.factor(d2) == radices
 
 
 @pytest.mark.parametrize("d1,d2,n,limit", [
-    (64, fp.MAX_D2 + 2, 16, "29056"), (64, 67, 16, "63"),
+    (64, fp.MAX_D2 + 2, 16, "58112"), (64, 67, 16, "63"),
     (64, 2 * 3 * 71, 16, "63"), (fp.MAX_D1 + 1, 64, 16, "65535"),
-    (64, 64, fp.MAX_N + 16, "16384"), (64, 0, 16, "29056")])
+    (64, 64, fp.MAX_N + 16, "16384"), (64, 0, 16, "58112"),
+    (64, fp.CTA_ROW + 1, 16, "must be even"),
+    (64, 2 * 23 * 1223, 16, "1223")])
 def test_plan_raises_beyond_its_limits(d1, d2, n, limit):
     with pytest.raises(ValueError, match=limit):
         fp.fft_plan(d1, d2, n)
@@ -98,6 +117,42 @@ def _stages(buf, radices, dif):
     return buf
 
 
+def _transform(buf, radices, dif, cluster=1):
+    """The kernels' transform of the rows of `buf` (fft_rows.cuh): one
+    block's stages, or for a cluster of two blocks each half's stages on
+    radices[:-1] and the radix-2 stage of span N/2 that joins the halves
+    (after them for DIT, before them for DIF), block r doing the
+    butterflies k in [r·⌈H/2⌉, (r+1)·⌈H/2⌉) with the twiddle exp(2πik/N)."""
+    if cluster == 1:
+        return _stages(buf, radices, dif)
+    assert cluster == 2 and radices[-1] == 2
+    N = buf.shape[-1]
+    H = N // 2
+    w = np.exp(2j * np.pi * np.arange(H) / N)
+
+    def cross(lo, hi):
+        out_lo, out_hi = lo.copy(), hi.copy()
+        per = (H + 1) // 2
+        for rank in range(2):
+            ks = np.arange(rank * per, min(H, (rank + 1) * per))
+            a, b = lo[..., ks], hi[..., ks]
+            if not dif:
+                b = b * w[ks]
+            x0, x1 = a + b, a - b
+            if dif:
+                x1 = x1 * w[ks]
+            out_lo[..., ks], out_hi[..., ks] = x0, x1
+        return out_lo, out_hi
+
+    lo, hi = buf[..., :H], buf[..., H:]
+    if dif:
+        lo, hi = cross(lo, hi)
+    lo, hi = _stages(lo, radices[:-1], dif), _stages(hi, radices[:-1], dif)
+    if not dif:
+        lo, hi = cross(lo, hi)
+    return np.concatenate([lo, hi], axis=-1)
+
+
 @pytest.mark.parametrize("d2", [1, 7, 96, 520, 2560, 11008, 27648])
 def test_stages_compute_the_transform(d2):
     """DIT on x at the digit-reversed positions and DIF on x in natural
@@ -115,7 +170,32 @@ def test_stages_compute_the_transform(d2):
                                atol=1e-9 * d2)
 
 
-@pytest.mark.parametrize("d2", [7, 96, 520, 4096, 11008, 27648])
+@pytest.mark.parametrize("d2", [29568, 30720, 32400, 46080])
+def test_cluster_stages_compute_the_transform(d2):
+    """Past one block: the plan of d2/2 then a radix-2 stage. DIT with each
+    half's stages, then the cross stage; DIF in reverse. A point's last
+    digit (its parity) picks its block: pos[t] = (t % 2)·d2/2 +
+    pos_half[t // 2]."""
+    plan = fp.fft_plan(64, d2)
+    assert plan.cluster == 2
+    radices = plan.radices
+    pos = fp.digit_reverse(radices)
+    H = d2 // 2
+    t = np.arange(d2)
+    np.testing.assert_array_equal(
+        pos, (t % 2) * H + fp.digit_reverse(radices[:-1])[t // 2])
+    rng = np.random.default_rng(d2)
+    x = rng.normal(size=(2, d2)) + 1j * rng.normal(size=(2, d2))
+    want = np.fft.ifft(x, axis=-1) * d2
+    buf = np.zeros_like(x)
+    buf[:, pos] = x
+    np.testing.assert_allclose(_transform(buf, radices, False, 2), want,
+                               atol=1e-9 * d2)
+    np.testing.assert_allclose(_transform(x, radices, True, 2)[:, pos],
+                               want, atol=1e-9 * d2)
+
+
+@pytest.mark.parametrize("d2", [7, 96, 520, 4096, 11008, 27648, 29568])
 def test_stage_twiddles_are_the_stage_roots(d2):
     """Entry m_s - 1 + (q-1)·m_s + k of the stage table is exp(2πi q·k /
     m_{s+1}); each odd stage's r roots follow the N - 1 stage twiddles."""
@@ -173,7 +253,14 @@ def _inputs(d1, d2, n, L, seed):
 
 
 SHAPES = [(130, 7, 5, 1), (33, 520, 37, 2), (64, 96, 64, 3),
-          (17, 512, 600, 1), (6, 27648, 40, 1)]
+          (17, 512, 600, 1), (6, 27648, 40, 1), (5, 29568, 40, 1)]
+
+
+def _block_places(pos, d2):
+    """The block each place belongs to, and the place in that block: one
+    block below CTA_ROW, block pos // (d2/2) of a cluster past it."""
+    cluster = fp.cluster_of(d2)
+    return pos // (d2 // cluster), pos % (d2 // cluster)
 
 
 @pytest.mark.parametrize("d1,d2,n,L", SHAPES)
@@ -187,15 +274,18 @@ def test_k1_algorithm_matches_plain(d1, d2, n, L):
     assert sorted(slots) == sorted(np.concatenate([kept, kept + len(v)]))
     assert all(len({col for _, col in rnd}) == len(rnd) for rnd in rounds)
     radices = fp.factor(d2)
+    cluster = fp.cluster_of(d2)
     pos = fp.digit_reverse(radices)
+    block, local = _block_places(pos, d2)
     rows = d1 + d1 % 2
     theta = 2 * np.pi * np.mod(np.outer(np.arange(rows), u), d1) / d1
     rot = np.exp(1j * theta)
     rot[d1:] = 0                                  # rows past d1 add nothing
     out = np.zeros((L, rows, d2))
     for layer in range(L):
-        # Z = 2·(H_j + i·H_{j+1}) per row pair, added round by round
-        buf = np.zeros((rows // 2, d2), dtype=complex)
+        # Z = 2·(H_j + i·H_{j+1}) per row pair, added round by round; each
+        # block of a cluster adds the slots whose place is in its half
+        halves = np.zeros((cluster, rows // 2, d2 // cluster), dtype=complex)
         for rnd in rounds:
             for i, col in rnd:
                 e = i % len(v)
@@ -203,8 +293,9 @@ def test_k1_algorithm_matches_plain(d1, d2, n, L):
                 b = c[layer, e] * rot[1::2, e]
                 if i >= len(v):
                     a, b = np.conj(a), np.conj(b)
-                buf[:, pos[col]] += a + 1j * b
-        T = _stages(buf, radices, dif=False)
+                halves[block[col], :, local[col]] += a + 1j * b
+        buf = np.concatenate(list(halves), axis=-1)
+        T = _transform(buf, radices, False, cluster)
         out[layer, 0::2], out[layer, 1::2] = T.real, T.imag
     out = 0.5 * (300.0 / (d1 * d2)) * out[:, :d1]
     plain = fdk.deltaw_reference(torch.from_numpy(c), torch.from_numpy(u),
@@ -219,8 +310,12 @@ def test_k2_algorithm_matches_plain(d1, d2, n, L):
     pos = fp.digit_reverse(radices)
     gp = np.zeros((L, d1 + d1 % 2, d2))
     gp[:, :d1] = g
-    Z = _stages(gp[:, 0::2] + 1j * gp[:, 1::2], radices, dif=True)
+    Z = _transform(gp[:, 0::2] + 1j * gp[:, 1::2], radices, True,
+                   fp.cluster_of(d2))
     vr = np.mod(v, d2)
+    # an entry's two places lie in one block, which alone gathers it
+    block, _ = _block_places(pos, d2)
+    assert np.array_equal(block[vr], block[np.mod(-vr, d2)])
     zv, zm = Z[:, :, pos[vr]], Z[:, :, pos[np.mod(-vr, d2)]]     # (L, P, n)
     ha = zv + np.conj(zm)                                          # 2·T(g_a)
     hb = -1j * (zv - np.conj(zm))                                  # 2·T(g_b)
@@ -296,21 +391,26 @@ def test_k4_algorithm_matches_plain(d1, d2, n, L, edges):
     assert sorted(slots) == sorted(np.concatenate([kept, kept + len(v)]))
     assert all(len({col for _, col in rnd}) == len(rnd) for rnd in rounds)
     radices = fp.factor(d2)
+    cluster = fp.cluster_of(d2)
     pos = fp.digit_reverse(radices)
+    block, local = _block_places(pos, d2)
     rows = d1 + d1 % 2
     c1 = _c1(u, d1, rows)
     phi = np.exp(1j * np.pi * vf / (2 * d2))
     out = np.zeros((L, rows, d2))
     for layer in range(L):
-        buf = np.zeros((rows // 2, d2), dtype=complex)
+        halves = np.zeros((cluster, rows // 2, d2 // cluster), dtype=complex)
         for rnd in rounds:
             for i, col in rnd:
                 e = i % len(v)
                 cf = sign[e] * c[layer, e] * phi[e]
                 if i >= len(v):
                     cf = np.conj(cf)
-                buf[:, pos[col]] += cf * (c1[0::2, e] + 1j * c1[1::2, e])
-        T = _stages(buf, radices, dif=False)[:, _dct_place(d2)]
+                halves[block[col], :, local[col]] += \
+                    cf * (c1[0::2, e] + 1j * c1[1::2, e])
+        buf = np.concatenate(list(halves), axis=-1)
+        # the store of a cluster reads place(k) from either block
+        T = _transform(buf, radices, False, cluster)[:, _dct_place(d2)]
         out[layer, 0::2], out[layer, 1::2] = T.real, T.imag
     out = 0.5 * (300.0 / (d1 * d2)) * out[:, :d1]
     plain = ddk.deltaw_reference(torch.from_numpy(c), torch.from_numpy(u),
@@ -331,8 +431,11 @@ def test_k5_algorithm_matches_plain(d1, d2, n, L, edges):
     gp = np.zeros((L, d1 + d1 % 2, d2))
     gp[:, :d1] = g
     w = np.zeros_like(gp)
-    w[:, :, _dct_place(d2)] = gp
-    Z = _stages(w[:, 0::2] + 1j * w[:, 1::2], radices, dif=True)
+    w[:, :, _dct_place(d2)] = gp          # a cluster's loads write either block
+    Z = _transform(w[:, 0::2] + 1j * w[:, 1::2], radices, True,
+                   fp.cluster_of(d2))
+    block, _ = _block_places(pos, d2)
+    assert np.array_equal(block[vf], block[np.mod(-vf, d2)])
     zv, zm = Z[:, :, pos[vf]], Z[:, :, pos[np.mod(-vf, d2)]]      # (L, P, n)
     a = zv + np.conj(zm)                                           # 2·T(w_a)
     b = -1j * (zv - np.conj(zm))                                   # 2·T(w_b)
@@ -346,7 +449,7 @@ def test_k5_algorithm_matches_plain(d1, d2, n, L, edges):
 
 
 @pytest.mark.parametrize("d1,d2,n,limit", [
-    (64, fp.MAX_D2 + 2, 16, "29056"), (64, 67, 16, "63"),
+    (64, fp.MAX_D2 + 2, 16, "58112"), (64, 67, 16, "63"),
     (64, 2 * 3 * 71, 16, "63"), (fp.MAX_D1 + 1, 64, 16, "65535"),
     (64, 64, fp.MAX_N + 16, "16384")])
 def test_dct_wrappers_raise_beyond_their_limits(d1, d2, n, limit):

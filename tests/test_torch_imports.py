@@ -137,3 +137,15 @@ def test_unported_paths_are_rejected():
         build(model.cfg, PEFTConfig(kernel_backend="interpret"))
     with pytest.raises(ValueError, match="device"):
         PagedKVCache(2, 32).block_table_device()
+
+
+def test_walk_covers_the_entry_point_modules():
+    """The load harness, the examples and the kernels' bit comparison
+    stand alone like the rest of the port."""
+    walked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("launch/loadgen.py", "examples/__init__.py",
+                "examples/quickstart.py", "examples/serve_batched.py",
+                "examples/train_peft_100m.py",
+                "examples/expressiveness_2d.py"):
+        assert f"src/repro_torch/{rel}" in walked
+    assert "tools/compare_fft_kernels.py" in walked

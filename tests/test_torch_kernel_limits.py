@@ -9,6 +9,7 @@ from repro_torch import configs
 from repro_torch.configs.base import PEFTConfig
 from repro_torch.core.adapter import AdapterSite
 from repro_torch.kernels import api as kernel_api
+from repro_torch.kernels import fft_plan
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import build, transformer
 
@@ -18,7 +19,8 @@ Unavailable = kernel_api.KernelUnavailableError
 @pytest.mark.parametrize("method", ["fourierft", "dct"])
 @pytest.mark.parametrize("d1,d2,n,limit", [
     (4096, 4096, 20000, "16384"),          # the scatter plan's n
-    (64, 29057, 64, "29056"),              # one f32 complex row in smem
+    (64, 58114, 64, "58112"),              # a row over a cluster of two
+    (64, 29057, 64, "even"),               # a cluster splits the row in two
     (64, 67 * 8, 64, "63"),                # the generic radix stage
     (65536, 64, 64, "65535"),              # the row phase
 ])
@@ -32,7 +34,8 @@ def test_deltaw_beyond_fft_plan_refused_on_cuda(method, d1, d2, n, limit):
 
 @pytest.mark.parametrize("method", ["fourierft", "dct"])
 @pytest.mark.parametrize("d1,d2", [(4096, 4096), (4096, 11008),
-                                   (5120, 27648), (5120, 5120)])
+                                   (5120, 27648), (5120, 5120),
+                                   (8192, 29568), (64, 46080)])
 def test_deltaw_within_fft_plan_resolves_to_cuda(method, d1, d2):
     peft = PEFTConfig(method=method, n=16384)
     assert kernel_api.resolve_op("deltaw", method, peft, d1, d2,
@@ -105,6 +108,25 @@ def test_model_policy_on_cuda_for_the_slices_models():
         == {"cuda"}
     assert {r.backend for r in policy.resolutions if r.op != "deltaw"} \
         == {"einsum"}
+
+
+def test_qwen2_vl_72b_mlp_resolves_to_the_cluster_path():
+    """qwen2-vl-72b targeted at wq, wv, wi and wg: its MLP up projection
+    (layers/wi, 8192x29568, past one block's 29056) resolves to the CUDA
+    kernel on the card with the q/v sites, as the JAX package's routes
+    take it. The gate projection wg is no adapter site in either package
+    (`adapter_sites`), so the target names three sites."""
+    cfg = configs.get("qwen2-vl-72b")
+    model = build(cfg, PEFTConfig(n=1000, target_modules=("wq", "wv", "wi",
+                                                          "wg")))
+    policy = model.kernel_policy("cuda").validate()
+    deltaw = {r.site: r.backend for r in policy.resolutions
+              if r.op == "deltaw"}
+    assert deltaw == {"layers/wq": "cuda", "layers/wv": "cuda",
+                      "layers/wi": "cuda"}
+    wi = [s for s in model.sites if s.name == "layers/wi"]
+    assert [(s.d_in, s.d_out) for s in wi] == [(8192, 29568)]
+    assert fft_plan.fft_plan(8192, 29568, 1008).cluster == 2
 
 
 def test_model_resolves_the_paged_attention_once():

@@ -6,7 +6,8 @@ weights and batches at the tolerance of the dense case
 (tests/test_torch_sharded.py: losses rtol 1e-5), and their gradient
 norms at the same tolerance (the coefficients after AdamW are not compared:
 its first steps turn float noise in a near-zero gradient entry into a whole
-learning-rate step);
+learning-rate step); olmoe also at microbatch 2, whose aux loss is not
+additive over rows, so only JAX's contiguous microbatches give its losses;
 olmoe's continuous and mamba2's lockstep serving on the mesh equal the
 unsharded port's streams.
 
@@ -35,6 +36,7 @@ VOCAB = 64
 N, ALPHA = 24, 10.0
 STEPS = 2
 TRAIN_KW = dict(learning_rate=1e-2, total_steps=STEPS, warmup_steps=1)
+MICROBATCH_ARCH = "olmoe-1b-7b"        # trained again at microbatch 2
 
 
 def _cfg(arch):
@@ -78,11 +80,12 @@ def _worker(rank, world, workdir):
     from repro_torch.serve import ContinuousScheduler, Engine
     mesh = mesh_mod.make_host_mesh(model=2)
     out = {"mesh": tuple(mesh.shape)}
-    for arch in ARCHS:
+    for arch, microbatch in [(a, 0) for a in ARCHS] + [(MICROBATCH_ARCH,
+                                                        2)]:
         cfg = _cfg(arch)
         model = build(cfg, PEFTConfig(n=N, alpha=ALPHA))
         params = torch.load(os.path.join(workdir, f"{arch}.pt"))
-        tcfg = TrainConfig(**TRAIN_KW)
+        tcfg = TrainConfig(**TRAIN_KW, microbatch=microbatch)
         state, frozen = ts.state_from_params(model, params, tcfg)
         state, frozen, _, _ = ts.shard_train_state(model, state, frozen,
                                                    mesh)
@@ -90,10 +93,15 @@ def _worker(rank, world, workdir):
                                                 _t(_batch(cfg, 10)))
         losses, norms = [], []
         for i in range(STEPS):
-            batch = shd.distribute(_t(_batch(cfg, 10 + i)), b_sh, mesh)
+            batch = ts.place_batch(_t(_batch(cfg, 10 + i)), b_sh, mesh,
+                                   microbatch)
             state, m = step(state, frozen, batch)
             losses.append(float(to_plain(m["loss"])))
             norms.append(float(to_plain(m["grad_norm"])))
+        if microbatch:
+            out[f"{arch}/microbatch"] = {"losses": losses,
+                                         "grad_norms": norms}
+            continue
         out[arch] = {"losses": losses, "grad_norms": norms,
                      "sites": _sites(params)}
         if cfg.moe is not None:
@@ -161,14 +169,16 @@ def jax_reference(tmp_path_factory):
     from repro_torch.convert import from_jax_params
     workdir = str(tmp_path_factory.mktemp("mesh_families"))
     ref = {}
-    for arch in ARCHS:
+    for arch, microbatch in [(a, 0) for a in ARCHS] + [(MICROBATCH_ARCH,
+                                                        2)]:
         jcfg = jax_configs.reduced(jax_configs.get(arch)).replace(
             vocab=VOCAB, param_dtype="float32", dtype="float32")
         jmodel = jax_build(jcfg, JaxPEFT(n=N, alpha=ALPHA))
-        jparams = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
-        torch.save(from_jax_params(jparams, "cpu"),
-                   os.path.join(workdir, f"{arch}.pt"))
-        tc = JaxTrain(**TRAIN_KW)
+        if not microbatch:
+            jparams = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
+            torch.save(from_jax_params(jparams, "cpu"),
+                       os.path.join(workdir, f"{arch}.pt"))
+        tc = JaxTrain(**TRAIN_KW, microbatch=microbatch)
         state, frozen = jax_step.init_state(jmodel, tc,
                                             jax.random.PRNGKey(0))
         fn = jax.jit(jax_step.make_train_step(jmodel, tc))
@@ -179,8 +189,9 @@ def jax_reference(tmp_path_factory):
             state, m = fn(state, frozen, batch)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        ref[arch] = {"losses": losses, "grad_norms": norms,
-                     "sites": sorted(state["trainable"]["peft"])}
+        key = f"{arch}/microbatch" if microbatch else arch
+        ref[key] = {"losses": losses, "grad_norms": norms,
+                    "sites": sorted(state["trainable"]["peft"])}
     return workdir, ref
 
 
@@ -206,6 +217,22 @@ def test_family_trains_on_a_2x2_mesh_like_jax(mesh_run, jax_reference, arch):
                                rtol=1e-5)
     np.testing.assert_allclose(got["grad_norms"], ref[arch]["grad_norms"],
                                rtol=1e-5)
+
+
+def test_moe_microbatches_on_a_2x2_mesh_like_jax(mesh_run, jax_reference):
+    """olmoe at microbatch 2 on the 2x2 mesh: the placed batch's rows are
+    ordered (`train.step.place_batch`) so that each rank's every-other
+    row is its share of JAX's contiguous microbatch; the MoE aux loss,
+    not additive over rows, then gives JAX's losses and gradient norms."""
+    _, ref = jax_reference
+    key = f"{MICROBATCH_ARCH}/microbatch"
+    np.testing.assert_allclose(mesh_run[key]["losses"], ref[key]["losses"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(mesh_run[key]["grad_norms"],
+                               ref[key]["grad_norms"], rtol=1e-5)
+    # microbatching moves the MoE loss (the aux loss is per microbatch):
+    # only JAX's grouping of the rows gives JAX's
+    assert ref[key]["losses"] != ref[MICROBATCH_ARCH]["losses"]
 
 
 def test_moe_and_ssm_serve_on_the_mesh_like_one_device(mesh_run,

@@ -7,7 +7,10 @@ are saved to numpy and loaded by every rank through
 One group of four ranks runs every case on DTensors placed by the rules
 and by the searched plan, and rank 0 writes what it saw; the tests hold
 that to JAX's single-device step (losses rtol 1e-5, c atol 1e-5, the
-gradient tolerance of tests/test_torch_train.py), to the rules (searched
+gradient tolerance of tests/test_torch_train.py; at `--microbatch 2` also
+the gradient norms, rtol 1e-5: the placed batch's rows are ordered so that
+each rank's every-other row is its share of JAX's contiguous
+microbatches), to the rules (searched
 plan: losses rtol 1e-5, logits atol 1e-4), to the unsharded port and to
 JAX's greedy streams (the engine on the mesh, paged continuous batching
 too), and to the checkpoint two ranks saved (elastic restore at four ranks
@@ -111,7 +114,8 @@ def _load_params(workdir):
 
 def _sharded_train(model, params, mesh, plan: str, **tkw):
     """STEPS steps on the mesh; -> (losses, {site: whole c}, logits of
-    the first batch's forward with the placed params)."""
+    the first batch's forward with the placed params, the frozen tree's
+    placement kinds, the state, the gradient norms)."""
     tcfg = TrainConfig(**TRAIN_KW, **tkw)
     state, frozen = ts.state_from_params(model, params, tcfg)
     src = plan_mod.resolve(plan, model=model, mesh=mesh,
@@ -125,22 +129,25 @@ def _sharded_train(model, params, mesh, plan: str, **tkw):
                                                False), mesh)
     logits = to_plain(model.forward(
         placed, shd.distribute(_t(_batch(10)), b_sh, mesh)))
-    losses = []
+    losses, norms = [], []
     for i in range(STEPS):
-        batch = shd.distribute(_t(_batch(10 + i)), b_sh, mesh)
+        batch = ts.place_batch(_t(_batch(10 + i)), b_sh, mesh,
+                               tcfg.microbatch)
         state, m = step(state, frozen, batch)
         losses.append(float(to_plain(m["loss"])))
+        norms.append(float(to_plain(m["grad_norm"])))
     c = {s: to_plain(state["trainable"]["peft"][s]["c"]) for s in SITES}
     placed_kinds = sorted({type(p).__name__ for leaf in tree_leaves(fr_sh)
                            for p in leaf})
-    return losses, c, logits, placed_kinds, state
+    return losses, c, logits, placed_kinds, state, norms
 
 
 def _save_worker(rank, world, workdir):
     """Two ranks (1x2: model-parallel): three steps, then a checkpoint."""
     model = _model()
     mesh = mesh_mod.make_host_mesh(model=2)
-    *_, state = _sharded_train(model, _load_params(workdir), mesh, "rules")
+    *_, state, _ = _sharded_train(model, _load_params(workdir), mesh,
+                                  "rules")
     ckpt.save_sync(os.path.join(workdir, "ckpt"), 7, state)
     whole = tree_map(to_plain, state)
     if rank == 0:
@@ -157,11 +164,12 @@ def _mesh_worker(rank, world, workdir):
     for name, plan, kw in (("rules", "rules", {}),
                            ("int8_ef", "rules",
                             {"grad_compression": "int8_ef"}),
+                           ("microbatch", "rules", {"microbatch": 2}),
                            ("search", "search", {})):
-        losses, c, logits, kinds, _ = _sharded_train(model, params, mesh,
-                                                     plan, **kw)
+        losses, c, logits, kinds, _, norms = _sharded_train(
+            model, params, mesh, plan, **kw)
         out[name] = {"losses": losses, "c": c, "logits": logits,
-                     "placements": kinds}
+                     "placements": kinds, "grad_norms": norms}
     # the engine on the mesh: lockstep generate and paged continuous
     engine = Engine(model, params, batch_slots=2, max_len=32, device="cpu",
                     mesh=mesh)
@@ -235,17 +243,19 @@ def jax_reference(tmp_path_factory):
                 for k, v in _flat(jparams).items()})
     ref = {}
     for name, kw in (("rules", {}), ("int8_ef",
-                                     {"grad_compression": "int8_ef"})):
+                                     {"grad_compression": "int8_ef"}),
+                     ("microbatch", {"microbatch": 2})):
         tc = JaxTrain(**TRAIN_KW, **kw)
         state, frozen = jax_step.init_state(jmodel, tc,
                                             jax.random.PRNGKey(0))
         fn = jax.jit(jax_step.make_train_step(jmodel, tc))
-        losses = []
+        losses, norms = [], []
         for i in range(STEPS):
             state, m = fn(state, frozen, {k: jnp.asarray(v) for k, v
                                           in _batch(10 + i).items()})
             losses.append(float(m["loss"]))
-        ref[name] = {"losses": losses,
+            norms.append(float(m["grad_norm"]))
+        ref[name] = {"losses": losses, "grad_norms": norms,
                      "c": {s: np.asarray(state["trainable"]["peft"][s]["c"])
                            for s in SITES}}
     jeng = JaxEngine(jmodel, jmodel.init(jax.random.PRNGKey(0)),
@@ -266,7 +276,7 @@ def mesh_run(jax_reference):
             torch.load(os.path.join(workdir, "saved.pt")))
 
 
-@pytest.mark.parametrize("name", ["rules", "int8_ef"])
+@pytest.mark.parametrize("name", ["rules", "int8_ef", "microbatch"])
 def test_train_on_a_2x2_mesh_tracks_jax(mesh_run, jax_reference, name):
     out, _ = mesh_run
     _, ref = jax_reference
@@ -275,9 +285,46 @@ def test_train_on_a_2x2_mesh_tracks_jax(mesh_run, jax_reference, name):
     assert "Shard" in out[name]["placements"]
     np.testing.assert_allclose(out[name]["losses"], ref[name]["losses"],
                                rtol=1e-5)
+    if name == "microbatch":
+        # JAX's contiguous microbatches, not another grouping of the rows
+        np.testing.assert_allclose(out[name]["grad_norms"],
+                                   ref[name]["grad_norms"], rtol=1e-5)
     for s in SITES:
         np.testing.assert_allclose(out[name]["c"][s].numpy(),
                                    ref[name]["c"][s], atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_microbatch_order_makes_the_strided_split_contiguous(k):
+    """`place_batch`'s row order: every k-th row of the ordered batch (the
+    placed step's split, each rank's share a run of its rows) is JAX's
+    contiguous microbatch i, rows in order, for tokens and for axis 1 of
+    the (3, B, S) positions; the order is a permutation (its inverse
+    gives the batch back) and the identity at k <= 1."""
+    B = 8
+    batch = {"tokens": torch.arange(B * 5).reshape(B, 5),
+             "positions": torch.arange(3 * B * 5).reshape(3, B, 5)}
+    placed = ts.microbatch_order(batch, k)
+
+    def strided(key, x, i):
+        # the placed step's split (train/step.py::_microbatch of a DTensor)
+        if key == "positions":
+            return x.reshape(3, B // k, k, 5)[:, :, i]
+        return x.reshape(B // k, k, 5)[:, i]
+    for i in range(k):
+        for key, x in batch.items():
+            torch.testing.assert_close(strided(key, placed[key], i),
+                                       ts._microbatch(key, x, k, i),
+                                       rtol=0, atol=0)
+    inv = torch.argsort(torch.arange(B).reshape(k, B // k).T.reshape(-1))
+    torch.testing.assert_close(placed["tokens"][inv], batch["tokens"],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(placed["positions"][:, inv],
+                               batch["positions"], rtol=0, atol=0)
+    assert ts.microbatch_order(batch, 1) is batch
+    assert ts.microbatch_order(batch, 0) is batch
+    with pytest.raises(ValueError, match="multiple"):
+        ts.microbatch_order({"tokens": torch.zeros((6, 2))}, 4)
 
 
 def test_searched_plan_matches_the_rules(mesh_run):

@@ -40,9 +40,9 @@ CUTS = {
          "const int rounds = 0;"),
         ("fft_rows.cuh",
          "for (int e = threadIdx.x; e < n; e += blockDim.x) {\n"
-         "      const unsigned places",
+         "      unsigned places",
          "for (int e = threadIdx.x; e < 0; e += blockDim.x) {\n"
-         "      const unsigned places")],
+         "      unsigned places")],
 }
 CUTS["both"] = CUTS["transform"] + CUTS["scatter+gather"]
 
