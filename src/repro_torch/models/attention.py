@@ -24,6 +24,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.spans import span
+
 NEG_INF = -1e30
 
 
@@ -277,10 +279,17 @@ def attention(q, k, v, *, causal: bool = True, direct_threshold: int = 1024,
               chunk: int = 512, flash: bool = True) -> torch.Tensor:
     """Full-sequence attention with the JAX package's switch: direct up to
     `direct_threshold` rows, then flash when S is a multiple of `chunk`,
-    else chunked (which itself falls back to direct for such S)."""
+    else chunked (which itself falls back to direct for such S). Under a
+    profiler, forward and backward lie in the range `attention/<path>`."""
     S = q.shape[1]
     if S <= direct_threshold:
-        return direct_attention(q, k, v, causal=causal)
-    if flash and S % chunk == 0:
-        return flash_attention(q, k, v, causal, chunk)
-    return chunked_attention(q, k, v, causal=causal)
+        with span("attention/direct") as sp:
+            out = direct_attention(q, k, v, causal=causal)
+    elif flash and S % chunk == 0:
+        with span("attention/flash") as sp:
+            out = flash_attention(q, k, v, causal, chunk)
+    else:
+        with span("attention/chunked") as sp:
+            out = chunked_attention(q, k, v, causal=causal)
+    sp.backward(out)
+    return out

@@ -49,6 +49,7 @@ from torch.utils import checkpoint as ckpt_util
 
 from repro_torch.configs.base import ModelConfig, PEFTConfig
 from repro_torch.core import adapter as adapter_api
+from repro_torch.core.spans import span
 from repro_torch.devices import to_device
 from repro_torch.dist.dtensor import (index_put_, local_attention,
                                      split_heads, unshard_dim, write_at)
@@ -179,10 +180,15 @@ def _layers(eff: Dict) -> List[Dict]:
 def _effective(params: Dict, adapters: Dict, sites, peft: PEFTConfig,
                batch: Dict, bank, bank_profiles, constrain=None):
     """(per-layer views of the effective layer tree, its `linear`) for one
-    call: the adapters merged or applied, the bank's rows gathered."""
-    eff, apps = apply_peft_to_layers(
-        params["layers"], adapters, sites, peft, bank=bank,
-        bank_profiles=bank_profiles, bank_slots=batch.get("adapter_slots"))
+    call: the adapters merged or applied, the bank's rows gathered. Under
+    a profiler the merge, forward and backward, lies in the range
+    `adapter`."""
+    with span("adapter") as sp:
+        eff, apps = apply_peft_to_layers(
+            params["layers"], adapters, sites, peft, bank=bank,
+            bank_profiles=bank_profiles,
+            bank_slots=batch.get("adapter_slots"))
+        sp.backward(eff)
     return _layers(eff), make_linear(apps, constrain)
 
 
@@ -404,9 +410,11 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
     act = activation_anchor(constrain)
 
     def body(lp, x):
-        x, _ = _attn_block(lp, act(x), cfg, linear, positions)
-        x, aux_l = _mlp_block(lp, act(x), cfg, linear, constrain)
-        return act(x), aux_l
+        # remat re-enters the range when it recomputes the layer
+        with span("layer"):
+            x, _ = _attn_block(lp, act(x), cfg, linear, positions)
+            x, aux_l = _mlp_block(lp, act(x), cfg, linear, constrain)
+            return act(x), aux_l
 
     body = _remat(body, remat)
     x = act(x)

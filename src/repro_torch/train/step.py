@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.peft import trainable_adapter_tree
+from repro_torch.core.spans import span
 from repro_torch.devices import resolve_device
 from repro_torch.dist import dtensor
 from repro_torch.models.registry import Model
@@ -179,13 +180,14 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         from repro_torch.dist import compression
 
     def train_step(state: Dict, frozen: Dict, batch: Dict):
-        device = state["step"].device
-        if device not in validated:
-            model.kernel_policy(device).validate()
-            validated.add(device)
-        # on a mesh: plain tensors meeting DTensors count as replicated
-        with dtensor.ops_context(state):
-            return _step(state, frozen, batch)
+        with span("step"):
+            device = state["step"].device
+            if device not in validated:
+                model.kernel_policy(device).validate()
+                validated.add(device)
+            # on a mesh: plain tensors meeting DTensors count as replicated
+            with dtensor.ops_context(state):
+                return _step(state, frozen, batch)
 
     def _step(state: Dict, frozen: Dict, batch: Dict):
         loss, grads = grads_of(state["trainable"], frozen, batch)
