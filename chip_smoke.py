@@ -534,11 +534,14 @@ class PhaseError(RuntimeError):
 
 def zero_counts():
     """Sets every kernel wrapper's launch count to 0 (K3's by window width,
-    K1/K2/K4/K5's over a cluster of blocks too)."""
+    K1/K2/K4/K5's over a cluster of blocks too, the fused attention's
+    forward and backward)."""
     from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import fused_attention as fak
     from repro_torch.kernels import paged_attention as pak
     fdk.launches = fdk.dc_launches = ddk.launches = ddk.dc_launches = 0
+    fak.launches = fak.bwd_launches = 0
     fdk.cluster_launches = fdk.cluster_dc_launches = 0
     ddk.cluster_launches = ddk.cluster_dc_launches = 0
     pak.launches, pak.launches_by_w = 0, {}
@@ -546,12 +549,15 @@ def zero_counts():
 
 def launch_counts() -> dict:
     """Each kernel's launches since the last `zero_counts()`; K1c, K2c,
-    K4c and K5c count those of them over a cluster of two blocks."""
+    K4c and K5c count those of them over a cluster of two blocks, FA and
+    FAb the fused attention's forward and backward launches."""
     from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import fused_attention as fak
     from repro_torch.kernels import paged_attention as pak
     return {"K1": fdk.launches, "K2": fdk.dc_launches, "K3": pak.launches,
             "K4": ddk.launches, "K5": ddk.dc_launches,
+            "FA": fak.launches, "FAb": fak.bwd_launches,
             "K1c": fdk.cluster_launches, "K2c": fdk.cluster_dc_launches,
             "K4c": ddk.cluster_launches, "K5c": ddk.cluster_dc_launches}
 
@@ -604,9 +610,10 @@ def counted_train(tag: str, name: str, model, params, bs, want_flash: int,
     `tag` and `name`, unless c moved, the method's ΔW kernel and its VJP
     (K1/K2, K4/K5 for dct) each launched `sites` times a step (one per
     merged site), `cluster_sites` of them over a cluster of two blocks,
-    and flash ran `want_flash` times. The warm time is the median of the
-    steps after the first, printed with their range. Returns (state,
-    frozen, figures, launch counts)."""
+    flash ran `want_flash` times, and the fused attention kernel (S <=
+    1024 only) did not launch where flash ran. The warm time is the
+    median of the steps after the first, printed with their range.
+    Returns (state, frozen, figures, launch counts)."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.models import attention as attn
@@ -645,16 +652,22 @@ def counted_train(tag: str, name: str, model, params, bs, want_flash: int,
     if flash_calls[0] != want_flash:
         raise PhaseError(f"{tag} {name} train: flash_attention ran "
                          f"{flash_calls[0]} times, expected {want_flash}")
+    if want_flash and (got["FA"] or got["FAb"]):
+        raise PhaseError(f"{tag} {name} train: the fused attention kernel "
+                         f"launched {got['FA']} forward, {got['FAb']} "
+                         f"backward beside flash's {want_flash} calls")
     warm = sorted(1e3 * t for t in (secs[1:] or secs))
     warm_ms = statistics.median(warm)
     fig = {"losses": losses, "cold_ms": secs[0] * 1e3, "warm_ms": warm_ms,
            "warm_min_ms": warm[0], "warm_max_ms": warm[-1],
            "tokens_per_s": B * S_ / warm_ms * 1e3, "peak_gib": peak,
-           "batch": B, "seq": S_, "flash_calls": flash_calls[0]}
+           "batch": B, "seq": S_, "flash_calls": flash_calls[0],
+           "fused_launches": [got["FA"], got["FAb"]]}
     print(f"[{tag}] {name} train: {len(bs)} steps of batch {B} x seq {S_}: "
           f"losses {[round(x, 4) for x in losses]} | {kf} {got[kf]}, {kb} "
           f"{got[kb]} launches ({got[kf + 'c']}, {got[kb + 'c']} over a "
-          f"cluster), flash_attention {flash_calls[0]} calls | "
+          f"cluster), flash_attention {flash_calls[0]} calls, fused "
+          f"attention {got['FA']} + {got['FAb']} backward | "
           f"cold {secs[0] * 1e3:.1f} ms, warm median {warm_ms:.1f} ms/step "
           f"of {len(warm)} ({warm[0]:.1f}-{warm[-1]:.1f}; "
           f"{fig['tokens_per_s']:.0f} tokens/s) | peak device memory "
@@ -684,7 +697,8 @@ def device_ms(fn, n: int):
         return None, None, []
     top = sorted(evs, key=lambda e: -e[1])[:3]
     return (tot / n / 1e3, sum(c for _, _, c in evs) / n,
-            [(k_.split("(")[0][:60], t / n / 1e3) for k_, t, _ in top])
+            [(k_.replace("(anonymous namespace)::", "").split("(")[0][:60],
+              t / n / 1e3) for k_, t, _ in top])
 
 
 def k3_device_ms(fn, n: int):
@@ -1658,8 +1672,9 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
         gmodel, tcfg, gparams, synthetic_batches(dev, gcfg, B, S, 3),
         f"paper {gcfg.name}", sync)
     got = launch_counts()
-    if any(got.values()):
-        raise PhaseError(f"paper full: launched {got}, expected no kernel")
+    if any(n_ for k_, n_ in got.items() if not k_.startswith("FA")):
+        raise PhaseError(f"paper full: launched {got}, expected no adapter "
+                         "kernel (attention's FA/FAb aside)")
     after = tree_leaves(state["trainable"]["base"])
     still = sum(torch.equal(a, b) for a, b in zip(after, before))
     if len(after) != len(before) or still:
@@ -1688,9 +1703,9 @@ def paper_phase(dev, cfgs, prompts, slots: int, max_len: int, ps: int,
     state, _, losses_f, secs_f = checked_steps(
         fmodel, tcfg, fparams, bs, f"paper {fcfg.name}", sync)
     got = launch_counts()
-    if any(got.values()):
+    if any(n_ for k_, n_ in got.items() if not k_.startswith("FA")):
         raise PhaseError(f"paper factored train: launched {got}, expected "
-                         "no kernel")
+                         "no adapter kernel (attention's FA/FAb aside)")
     if not c_moved(state, fparams):
         raise PhaseError("paper factored train: the coefficients never "
                          "moved")
@@ -2223,6 +2238,115 @@ def tiering_phase(dev, cfg, ps: int, sync) -> dict:
     print(f"[tiering] phase 17 took {out['phase_s']:.1f} s")
     print(json.dumps({"tiering": out}))
     return out
+
+
+FUSED_SHAPE = (8, 1024, 32, 4, 128)   # sft1k's: B, S, H, K, dh (yi-6b)
+FUSED_REL = 1e-2                      # kernel vs plain, relative (norm)
+FUSED_LSE = 1e-4                      # kernel vs plain lse, absolute
+
+
+def fused_attention_phase(dev, shape, timed_ms, sync) -> dict:
+    """The fused attention kernel alone at `shape` (B, S, H, K, dh), bf16,
+    causal: held to its plain version on the same inputs (out and the
+    gradients within FUSED_REL of the plain version's norm, lse within
+    FUSED_LSE), then CUDA-event ms of the kernel's forward and
+    forward+backward, its device ms by CUDA kernel, the plain version's,
+    the direct path's (what the route replaced), and SDPA's (the
+    yardstick, never on the port's path), against the bound: operations,
+    4·H·dh a visible (row, column) pair forward and three times that
+    forward+backward (`harness/flops.py`'s count)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.models import attention as attn
+    B, S, H, K, dh = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*s_):
+        return torch.randn(s_, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = randn(B, S, H, dh), randn(B, S, K, dh), randn(B, S, K, dh), \
+        randn(B, S, H, dh)
+    before = (fa.launches, fa.bwd_launches)
+    out, lse = fa._fwd_launch(q, k, v, True)
+    grads = fa._bwd_launch(q, k, v, out, lse, do, True)
+    sync()
+    p_out, p_lse = fa.reference_forward(q, k, v, True)
+    p_grads = fa.reference_backward(q, k, v, p_out, p_lse, do, True)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    errs = {"out": rel(out, p_out), "lse": float((lse - p_lse).abs().max())}
+    errs.update({n_: rel(a, b) for n_, a, b in
+                 zip(("dq", "dk", "dv"), grads, p_grads)})
+    del p_out, p_lse, p_grads
+    torch.cuda.empty_cache()
+    bad = [n_ for n_, e in errs.items()
+           if e > (FUSED_LSE if n_ == "lse" else FUSED_REL)]
+    if bad or (fa.launches, fa.bwd_launches) != (before[0] + 1,
+                                                 before[1] + 1):
+        raise PhaseError(f"fused attention at {shape}: {errs} (limits "
+                         f"{FUSED_REL} relative, lse {FUSED_LSE}); launches "
+                         f"{fa.launches - before[0]}, "
+                         f"{fa.bwd_launches - before[1]}")
+
+    def forward(fn):
+        return lambda: fn(q, k, v)
+
+    def fwd_bwd(fn):
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def run():
+            torch.autograd.grad(fn(*xs), xs, do)
+        return run
+
+    def kernel(*x):
+        return fa.fused_attention(*x, True)
+
+    def direct(*x):
+        return attn.direct_attention(*x, causal=True)
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    def plain_fb():
+        o_, l_ = fa.reference_forward(q, k, v, True)
+        fa.reference_backward(q, k, v, o_, l_, do, True)
+
+    ms = {"ms": timed_ms(forward(kernel), 20),
+          "fb_ms": timed_ms(fwd_bwd(kernel), 10),
+          "plain_ms": timed_ms(lambda: fa.reference_forward(q, k, v, True),
+                               3, 1),
+          "plain_fb_ms": timed_ms(plain_fb, 2, 1),
+          "direct_ms": timed_ms(forward(direct), 3, 1),
+          "direct_fb_ms": timed_ms(fwd_bwd(direct), 2, 1),
+          "library_ms": timed_ms(forward(sdpa), 20),
+          "library_fb_ms": timed_ms(fwd_bwd(sdpa), 10)}
+    ops = 4.0 * H * dh * B * S * (S + 1) / 2
+    nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * B * H * S
+    b_ms, b_by = bound(ops, nbytes, "bfloat16")
+    fb_ms, _ = bound(3 * ops, 2 * nbytes, "bfloat16")
+    dev_ms, n_kernels, top = device_ms(fwd_bwd(kernel), 3)
+    fig = {"shape": list(shape), "errs": errs, **ms, "bound_ms": b_ms,
+           "bound_by": b_by, "fb_bound_ms": fb_ms,
+           "tflops": ops / ms["ms"] * 1e-9,
+           "fb_tflops": 3 * ops / ms["fb_ms"] * 1e-9,
+           "device_fb_ms": dev_ms, "device_kernels": n_kernels,
+           "device_top": top}
+    print(f"[fused] B {B} S {S} H {H} K {K} dh {dh}, causal bf16: kernel "
+          f"vs plain {errs} | forward {ms['ms']:.3f} ms "
+          f"({fig['tflops']:.0f} TF/s; bound {b_ms:.3f}, {b_by}), "
+          f"forward+backward {ms['fb_ms']:.3f} ms ({fig['fb_tflops']:.0f} "
+          f"TF/s; bound {fb_ms:.3f}) | plain {ms['plain_ms']:.3f} / "
+          f"{ms['plain_fb_ms']:.3f} | direct {ms['direct_ms']:.3f} / "
+          f"{ms['direct_fb_ms']:.3f} | SDPA {ms['library_ms']:.3f} / "
+          f"{ms['library_fb_ms']:.3f} | device by kernel {top}")
+    return fig
 
 
 def long_attention_phase(dev, geometry, timed_ms, sync) -> dict:
@@ -4270,6 +4394,7 @@ def main() -> int:
     from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fft_plan as fp
     from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import fused_attention as fak
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import demo_prompts, demo_trace
@@ -4674,6 +4799,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     pps = 8                                  # the serving phases' max_len 128
 
+    # ---- 5b. the fused attention kernel at sft1k's shape ---------------------
+    try:
+        fused = fused_attention_phase(dev, FUSED_SHAPE, timed_ms,
+                                      torch.cuda.synchronize)
+    except PhaseError as e:
+        return fail(str(e))
+    torch.cuda.empty_cache()
+
     # ---- 6. gradient -------------------------------------------------------------
     from repro_torch.core import adapter as adapter_api
     method = adapter_api.resolve("fourierft")
@@ -4823,8 +4956,10 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     fdk.launches = fdk.dc_launches = 0
+    fak.launches = fak.bwd_launches = 0
     state, c0, c1, losses, secs = train("auto")
     k1_train, k2_train = fdk.launches, fdk.dc_launches
+    fa_train = (fak.launches, fak.bwd_launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = TRAIN_STEPS * MICROBATCH * 2
     if not all(math.isfinite(x) for x in losses):
@@ -4837,9 +4972,19 @@ def main() -> int:
         return fail(f"train: K1 launched {k1_train}, K2 {k2_train} times; "
                     f"expected {TRAIN_STEPS} steps x {MICROBATCH} "
                     f"microbatches x 2 sites = {expected} each")
+    # bf16 at S <= 1024: attention through the fused kernel, forward and
+    # backward once a layer a microbatch (no remat)
+    fa_expected = TRAIN_STEPS * MICROBATCH * cfg.num_layers
+    if fa_train != (fa_expected, fa_expected):
+        return fail(f"train: the fused attention kernel launched "
+                    f"{fa_train[0]} forward, {fa_train[1]} backward; "
+                    f"expected {TRAIN_STEPS} steps x {MICROBATCH} "
+                    f"microbatches x {cfg.num_layers} layers = "
+                    f"{fa_expected} each")
     warm_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
     print(f"[train] kernels: losses {[round(x, 4) for x in losses]} | K1 "
-          f"launches {k1_train}, K2 launches {k2_train} | cold step "
+          f"launches {k1_train}, K2 launches {k2_train}, fused attention "
+          f"{fa_train[0]} + {fa_train[1]} backward | cold step "
           f"{secs[0] * 1e3:.1f} ms ({B * S / secs[0]:.0f} tokens/s), warm "
           f"{warm_ms:.1f} ms/step ({B * S / warm_ms * 1e3:.0f} tokens/s) | "
           f"peak device memory {peak_gib:.2f} GiB")
@@ -5474,6 +5619,28 @@ def main() -> int:
                    "the DCT basis, one transform of length d2 per row pair",
          "direct_sum_bound_ms": k5["direct_flops"] / H100_PEAK["float32"]
          * 1e3},
+        {"name": "fused_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_attention.cu",
+         "replaces": "src/repro/models/attention.py (direct einsum path; "
+                     "no TPU kernel)",
+         "launches": fa_train[0], "bwd_launches": fa_train[1],
+         "launches_by_path": {"train": fa_train[0]},
+         "shape": fused["shape"], "max_rel_err": max(
+             e for n_, e in fused["errs"].items() if n_ != "lse"),
+         "lse_abs_err": fused["errs"]["lse"],
+         "ms": fused["ms"], "fb_ms": fused["fb_ms"],
+         "plain_ms": fused["plain_ms"], "plain_fb_ms": fused["plain_fb_ms"],
+         "direct_ms": fused["direct_ms"],
+         "direct_fb_ms": fused["direct_fb_ms"],
+         "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+         "fb_bound_ms": fused["fb_bound_ms"],
+         "library_ms": fused["library_ms"],
+         "library_fb_ms": fused["library_fb_ms"],
+         "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                         "(causal, enable_gqa)",
+         "design": "FlashAttention-2 on mma.sync bf16 / f32 accumulate, "
+                   "cp.async double-buffered K/V; backward a dq pass and a "
+                   "dk/dv pass (no atomics), dS as bf16 hi + lo"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -63,6 +63,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # dims, blocks (int*: written)
         "paged_attention_occupancy": (_P, _P),
     },
+    "fused_attention": {
+        # q, k, v, out, lse, B, S, H, K, dh, causal, scale, stream
+        "fused_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _F, _P),
+        # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, H, K, dh,
+        # causal, scale, stream
+        "fused_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

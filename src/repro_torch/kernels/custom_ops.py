@@ -1,16 +1,18 @@
-"""K1–K5 as `torch.library` custom ops, so fake tensors keep the kernel
-route.
+"""K1–K5 and the fused attention as `torch.library` custom ops, so fake
+tensors keep the kernel route.
 
 A fake tensor (`torch._subclasses.fake_tensor.FakeTensor`, the dry run's:
 shapes, dtypes and a device, no storage) cannot reach a kernel launch.
 Each wrapper (`fourier_deltaw.deltaw` / `dc`, `dct_deltaw.deltaw` / `dc`,
-`paged_attention.paged_attention`) therefore hands a fake input to its
-custom op `repro_torch::<name>`, whose fake implementation returns the
-output's shape, and whose real implementation is the wrapper's own launch
+`paged_attention.paged_attention`, `fused_attention.fused_attention`)
+therefore hands a fake input to its custom op `repro_torch::<name>`,
+whose fake implementation returns the output's shape, and whose real
+implementation is the wrapper's own launch
 (what a direct `torch.ops.repro_torch.<name>` call on CUDA tensors runs).
 Real tensors take the wrapper's route exactly as before: the launch is
 called directly, the counters count it, no dispatcher round trip. K1's op
-carries its autograd: the VJP through K2's op.
+carries its autograd: the VJP through K2's op; the fused attention's op
+(out, lse) its backward through `fused_attention_bwd`.
 
 `COSTS` prices one call of each op the way chip_smoke's bounds do (its
 `fft_ops` and the bytes each function must move), so `dist.opstats`
@@ -18,7 +20,11 @@ counts a kernel as one op: K1/K2/K4/K5 2.5·N·log2 N operations per layer
 for N = d1·d2 and the coefficients, entries and ΔW (or cotangent) once;
 K3 4·H·dh operations per (query row, column) and q, the output, the K/V
 rows and the block table once, over the block table's whole capacity
-(fake tensors carry no kv_len values to count from).
+(fake tensors carry no kv_len values to count from); the fused attention
+4·H·dh operations per (query row, visible column) forward and twice that
+backward (the required work, as the benchmark's `harness/flops.py`
+counts it: the backward's recompute and dS's hi/lo products are not), and
+its tensors once.
 """
 import math
 from typing import Callable, Dict, Tuple
@@ -67,10 +73,31 @@ def _paged_cost(args, out) -> Tuple[float, float]:
     return 4.0 * H * dh * B * W * cols, float(nbytes)
 
 
+def _visible_pairs(S: int, causal: bool) -> float:
+    return S * (S + 1) / 2.0 if causal else float(S * S)
+
+
+def _fused_cost(args, out) -> Tuple[float, float]:
+    q, k, _, causal = args[:4]
+    B, S, H, dh = q.shape
+    elt = q.element_size()
+    nbytes = elt * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S
+    return 4.0 * H * dh * B * _visible_pairs(S, causal), float(nbytes)
+
+
+def _fused_bwd_cost(args, out) -> Tuple[float, float]:
+    q, k, _, _, _, _, causal = args[:7]
+    B, S, H, dh = q.shape
+    elt = q.element_size()
+    nbytes = elt * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
+    return 8.0 * H * dh * B * _visible_pairs(S, causal), float(nbytes)
+
+
 COSTS: Dict[str, Callable] = {
     "fourier_deltaw": _deltaw_cost, "fourier_dc": _dc_cost,
     "dct_deltaw": _deltaw_cost, "dct_dc": _dc_cost,
     "paged_attention": _paged_cost,
+    "fused_attention": _fused_cost, "fused_attention_bwd": _fused_bwd_cost,
 }
 
 
@@ -126,3 +153,46 @@ def define_paged_attention(launch: Callable) -> None:
     @paged_op.register_fake
     def _(q, k_pages, v_pages, block_table, kv_len):
         return q.new_empty(q.shape, dtype=v_pages.dtype)
+
+
+def define_fused_attention(fwd_launch: Callable, bwd_launch: Callable
+                           ) -> None:
+    """`fused_attention` (q (B, S, H, dh), k/v (B, S, K, dh), causal ->
+    (out (B, S, H, dh), lse (B, H, S) f32)) and `fused_attention_bwd`
+    (q, k, v, out, lse, dout, causal -> (dq, dk, dv)), the first's VJP
+    through the second."""
+    T = torch.Tensor
+
+    @torch.library.custom_op(f"{NAMESPACE}::fused_attention_bwd",
+                             mutates_args=())
+    def bwd_op(q: T, k: T, v: T, out: T, lse: T, dout: T,
+               causal: bool) -> Tuple[T, T, T]:
+        return bwd_launch(q, k, v, out, lse, dout, causal)
+
+    @bwd_op.register_fake
+    def _(q, k, v, out, lse, dout, causal):
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    @torch.library.custom_op(f"{NAMESPACE}::fused_attention",
+                             mutates_args=())
+    def fwd_op(q: T, k: T, v: T, causal: bool) -> Tuple[T, T]:
+        return fwd_launch(q, k, v, causal)
+
+    @fwd_op.register_fake
+    def _(q, k, v, causal):
+        B, S, H, _ = q.shape
+        return (q.new_empty(q.shape, dtype=v.dtype),
+                q.new_empty((B, H, S), dtype=torch.float32))
+
+    def setup(ctx, inputs, output):
+        q, k, v, causal = inputs
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.causal = causal
+
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd_op(q, k, v, out, lse, dout.contiguous(),
+                            ctx.causal)
+        return dq, dk, dv, None
+
+    fwd_op.register_autograd(backward, setup_context=setup)

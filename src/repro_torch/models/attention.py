@@ -13,6 +13,12 @@ alive at a time); `flash_attention` is an autograd Function whose backward
 recomputes each block's probabilities from the saved row max and
 denominator instead of keeping them.
 
+Up to `direct_threshold` rows, bf16 inputs on the card take the fused
+kernel instead (`kernels/fused_attention.py`: the direct path's arithmetic
+tile by tile, no (S, S) tensor in device memory); f32 inputs, other head
+dims and CPU tensors take `direct_attention`. The route follows the
+inputs alone.
+
 Layouts are the JAX package's: q (B, Sq, H, dh), k/v (B, Skv, K, dh).
 Scores and softmax are f32; the direct paths cast probabilities to v's
 dtype before the value product, as `repro.models.attention` does, and the
@@ -25,6 +31,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core.spans import span
+from repro_torch.kernels import fused_attention as fused_mod
 
 NEG_INF = -1e30
 
@@ -278,11 +285,15 @@ def flash_attention(q, k, v, causal: bool = True,
 def attention(q, k, v, *, causal: bool = True, direct_threshold: int = 1024,
               chunk: int = 512, flash: bool = True) -> torch.Tensor:
     """Full-sequence attention with the JAX package's switch: direct up to
-    `direct_threshold` rows, then flash when S is a multiple of `chunk`,
-    else chunked (which itself falls back to direct for such S). Under a
+    `direct_threshold` rows (the fused kernel where it takes the inputs:
+    bf16 on the card), then flash when S is a multiple of `chunk`, else
+    chunked (which itself falls back to direct for such S). Under a
     profiler, forward and backward lie in the range `attention/<path>`."""
     S = q.shape[1]
-    if S <= direct_threshold:
+    if S <= direct_threshold and fused_mod.takes(q, k, v):
+        with span("attention/fused") as sp:
+            out = fused_mod.fused_attention(q, k, v, causal)
+    elif S <= direct_threshold:
         with span("attention/direct") as sp:
             out = direct_attention(q, k, v, causal=causal)
     elif flash and S % chunk == 0:

@@ -612,7 +612,7 @@ def prefill_paged(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
             vw = pv[rows].reshape(1, win, cfg.n_kv, cfg.head_dim)
             att = attn_mod.prefix_attention(q, k, v, kw, vw, prefix_len)
         else:
-            att = attn_mod.attention(q, k, v, causal=True)
+            att = local_attention(attn_mod.attention, q, k, v, causal=True)
         x = x + linear(lp, "wo", att.reshape(B, -1, cfg.attn_dim))
         # pad rows may collide inside the scratch page — dirt either way
         index_put_(pk, (w_page, w_off), k[0].to(pk.dtype))
