@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     runner.cache_env(runner.ROOT)
     runner.paths(runner.ROOT)
     import torch
-    from harness import checks, flops, inputs, modelcfg, spec
+    from harness import checks, flops, inputs, spec
     from harness import serve as serve_driver
     from harness import train as train_driver
 
@@ -71,10 +71,12 @@ def main(argv=None) -> int:
         if cell.mix["kind"] == "train":
             batches = train_driver.checked_batches(ctx(seed, 0))
             tcfg = train_driver.train_config(cell.mix)
-            base = inputs.make_base(cell.cfg, seed, dev)
-            c0 = inputs.make_coeffs(modelcfg.adapted_sites(cell.cfg),
+            base = inputs.make_base(cell.family.base_layout(cell.cfg), seed,
+                                    dev)
+            c0 = inputs.make_coeffs(cell.family.adapted_sites(cell.cfg),
                                     cell.cfg["adapter"]["n"], seed, dev)
-            ref = checks.train_reference(cell.cfg, base, c0, batches, tcfg)
+            ref = checks.train_reference(cell.reference, cell.cfg, base, c0,
+                                         batches, tcfg)
             if not args.control_only:
                 prog = train_driver.run(ctx(seed, 0))
                 emit(seed, "program", both(ref, prog["readings"]))
@@ -85,21 +87,22 @@ def main(argv=None) -> int:
                 half = train_driver.run(ctx(seed, 0, ("half_batch",)))
                 emit(seed, "half_batch", both(ref, half["readings"]))
                 del half
-            ctl = checks.train_reference(cell.cfg, base, c0, batches, tcfg,
-                                         linear="fp8")
+            ctl = checks.train_reference(cell.reference, cell.cfg, base, c0,
+                                         batches, tcfg, linear="fp8")
             emit(seed, "control", both(ref, ctl))
         else:
             out = serve_driver.run(ctx(seed, args.seconds))
             base, coeffs = out["inputs"]
             emit(seed, "program", {
-                **checks.serve_numbers(cell.cfg, base, out["sample"],
-                                       coeffs),
+                **checks.serve_numbers(cell.reference, cell.cfg, base,
+                                       out["sample"], coeffs),
                 "failed": out["failed"], "attempted": out["attempted"],
                 "served_tokens": sum(len(r["served"])
                                      for r in out["sample"])})
             if full:
                 emit(seed, "control", checks.serve_numbers(
-                    cell.cfg, base, out["sample"], coeffs, linear="fp8"))
+                    cell.reference, cell.cfg, base, out["sample"], coeffs,
+                    linear="fp8"))
         torch.cuda.empty_cache()
     return 0
 

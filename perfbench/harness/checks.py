@@ -1,6 +1,8 @@
 """The numbers that decide `correct`, computed against the plain reference
-(perfbench/reference) after the window has closed and the program's state
-is freed.
+of the cell's family (perfbench/reference/<reference>.py, the module the
+configuration's `reference` key names) after the window has closed and the
+program's state is freed. Trees are keyed by site path, as the program's
+are.
 
 Training (`train_reference`, `train_gaps`), over the checked first steps:
   loss_gap    the largest |loss - reference loss| / |reference loss| of a
@@ -28,36 +30,36 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from harness import inputs
-from reference import decoder, steps
+from reference import steps
 
 EXCLUDE_BELOW = 1e-3
 
 
-def layout_matches(model, cfg: Dict) -> None:
-    """The program's base weight tree has the shapes the benchmark makes."""
-    shapes = model.init_shapes()["base"]
-    want = inputs.base_layout(cfg)
-    got = {}
-    for k, v in shapes.items():
+def leaf_shapes(tree: Dict, prefix: str = "") -> Dict[str, tuple]:
+    """{leaf path: shape} of a nested tree of any depth."""
+    out = {}
+    for k, v in tree.items():
         if isinstance(v, dict):
-            got.update({f"{k}/{kk}": tuple(vv.shape) for kk, vv in v.items()})
+            out.update(leaf_shapes(v, f"{prefix}{k}/"))
         else:
-            got[k] = tuple(v.shape)
+            out[prefix + k] = tuple(v.shape)
+    return out
+
+
+def layout_matches(model, want: Dict) -> None:
+    """The program's base weight tree has the shapes of the benchmark's
+    layout `want` ({leaf path: (shape, kind)})."""
+    got = leaf_shapes(model.init_shapes()["base"])
     if got != {k: tuple(s) for k, (s, _) in want.items()}:
         raise ValueError(f"the program's weight layout {got} is not the "
                          f"benchmark's {want}")
 
 
-def reference_setup(cfg: Dict, device):
-    decoder.precise()
-    dims = decoder.Dims(cfg)
-    return dims, decoder.entries_for(dims, device)
-
-
-def _by_target(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """{"layers/wq": x} -> {"wq": x}."""
-    return {k.split("/")[-1]: v for k, v in tree.items()}
+def reference_setup(model, cfg: Dict, device):
+    """(Dims, entries on `device`) of the family's plain model `model`."""
+    model.precise()
+    dims = model.Dims(cfg)
+    return dims, model.entries_for(dims, device)
 
 
 def optimizer(tcfg) -> Dict:
@@ -66,19 +68,17 @@ def optimizer(tcfg) -> Dict:
             "weight_decay": tcfg.weight_decay}
 
 
-def train_reference(cfg: Dict, base: Dict, c0: Dict, batches: Sequence,
-                    tcfg, linear: str = "float32") -> Dict:
-    """The reference's first steps from c0 on `batches` (its matrix
-    products in `linear`'s arithmetic): {"losses", "grad1", "moved"},
-    keyed by site name as the program's trees are."""
-    dims, entries = reference_setup(cfg, c0[next(iter(c0))].device)
-    ref = steps.train_steps(base, _by_target(c0), entries,
+def train_reference(model, cfg: Dict, base: Dict, c0: Dict,
+                    batches: Sequence, tcfg, linear: str = "float32") -> Dict:
+    """The first steps of the family's plain model `model` from c0 on
+    `batches` (its matrix products in `linear`'s arithmetic): {"losses",
+    "grad1", "moved"}, keyed by site path as the program's trees are."""
+    dims, entries = reference_setup(model, cfg, c0[next(iter(c0))].device)
+    ref = steps.train_steps(model, base, c0, entries,
                             [(b["tokens"], b["labels"]) for b in batches],
-                            dims, optimizer(tcfg), decoder.LINEARS[linear])
-    full = {k.split("/")[-1]: k for k in c0}
-    return {"losses": ref["losses"],
-            "grad1": {full[k]: v for k, v in ref["grad1"].items()},
-            "moved": {full[k]: ref["params"][k] - c0[full[k]].float()
+                            dims, optimizer(tcfg), model.LINEARS[linear])
+    return {"losses": ref["losses"], "grad1": ref["grad1"],
+            "moved": {k: ref["params"][k] - c0[k].float()
                       for k in ref["params"]}}
 
 
@@ -113,25 +113,26 @@ def train_diagnostics(ref: Dict, losses: List[float], grad1: Dict,
                                                  median=True)}
 
 
-def serve_numbers(cfg: Dict, base: Dict, sample: Sequence[Dict],
+def serve_numbers(model, cfg: Dict, base: Dict, sample: Sequence[Dict],
                   coeffs: Dict, linear: str = "float32") -> Dict[str, float]:
-    """sample: [{"prompt": np int array, "served": [tokens], "tenant": int
-    or None}]; coeffs: {site: (tenants, L, n)}."""
+    """The family's plain model `model` against the served tokens. sample:
+    [{"prompt": np int array, "served": [tokens], "tenant": int or None}];
+    coeffs: {site: (tenants, L, n)}."""
     dev = next(iter(coeffs.values())).device
-    dims, entries = reference_setup(cfg, dev)
+    dims, entries = reference_setup(model, cfg, dev)
     reqs = []
     for r in sample:
         c = None if r["tenant"] is None else {
-            k.split("/")[-1]: v[r["tenant"]] for k, v in coeffs.items()}
+            k: v[r["tenant"]] for k, v in coeffs.items()}
         reqs.append({"prompt": torch.as_tensor(r["prompt"], device=dev)
                      .to(torch.int64),
                      "served": torch.as_tensor(r["served"], device=dev)
                      .to(torch.int64), "c": c})
     if linear == "float32":
-        gaps = steps.served_gaps(base, reqs, entries, dims)
+        gaps = steps.served_gaps(model, base, reqs, entries, dims)
     else:
-        gaps = steps.control_gaps(base, reqs, entries, dims,
-                                  decoder.LINEARS[linear])
+        gaps = steps.control_gaps(model, base, reqs, entries, dims,
+                                  model.LINEARS[linear])
     return {"max_logit_gap": max(gaps)}
 
 

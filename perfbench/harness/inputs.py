@@ -31,36 +31,13 @@ def generator(seed: int, purpose: str, device) -> torch.Generator:
     return g
 
 
-def base_layout(cfg: Dict) -> Dict[str, tuple]:
-    """{leaf path: (shape, kind)} of the base weights, kind normal (the
-    served type) or ones."""
-    L, d = cfg["num_hidden_layers"], cfg["hidden_size"]
-    H = cfg["num_attention_heads"]
-    K = cfg.get("num_key_value_heads", H)
-    hd = cfg.get("model", {}).get("head_dim", d // H)
-    V, f = cfg["vocab_size"], cfg["intermediate_size"]
-    return {
-        "layers/attn_norm": ((L, d), "ones"),
-        "layers/wq": ((L, d, H * hd), "normal"),
-        "layers/wk": ((L, d, K * hd), "normal"),
-        "layers/wv": ((L, d, K * hd), "normal"),
-        "layers/wo": ((L, H * hd, d), "normal"),
-        "layers/mlp_norm": ((L, d), "ones"),
-        "layers/wi": ((L, d, f), "normal"),
-        "layers/wg": ((L, d, f), "normal"),
-        "layers/wo_mlp": ((L, f, d), "normal"),
-        "final_norm": ((d,), "ones"),
-        "embed": ((V, d), "normal"),
-        "lm_head": ((d, V), "normal"),
-    }
-
-
-def make_base(cfg: Dict, seed: int, device,
-              dtype=torch.bfloat16) -> Dict:
-    """The base weights as a nested dict ({"layers": {...}, "final_norm",
-    "embed", "lm_head"}): every normal leaf a view of one buffer drawn in
-    one call."""
-    layout = base_layout(cfg)
+def make_base(layout: Dict, seed: int, device, dtype=torch.bfloat16
+              ) -> Dict:
+    """The base weights in a family's layout (`base_layout`: {leaf path:
+    (shape, kind)}, kind normal, the served type, or ones) as a nested
+    dict, each leaf under its path's parts ("layers/wq" ->
+    base["layers"]["wq"]): every normal leaf, in the layout's order, a view
+    of one buffer drawn in one call."""
     gen = generator(seed, "base", device)
     normal = [(k, s) for k, (s, kind) in layout.items() if kind == "normal"]
     total = sum(int(np.prod(s)) for _, s in normal)
@@ -74,12 +51,13 @@ def make_base(cfg: Dict, seed: int, device,
     for k, (s, kind) in layout.items():
         if kind == "ones":
             flat[k] = torch.ones(s, dtype=dtype, device=device)
-    base: Dict = {"layers": {}}
+    base: Dict = {}
     for k, t in flat.items():
-        if k.startswith("layers/"):
-            base["layers"][k[len("layers/"):]] = t
-        else:
-            base[k] = t
+        *parents, name = k.split("/")
+        node = base
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = t
     return base
 
 

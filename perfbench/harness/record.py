@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from harness.trace import Trace
 
@@ -35,6 +35,9 @@ class Run:
     # counters, and what the yardstick needs per launch
     counters: Dict[str, float] = field(default_factory=dict)
     sites: List = field(default_factory=list)   # (name, d1, d2, L)
+    # (B, S, H, K, hd) of one attention call of a training step (the
+    # family's `attention_shape`), None where the family has none
+    attention: Optional[Tuple[int, int, int, int, int]] = None
     k3_rounds: List[List[int]] = field(default_factory=list)  # kv lengths
 
 

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from harness import checks, flops, inputs, modelcfg
+from harness import checks, inputs, modelcfg
 from harness.record import Run, quantile
 from harness.device import empty_cache, max_memory, reset_peak, sync
 
@@ -51,14 +51,15 @@ def build(ctx):
     from repro_torch.serve import AdapterBank, ContinuousScheduler, Engine
 
     cfg, mix, dev = ctx.cell.cfg, ctx.cell.mix, ctx.device
-    model = build_model(modelcfg.model_config(cfg),
-                        PEFTConfig(method="none"))
-    checks.layout_matches(model, cfg)
-    base = inputs.make_base(cfg, ctx.seed, dev)
+    fam = ctx.cell.family
+    model = build_model(fam.model_config(cfg), PEFTConfig(method="none"))
+    layout = fam.base_layout(cfg)
+    checks.layout_matches(model, layout)
+    base = inputs.make_base(layout, ctx.seed, dev)
     prof = modelcfg.peft_config(cfg)
     bank = AdapterBank(model, {prof.method: prof},
                        capacity=mix["bank_capacity"], device=dev)
-    sites = modelcfg.adapted_sites(cfg)
+    sites = fam.adapted_sites(cfg)
     coeffs = inputs.make_coeffs(sites, prof.n, ctx.seed, dev,
                                 tenants=mix["tenants"])
     for t in range(mix["tenants"]):
@@ -121,6 +122,7 @@ def run(ctx, rate: Optional[float] = None, prepared=None) -> Dict:
     ctx.log(f"set-up {setup_s:.1f} s")
 
     rec = Run("serve", cfg, mix, ctx.peaks)
+    fam = ctx.cell.family
     n_slots = mix["slots"]
     kv_rounds: List[List[int]] = []
     trace_at = ctx.seconds * mix.get("trace_after", 0.4)
@@ -176,10 +178,10 @@ def run(ctx, rate: Optional[float] = None, prepared=None) -> Dict:
         if window_open and not tracing:
             rec.tick_s.append(t1 - t0)
             rec.busy_rounds_s += t1 - t0
-            rec.required_ops += sum(flops.prefill_ops(cfg, p)
+            rec.required_ops += sum(fam.prefill_ops(cfg, p)
                                     for _, p in admitted)
             if decoded:
-                rec.required_ops += flops.decode_ops(cfg, kv)
+                rec.required_ops += fam.decode_ops(cfg, kv)
         if tracing and decoded:
             full = [1] * n_slots
             for s, k in zip(decoded, kv):
@@ -267,7 +269,8 @@ def run(ctx, rate: Optional[float] = None, prepared=None) -> Dict:
     if ctx.check:
         t0 = time.perf_counter()
         out["numbers"] = (
-            checks.serve_numbers(cfg, base, out["sample"], coeffs)
+            checks.serve_numbers(ctx.cell.reference, cfg, base,
+                                 out["sample"], coeffs)
             if out["sample"] else {"max_logit_gap": float("inf")})
         ctx.log(f"check {time.perf_counter() - t0:.1f} s")
     return out

@@ -8,11 +8,11 @@ events of the `Trace`, on the device's clock. A device operation is
 charged to the chain of ranges that were open when its launch was called:
 
 - its launch is the host's launch call (`cudaLaunchKernel`,
-  `cuLaunchKernelEx`, `cudaMemcpyAsync`, ...) of the same kind in the same
-  place of the order: one stream runs its operations in the order they
-  were launched, so the k-th kernel is the k-th kernel launch. A pairing
-  that would put a launch after its operation's start is refused, and the
-  operation is left unattributed;
+  `cuLaunchKernelEx`, `cudaMemcpyAsync`, ...) that carries the same
+  correlation id as the operation. (Pairing by order, the k-th
+  operation of a kind with the k-th launch of that kind, slips: one
+  launch stamped after its operation's start shifts every later pairing
+  by one.) A trace without correlation ids is attributed nothing;
 - its chain is every program range open at the launch's start. In the
   forward and the recompute that is the range the launching thread is
   in. The backward runs on the autograd engine's thread; the program
@@ -25,9 +25,8 @@ charged to the chain of ranges that were open when its launch was called:
 - an operation launched outside every range has an empty chain: it is
   unattributed, and so is one with no launch to pair.
 
-The `Trace` keeps names and intervals only (no thread, correlation id or
-sequence number), which is why the pairing goes by order and the chain by
-time.
+The `Trace` keeps names, intervals and correlation ids (no thread or
+sequence number), which is why the chain goes by time.
 """
 from __future__ import annotations
 
@@ -137,37 +136,38 @@ def chains_at(ranges: List[Range], instants: List[float]
     return out
 
 
+def has_ids(trace) -> bool:
+    """Whether the trace holds a correlation id for every device operation
+    and host event, some of them set."""
+    return len(trace.device_ids) == len(trace.device) \
+        and len(trace.host_ids) == len(trace.host) \
+        and any(trace.device_ids)
+
+
 def pair_launches(trace) -> Tuple[List[Optional[float]], Dict, Dict]:
     """For each device operation of the trace, the start of the launch
-    call paired with it (None where none can be), and the counts of
-    launches and operations by kind."""
-    launches: Dict[str, List[float]] = {}
-    for n, a, _ in trace.host:
+    call with its correlation id (None where there is none), and the
+    counts of launches and operations by kind."""
+    launches: Dict[str, int] = {}
+    launch_at: Dict[int, float] = {}
+    for (n, a, _), cid in zip(trace.host, trace.host_ids):
         kind = launch_kind(n)
         if kind is not None:
-            launches.setdefault(kind, []).append(a)
-    for v in launches.values():
-        v.sort()
-    order = sorted(range(len(trace.device)), key=lambda i: trace.device[i][1])
-    at: List[Optional[float]] = [None] * len(trace.device)
-    nxt: Dict[str, int] = {}
+            launches[kind] = launches.get(kind, 0) + 1
+            if cid:
+                launch_at[cid] = a
     ops: Dict[str, int] = {}
-    for i in order:
-        name, start, _ = trace.device[i]
-        kind = device_kind(name)
-        ops[kind] = ops.get(kind, 0) + 1
-        seq, k = launches.get(kind, []), nxt.get(kind, 0)
-        if k < len(seq) and seq[k] <= start:
-            at[i] = seq[k]
-            nxt[kind] = k + 1
-    return at, {k: len(v) for k, v in launches.items()}, ops
+    for name, _, _ in trace.device:
+        ops[device_kind(name)] = ops.get(device_kind(name), 0) + 1
+    return [launch_at.get(cid) for cid in trace.device_ids], launches, ops
 
 
 def attribute(trace) -> Optional[Attribution]:
     """The attribution of a trace's device time to the program's spans;
-    None where the trace holds no program span or no device operation."""
+    None where the trace holds no program span, no device operation or no
+    correlation ids."""
     ranges = program_ranges(trace)
-    if not ranges or not trace.device:
+    if not ranges or not trace.device or not has_ids(trace):
         return None
     at, launches, ops = pair_launches(trace)
     found = [i for i, t in enumerate(at) if t is not None]
@@ -219,7 +219,8 @@ def log_unattributed(metric: str, att: Attribution) -> None:
     share = 100.0 * left / total if total > 0 else float("nan")
     print(f"perfbench: {metric}: unattributed {share:.2f} % of device busy "
           f"time ({att.paired} of {len(att.chains)} operations paired to "
-          f"a launch; launches {att.launches}, operations {att.ops}; "
+          f"a launch by correlation id; launches {att.launches}, "
+          f"operations {att.ops}; "
           f"outside the step {1e3 * outside:.3f} ms)",
           file=sys.stderr, flush=True)
 

@@ -19,6 +19,12 @@ class Trace:
     span_s: float
     device: List[Tuple[str, float, float]] = field(default_factory=list)
     host: List[Tuple[str, float, float]] = field(default_factory=list)
+    # the profiler's correlation id of each device operation and of each
+    # host event, in the order of `device` and `host` (0 where an event has
+    # none; both empty where the trace was made without them): a launch
+    # call and the operation it launched share one
+    device_ids: List[int] = field(default_factory=list)
+    host_ids: List[int] = field(default_factory=list)
 
     def busy_s(self) -> float:
         """Length of the union of the device's operation intervals."""
@@ -99,10 +105,12 @@ def capture(prof, t0_ns: int, t1_ns: int) -> Trace:
         kind = str(ev.activity_type()).lower() \
             if hasattr(ev, "activity_type") else ""
         is_dev = "cuda" in str(ev.device_type()).lower()
+        cid = int(ev.correlation_id()) \
+            if hasattr(ev, "correlation_id") else 0
         if is_dev and not any(k in kind for k in NOT_WORK):
-            dev.append((ev.name(), start, end))
+            dev.append((ev.name(), start, end, cid))
         elif not is_dev:
-            host.append((ev.name(), start, end))
+            host.append((ev.name(), start, end, cid))
         starts.append(start)
     origin = float(t0_ns)
     if starts and abs(min(starts) - origin) > 60e9:
@@ -110,11 +118,14 @@ def capture(prof, t0_ns: int, t1_ns: int) -> Trace:
     span = (t1_ns - t0_ns) * 1e-9
 
     def clip(items):
-        out = []
-        for n, a, b in items:
+        out, ids = [], []
+        for n, a, b, cid in items:
             a, b = max((a - origin) * 1e-9, 0.0), min((b - origin) * 1e-9,
                                                        span)
             if b > a:
                 out.append((n, a, b))
-        return out
-    return Trace(span_s=span, device=clip(dev), host=clip(host))
+                ids.append(cid)
+        return out, ids
+    (device, device_ids), (host, host_ids) = clip(dev), clip(host)
+    return Trace(span_s=span, device=device, host=host,
+                 device_ids=device_ids, host_ids=host_ids)

@@ -16,7 +16,7 @@ import gc
 import time
 from typing import Dict
 
-from harness import checks, flops, inputs, modelcfg
+from harness import checks, inputs, modelcfg
 from harness.device import empty_cache, max_memory, reset_peak, sync
 from harness.record import Run
 
@@ -25,19 +25,22 @@ def run(ctx) -> Dict:
     import torch
     from repro_torch.core import peft as peft_mod
     from repro_torch.kernels import fourier_deltaw as fdk
+    from repro_torch.kernels import fused_attention as fak
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import build
     from repro_torch.train import step as train_step
 
     cfg, mix, dev = ctx.cell.cfg, ctx.cell.mix, ctx.device
+    fam = ctx.cell.family
     B, S, V = mix["batch"], mix["seq"], cfg["vocab_size"]
-    mcfg = modelcfg.model_config(cfg)
+    mcfg = fam.model_config(cfg)
     peft = modelcfg.peft_config(cfg, strategy=mix["strategy"])
     model = build(mcfg, peft, remat=mix["remat"])
     tcfg = train_config(mix)
-    checks.layout_matches(model, cfg)
-    base = inputs.make_base(cfg, ctx.seed, dev)
-    sites = modelcfg.adapted_sites(cfg)
+    layout = fam.base_layout(cfg)
+    checks.layout_matches(model, layout)
+    base = inputs.make_base(layout, ctx.seed, dev)
+    sites = fam.adapted_sites(cfg)
     c0 = inputs.make_coeffs(sites, peft.n, ctx.seed, dev)
     adapters = peft_mod.init_adapters(torch.Generator(device=dev),
                                       model.sites, peft, dev)
@@ -87,7 +90,9 @@ def run(ctx) -> Dict:
     ctx.log(f"set-up {setup_s:.1f} s")
 
     # ---- the window ------------------------------------------------------
-    rec = Run("train", cfg, mix, ctx.peaks, sites=[s for s in sites])
+    rec = Run("train", cfg, mix, ctx.peaks, sites=[s for s in sites],
+              attention=fam.attention_shape(
+                  cfg, B // max(1, tcfg.microbatch), S))
     i = n_check + mix["warm_steps"]
     failed = 0
     trace_at = ctx.seconds * mix.get("trace_after", 0.4)
@@ -96,13 +101,17 @@ def run(ctx) -> Dict:
     # a traced run traces its stretch even where a step outlasts the window
     while t_end - t_open < ctx.seconds or (ctx.trace and rec.trace is None):
         if ctx.trace and rec.trace is None and t_end - t_open >= trace_at:
-            before = (fdk.launches, fdk.dc_launches)
+            before = (fdk.launches, fdk.dc_launches, fak.launches,
+                      fak.bwd_launches)
             rec.trace, n = ctx.traced(lambda: [step(i + j) for j in
                                                range(mix["trace_steps"])])
             for _, skipped in n:
                 failed += int(skipped)
-            rec.counters = {"k1_launches": fdk.launches - before[0],
-                            "k2_launches": fdk.dc_launches - before[1]}
+            rec.counters = {
+                "k1_launches": fdk.launches - before[0],
+                "k2_launches": fdk.dc_launches - before[1],
+                "attention_launches": fak.launches - before[2],
+                "attention_bwd_launches": fak.bwd_launches - before[3]}
             i += mix["trace_steps"]
             t_end = time.perf_counter()
             continue
@@ -116,7 +125,7 @@ def run(ctx) -> Dict:
     rec.window_s = t_end - t_open
     # a step the anomaly guard skipped trained nothing
     rec.tokens = (steps - failed) * B * S
-    rec.step_ops = flops.train_step_ops(cfg, B, S)
+    rec.step_ops = fam.train_step_ops(cfg, B, S)
     rec.peak_window_bytes = max_memory(dev)
     peak = max(peak_setup, rec.peak_window_bytes)
 
@@ -136,8 +145,8 @@ def run(ctx) -> Dict:
            "inputs": (base, c0, tcfg)}
     if ctx.check:
         t0 = time.perf_counter()
-        ref = checks.train_reference(cfg, base, c0, checked_batches(ctx),
-                                     tcfg)
+        ref = checks.train_reference(ctx.cell.reference, cfg, base, c0,
+                                     checked_batches(ctx), tcfg)
         out["numbers"] = checks.train_gaps(ref, **readings)
         ctx.log(f"check {time.perf_counter() - t0:.1f} s")
     return out

@@ -8,7 +8,9 @@ It reads a configuration file of the benchmark (the published keys, and
 the `model` block that states how the measured program runs them) and
 weights that the benchmark made, in the layout of the benchmark's weight
 maker: stacked (L, d_in, d_out) matrices applied as `x @ W`. It imports
-nothing of the measured program and takes nothing that it made.
+nothing of the measured program and takes nothing that it made. Adapted
+sites, their coefficients, entries and gradients are keyed by the site's
+full path in that layout ("layers/wq").
 
 The whole model is never held with activations for a backward pass:
 `loss_and_grads` runs the forward layer by layer keeping only each layer's
@@ -96,26 +98,31 @@ class Dims:
         self.n = ad["n"]
         self.alpha = float(ad["alpha"])
         self.entry_seed = ad["entry_seed"]
-        self.targets = tuple(ad["target_modules"])
+        self.sites = tuple(f"layers/{t}" for t in ad["target_modules"])
 
-    def site_shape(self, name: str) -> Tuple[int, int]:
-        out = {"wq": self.H * self.hd, "wk": self.K * self.hd,
-               "wv": self.K * self.hd}
-        if name not in out:
-            raise ValueError(f"the reference adapts q/k/v only, not {name}")
-        return self.d, out[name]
+    def site_shape(self, site: str) -> Tuple[int, int]:
+        out = {"layers/wq": self.H * self.hd, "layers/wk": self.K * self.hd,
+               "layers/wv": self.K * self.hd}
+        if site not in out:
+            raise ValueError(f"the reference adapts q/k/v only, not {site}")
+        return self.d, out[site]
 
 
 def entries_for(dims: Dims, device) -> Dict[str, torch.Tensor]:
     """{site: (2, n) int64 entries} by the frozen entry rule."""
     out = {}
-    for name in dims.targets:
-        d1, d2 = dims.site_shape(name)
+    for site in dims.sites:
+        d1, d2 = dims.site_shape(site)
         e = fourier.sample_entries(d1, d2, dims.n,
                                    fourier.entry_seed(dims.entry_seed, d1,
                                                       d2))
-        out[name] = torch.from_numpy(e).to(device)
+        out[site] = torch.from_numpy(e).to(device)
     return out
+
+
+def leaf(site: str) -> str:
+    """The weight a site adapts within its layer: "layers/wq" -> "wq"."""
+    return site.split("/")[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +160,7 @@ def causal_attention(q, k, v) -> torch.Tensor:
 
 def layer(x: torch.Tensor, lw: Dict, dw: Dict[str, torch.Tensor],
           dims: Dims, lin: Callable, pos: torch.Tensor) -> torch.Tensor:
-    """One pre-norm block. lw: this layer's weights; dw: {site: ΔW}."""
+    """One pre-norm block. lw: this layer's weights; dw: {leaf: ΔW}."""
     B, S, _ = x.shape
 
     def w(name):
@@ -177,14 +184,14 @@ def layer_weights(base: Dict, li: int) -> Dict:
 
 def deltas(cs: Optional[Dict[str, torch.Tensor]], entries: Dict, li: int,
            dims: Dims) -> Dict[str, torch.Tensor]:
-    """{site: ΔW of layer li} for the coefficients cs {site: (L, n)}."""
+    """{leaf: ΔW of layer li} for the coefficients cs {site: (L, n)}."""
     if cs is None:
         return {}
     out = {}
-    for name, c in cs.items():
-        d1, d2 = dims.site_shape(name)
-        out[name] = fourier.delta_w(c[li], entries[name], d1, d2,
-                                    dims.alpha)
+    for site, c in cs.items():
+        d1, d2 = dims.site_shape(site)
+        out[leaf(site)] = fourier.delta_w(c[li], entries[site], d1, d2,
+                                          dims.alpha)
     return out
 
 
@@ -200,17 +207,17 @@ def head(base: Dict, x: torch.Tensor, dims: Dims, lin: Callable
 
 def loss_and_grads(base: Dict, cs: Dict[str, torch.Tensor], entries: Dict,
                    tokens: torch.Tensor, labels: torch.Tensor, dims: Dims,
-                   lin: Callable = plain_linear
+                   lin: Callable = plain_linear, block: Callable = layer
                    ) -> Tuple[float, Dict[str, torch.Tensor]]:
     """Mean token cross-entropy of the causal forward, and its gradient in
-    every coefficient (L, n)."""
+    every coefficient (L, n). `block` is the layer (`layer`'s arguments)."""
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)
     xs: List[torch.Tensor] = [base["embed"].index_select(
         0, tokens.reshape(-1)).reshape(*tokens.shape, dims.d).to(F32)]
     with torch.no_grad():
         for li in range(dims.L):
-            xs.append(layer(xs[-1], layer_weights(base, li),
+            xs.append(block(xs[-1], layer_weights(base, li),
                             deltas(cs, entries, li, dims), dims, lin, pos))
     with torch.enable_grad():
         xl = xs.pop().requires_grad_(True)
@@ -224,12 +231,13 @@ def loss_and_grads(base: Dict, cs: Dict[str, torch.Tensor], entries: Dict,
     for li in reversed(range(dims.L)):
         xin = xs.pop().requires_grad_(True)
         with torch.enable_grad():
-            live = {name: c[li].detach().clone().requires_grad_(True)
-                    for name, c in cs.items()}
-            dw = {name: fourier.delta_w(live[name], entries[name],
-                                        *dims.site_shape(name), dims.alpha)
-                  for name in live}
-            out = layer(xin, layer_weights(base, li), dw, dims, lin, pos)
+            live = {site: c[li].detach().clone().requires_grad_(True)
+                    for site, c in cs.items()}
+            dw = {leaf(site): fourier.delta_w(live[site], entries[site],
+                                              *dims.site_shape(site),
+                                              dims.alpha)
+                  for site in live}
+            out = block(xin, layer_weights(base, li), dw, dims, lin, pos)
             names = sorted(live)
             got = torch.autograd.grad([out], [xin] + [live[n] for n in names],
                                       [gx])
@@ -246,13 +254,14 @@ def loss_and_grads(base: Dict, cs: Dict[str, torch.Tensor], entries: Dict,
 @torch.no_grad()
 def logits_at(base: Dict, cs: Optional[Dict[str, torch.Tensor]],
               entries: Dict, tokens: torch.Tensor, first: int, dims: Dims,
-              lin: Callable = plain_linear) -> torch.Tensor:
+              lin: Callable = plain_linear, block: Callable = layer
+              ) -> torch.Tensor:
     """Logits (S - first, V) that score tokens[first + 1:] and the token
     after the last: the causal forward of one sequence (S,)."""
     S = tokens.shape[0]
     pos = torch.arange(S, device=tokens.device)
     x = base["embed"].index_select(0, tokens).to(F32)[None]
     for li in range(dims.L):
-        x = layer(x, layer_weights(base, li), deltas(cs, entries, li, dims),
+        x = block(x, layer_weights(base, li), deltas(cs, entries, li, dims),
                   dims, lin, pos)
     return head(base, x[0, first:], dims, lin)

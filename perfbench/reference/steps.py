@@ -1,7 +1,11 @@
 """The reference's training steps and served-token gaps.
 
+Each function takes the plain model of the cell's family (`model`:
+perfbench/reference/<reference>.py, the module the configuration's
+`reference` key names).
+
 Training: `train_steps` follows the first steps of a run from the same
-coefficients and batches: loss and gradient (`decoder.loss_and_grads`),
+coefficients and batches: loss and gradient (`model.loss_and_grads`),
 the gradient clipped to a global norm, then AdamW (Loshchilov & Hutter,
 with the bias corrections of Kingma & Ba; decoupled weight decay) at the
 configuration's constant rate.
@@ -17,15 +21,15 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from reference import decoder
 
-
-def train_steps(base: Dict, c0: Dict[str, torch.Tensor], entries: Dict,
-                batches: Sequence, dims: decoder.Dims, opt: Dict,
-                lin: Callable = decoder.plain_linear) -> Dict:
-    """Run len(batches) steps from c0. Returns {"losses": [...], "grad1":
+def train_steps(model, base: Dict, c0: Dict[str, torch.Tensor],
+                entries: Dict, batches: Sequence, dims, opt: Dict,
+                lin: Optional[Callable] = None) -> Dict:
+    """Run len(batches) steps from c0 (matrix products by `lin`, the
+    model's plain ones by default). Returns {"losses": [...], "grad1":
     {site: the first step's gradient as the optimizer gets it (clipped)},
     "params": {site: the coefficients after the last step}}."""
+    lin = model.plain_linear if lin is None else lin
     c = {k: v.detach().to(torch.float32).clone() for k, v in c0.items()}
     m = {k: torch.zeros_like(v) for k, v in c.items()}
     v2 = {k: torch.zeros_like(v) for k, v in c.items()}
@@ -33,8 +37,8 @@ def train_steps(base: Dict, c0: Dict[str, torch.Tensor], entries: Dict,
     losses: List[float] = []
     grad1 = None
     for t, (tokens, labels) in enumerate(batches, start=1):
-        loss, g = decoder.loss_and_grads(base, c, entries, tokens, labels,
-                                         dims, lin)
+        loss, g = model.loss_and_grads(base, c, entries, tokens, labels,
+                                       dims, lin)
         losses.append(loss)
         norm = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
         scale = torch.clamp(opt["clip"] / torch.clamp(norm, min=1e-9),
@@ -52,8 +56,8 @@ def train_steps(base: Dict, c0: Dict[str, torch.Tensor], entries: Dict,
     return {"losses": losses, "grad1": grad1, "params": c}
 
 
-def served_gaps(base: Dict, requests: Sequence[Dict], entries: Dict,
-                dims: decoder.Dims) -> List[float]:
+def served_gaps(model, base: Dict, requests: Sequence[Dict],
+                entries: Dict, dims) -> List[float]:
     """For each request {"prompt": (P,) int64, "served": (T,) int64, "c":
     {site: (L, n)} or None}: the largest gap, over its served tokens, by
     which the served token's reference logit lies below the reference's
@@ -61,23 +65,23 @@ def served_gaps(base: Dict, requests: Sequence[Dict], entries: Dict,
     out = []
     for r in requests:
         seq = torch.cat([r["prompt"], r["served"][:-1]])
-        lg = decoder.logits_at(base, r["c"], entries, seq,
-                               r["prompt"].shape[0] - 1, dims)
+        lg = model.logits_at(base, r["c"], entries, seq,
+                             r["prompt"].shape[0] - 1, dims)
         picked = lg.gather(1, r["served"][:, None])[:, 0]
         out.append(float((lg.max(dim=1).values - picked).max()))
     return out
 
 
-def control_gaps(base: Dict, requests: Sequence[Dict], entries: Dict,
-                 dims: decoder.Dims, lin: Callable) -> List[float]:
+def control_gaps(model, base: Dict, requests: Sequence[Dict],
+                 entries: Dict, dims, lin: Callable) -> List[float]:
     """As `served_gaps`, for the tokens that the forward under `lin` puts
     first at each of the same positions (no decoding of its own)."""
     out = []
     for r in requests:
         seq = torch.cat([r["prompt"], r["served"][:-1]])
         first = r["prompt"].shape[0] - 1
-        ref = decoder.logits_at(base, r["c"], entries, seq, first, dims)
-        low = decoder.logits_at(base, r["c"], entries, seq, first, dims, lin)
+        ref = model.logits_at(base, r["c"], entries, seq, first, dims)
+        low = model.logits_at(base, r["c"], entries, seq, first, dims, lin)
         picked = ref.gather(1, low.argmax(dim=1)[:, None])[:, 0]
         out.append(float((ref.max(dim=1).values - picked).max()))
     return out

@@ -1,8 +1,8 @@
 """A checkout-shaped root for the harness's tests: BENCHMARK.json with
 test-sized cells and their files under perfbench/, the real metric
-readers beside them. The training cells take BENCHMARK.json's metrics;
-the serving cell, which BENCHMARK.json has none for yet, takes those of
-data/serve_metrics.json. Run on the CPU with the port's plain PyTorch
+readers, families and references beside them. The training cells take
+BENCHMARK.json's metrics; the serving cell, which BENCHMARK.json has none
+for yet, takes those of data/serve_metrics.json. Run on the CPU with the port's plain PyTorch
 paths."""
 from __future__ import annotations
 
@@ -32,7 +32,9 @@ def make_root(tmp: Path) -> Path:
     pb = tmp / "perfbench"
     for sub in ("configs", "traffic", "limits"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "metrics", pb / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "families", "reference"):
+        shutil.copytree(BENCH / sub, pb / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for f in (DATA / "configs").iterdir():
         shutil.copy(f, pb / "configs" / f.name)
     for f in (DATA / "traffic").iterdir():

@@ -81,11 +81,13 @@ def test_train_control_is_not_correct(root, seed):
     prog = train_driver.run(ctx)
     base, c0, tcfg = prog["inputs"]
     batches = train_driver.checked_batches(ctx)
-    ref = checks.train_reference(ctx.cell.cfg, base, c0, batches, tcfg)
+    model = ctx.cell.reference
+    ref = checks.train_reference(model, ctx.cell.cfg, base, c0, batches,
+                                 tcfg)
     assert checks.verdict(checks.train_gaps(ref, **prog["readings"]),
                           ctx.cell.limits)
-    ctl = checks.train_reference(ctx.cell.cfg, base, c0, batches, tcfg,
-                                 linear="fp8")
+    ctl = checks.train_reference(model, ctx.cell.cfg, base, c0, batches,
+                                 tcfg, linear="fp8")
     assert not checks.verdict(checks.train_gaps(ref, **ctl),
                               ctx.cell.limits)
 
@@ -96,10 +98,11 @@ def test_serve_control_is_not_correct(root):
     out = serve_driver.run(ctx)
     base, coeffs = out["inputs"]
     cfg, limits = ctx.cell.cfg, ctx.cell.limits
-    assert checks.verdict(checks.serve_numbers(cfg, base, out["sample"],
-                                               coeffs), limits)
+    model = ctx.cell.reference
+    assert checks.verdict(checks.serve_numbers(model, cfg, base,
+                                               out["sample"], coeffs), limits)
     assert not checks.verdict(checks.serve_numbers(
-        cfg, base, out["sample"], coeffs, linear="fp8"), limits)
+        model, cfg, base, out["sample"], coeffs, linear="fp8"), limits)
 
 
 def test_a_refused_request_misses_every_latency_limit(root):

@@ -165,11 +165,10 @@ def test_fails_with_only_the_benchmark_files(tmp_path):
 @pytest.mark.parametrize("extra", [{"num_experts": 8},
                                    {"model": {"qk_norm": True}}])
 def test_a_config_the_reference_does_not_cover_is_refused(extra):
-    from harness import modelcfg
     cfg = json.loads((tr.DATA / "configs" / "tiny-dense.json").read_text())
     cfg.update(extra)
     with pytest.raises(ValueError, match="dense decoder"):
-        modelcfg.model_config(cfg)
+        spec.family(cfg, tr.REPO).model_config(cfg)
 
 
 def test_new_files_add_a_config_mix_cell_and_metric(tmp_path):

@@ -6,10 +6,11 @@ import numpy as np
 import torch
 
 import perfbench_testroot as tr
-from harness import inputs
+from harness import inputs, spec
 
 MIX = json.loads((tr.DATA / "traffic" / "tiny-serve.json").read_text())
 TINY = json.loads((tr.DATA / "configs" / "tiny-dense.json").read_text())
+LAYOUT = spec.family(TINY, tr.REPO).base_layout(TINY)
 
 
 def _key(reqs):
@@ -63,9 +64,9 @@ def test_train_batches_repeat_by_seed_and_step():
 
 
 def test_weights_repeat_by_seed():
-    a = inputs.make_base(TINY, 5, "cpu")
-    b = inputs.make_base(TINY, 5, "cpu")
-    c = inputs.make_base(TINY, 6, "cpu")
+    a = inputs.make_base(LAYOUT, 5, "cpu")
+    b = inputs.make_base(LAYOUT, 5, "cpu")
+    c = inputs.make_base(LAYOUT, 6, "cpu")
     assert torch.equal(a["layers"]["wq"], b["layers"]["wq"])
     assert not torch.equal(a["layers"]["wq"], c["layers"]["wq"])
     assert a["layers"]["wq"].dtype == torch.bfloat16

@@ -69,6 +69,35 @@ def test_readers_read_nothing_where_nothing_was_measured():
         assert read(name, serve) is None
 
 
+def test_attention_roofline_reads_the_fused_kernel_alone():
+    t = Trace(span_s=1.0, device=[
+        ("void fwd_kernel<128>(bf16 const*, Dims)", 0.0, 0.002),
+        ("void bwd_dq_kernel<128>(bf16 const*, Dims)", 0.1, 0.103),
+        ("void bwd_dkdv_kernel<128>(bf16 const*, Dims)", 0.103, 0.107),
+        ("void pytorch_flash::flash_fwd_kernel<Traits>(Params)", 0.2, 0.5),
+        ("nvjet_tst_192x192", 0.5, 0.9),
+    ])
+    shape = (8, 1024, 32, 4, 128)
+    r = train_run(trace=t, attention=shape,
+                  counters={"attention_launches": 2,
+                            "attention_bwd_launches": 1})
+    # forward: 4 x 32 x 128 x 8 x (1024^2 + 1024) / 2 = 6.878e10 operations
+    # (0.0695 ms at 989 TF/s; its bytes take 0.045 ms); backward twice that
+    fwd = 4 * 32 * 128 * 8 * (1024 ** 2 + 1024) / 2 / 989e12
+    assert flops.fused_attention_bound(shape, H100) == pytest.approx(fwd)
+    assert flops.fused_attention_bound(shape, H100, backward=True) == \
+        pytest.approx(2 * fwd)
+    assert read("attention_roofline.train", r) == pytest.approx(
+        100 * 4 * fwd / 0.009)
+    for bare in (train_run(trace=t), train_run(trace=None, attention=shape),
+                 train_run(trace=t, attention=shape),
+                 train_run(trace=Trace(span_s=1.0), attention=shape,
+                           counters={"attention_launches": 2})):
+        assert read("attention_roofline.train", bare) is None
+    assert read("attention_roofline.train", Run("serve", YI, {}, H100)) \
+        is None
+
+
 def test_serve_readers():
     t = Trace(span_s=1.0, device=[
         ("void paged_attn_bf16<128, 64, 2, 2>(Args)", 0.0, 0.01),

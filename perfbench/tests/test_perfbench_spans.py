@@ -111,6 +111,27 @@ def test_cpu_profile_resolves_the_dc_transform_to_the_merge():
     assert [r.name for r in _chain(ranges, dc[0])] == [P + "adapter"]
 
 
+def _with_ids(t):
+    """The trace with correlation ids: the k-th launch call of a kind and
+    the k-th operation of that kind share one."""
+    t.host_ids = [0] * len(t.host)
+    t.device_ids = [0] * len(t.device)
+    launches = {}
+    for i, (n, a, _) in enumerate(t.host):
+        kind = spans.launch_kind(n)
+        if kind is not None:
+            launches.setdefault(kind, []).append((a, i))
+    ops = {}
+    for i, (n, a, _) in enumerate(t.device):
+        ops.setdefault(spans.device_kind(n), []).append((a, i))
+    cid = 100
+    for kind, seq in ops.items():
+        for (_, op), (_, call) in zip(sorted(seq), sorted(launches[kind])):
+            cid += 1
+            t.device_ids[op], t.host_ids[call] = cid, cid
+    return t
+
+
 def _synthetic(with_spans=True, trace_steps=1):
     """One step [0.0, 1.0] and the harness's loss read after it:
 
@@ -122,7 +143,9 @@ def _synthetic(with_spans=True, trace_steps=1):
               with the merge's range 0.86-0.89 (memset 0.87, launch 0.88)
     after     a memcpy launched at 1.20, outside the step
 
-    Device operations run 0.1 s after their launches, 0.01-0.05 s long."""
+    Device operations run 0.1 s after their launches, 0.01-0.05 s long;
+    each launch call and the operation it launched share a correlation
+    id."""
     host = [("cudaLaunchKernel", t, t + 0.001)
             for t in (0.02, 0.16, 0.25, 0.53, 0.56, 0.77, 0.88)]
     host += [("cudaMemsetAsync", 0.87, 0.871),
@@ -149,7 +172,7 @@ def _synthetic(with_spans=True, trace_steps=1):
         ("dc_partial_kernel<(Basis)0, false>", 0.98, 1.00),
         ("Memcpy DtoH (Device -> Pageable)", 1.30, 1.32),
     ]
-    t = Trace(span_s=2.0, device=device, host=host)
+    t = _with_ids(Trace(span_s=2.0, device=device, host=host))
     return Run("train", {}, {"trace_steps": trace_steps}, H100,
                window_s=10.0, step_s=[1.0, 1.2, 1.1], tokens=3 * 8192,
                step_ops=1.966e14, trace=t,
@@ -188,9 +211,32 @@ def test_attribution_counts_and_leaves_the_unlaunched_out():
     # a kernel with no launch before it takes none, and the next
     # kernel keeps its own
     r.trace.device.insert(0, ("orphan", 0.0, 0.01))
+    r.trace.device_ids.insert(0, 0)
     att = spans.attribute(r.trace)
     assert att.paired == 9 and att.chains[0] == ()
     assert [c.name for c in att.chains[1]] == [P + "step", P + "adapter"]
+
+
+def test_pairing_by_correlation_id_survives_a_launch_stamped_late():
+    # attention's forward kernel (launched at 0.16) stamped as starting at
+    # 0.15: by order it would pair with no launch, and every later kernel
+    # with the launch before its own
+    r = _synthetic()
+    i = [n for n, _, _ in r.trace.device].index("attn_a")
+    r.trace.device[i] = ("attn_a", 0.15, 0.19)
+    assert spans.attribute(r.trace).paired == 9
+    assert read("attention_ms.train", r) == pytest.approx(
+        (0.04 + 0.02 + 0.03) * 1e3)
+    assert read("recompute_ms.train", r) == pytest.approx(
+        (0.03 + 0.02) * 1e3)
+
+
+def test_a_trace_without_correlation_ids_is_attributed_nothing():
+    r = _synthetic()
+    r.trace.device_ids, r.trace.host_ids = [], []
+    assert spans.attribute(r.trace) is None
+    for name in NEW:
+        assert read(name, r) is None
 
 
 def test_span_readers_read_nothing_without_spans():
