@@ -2,7 +2,9 @@
 
 A copy of the JAX package's `configs/base.py` (ModelConfig, PEFTConfig,
 TrainConfig and the family extras they reference), kept here so that the port imports
-nothing of the JAX package. One difference in meaning, not in fields:
+nothing of the JAX package. It adds one class the JAX package lacks,
+`Zamba2Published` (Zamba2 as published, an option of the port's hybrid
+family), and has one difference in meaning, not in fields:
 `PEFTConfig.kernel_backend` names the same four policies, and
 `repro_torch.kernels.api` maps them onto the port's backends — `auto` and
 `pallas` select the CUDA kernel for CUDA tensors, `einsum` the plain PyTorch
@@ -45,6 +47,24 @@ class ZambaConfig:
 
 
 @dataclass(frozen=True)
+class Zamba2Published:
+    """Zamba2's hybrid wiring as published (HF transformers'
+    `Zamba2ForCausalLM`), held in `ModelConfig.zamba` in place of the JAX
+    package's `ZambaConfig`: `num_mem_blocks` shared blocks, applied in
+    turn before each of `hybrid_layer_ids`, each reading the residual
+    stream with the embeddings beside it (width 2·d_model), attention at
+    scale (head_dim / 2) ** -0.5, an erf-GELU gated MLP with each
+    application's own rank-`adapter_rank` LoRA on its gate and up
+    projections, then the application's own d x d `linear`;
+    the block's output joins the next mamba layer's input before its
+    norm. The mamba layers' gated norm is grouped by `ssm.n_groups`.
+    `models/zamba2.py` says the rest."""
+    hybrid_layer_ids: Tuple[int, ...]
+    num_mem_blocks: int
+    adapter_rank: int
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                  # dense | moe | ssm | hybrid | audio | vlm
@@ -64,7 +84,7 @@ class ModelConfig:
     # extras
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    zamba: Optional[ZambaConfig] = None
+    zamba: Optional[ZambaConfig] = None     # or Zamba2Published
     n_codebooks: int = 0         # musicgen: parallel codebook embeddings/heads
     embed_inputs: bool = True    # False for VLM stub (input = patch embeddings)
     tie_embeddings: bool = False

@@ -16,8 +16,9 @@ kind cannot tell from kernels on every torch release.
 The backward runs where no forward range is open (the autograd engine's
 own thread on the card). `Span.backward(*outs)` carries a range over: each
 autograd node the range created on the way to `outs` (its sequence number
-at or past the one the range opened at, which is how the profiler links a
-backward node to its forward op) opens the same range while it runs.
+at or past the one the range opened at and below the one at the call, on
+the thread's own count, which is how the profiler links a backward node to
+its forward op) opens the same range while it runs.
 
     with span("attention/direct") as sp:
         out = direct_attention(q, k, v)
@@ -28,11 +29,21 @@ benchmark (`perfbench/metrics/`):
 
 - `step`: the call of the train step (`train/step.py`);
 - `adapter`: the merge of every site, forward and backward
-  (`models/transformer.py::_effective`, around `apply_peft_to_layers`);
+  (`models/transformer.py::_effective`, around `apply_peft_to_layers`),
+  and each factored or bank apply (`make_linear`: the hybrid's shared
+  sites);
 - `layer`: one decoder layer's body, which `torch.utils.checkpoint`
   re-enters when it recomputes in the backward (`models/transformer.py`);
+  in published Zamba2 each mamba layer and each shared-block application
+  (`models/zamba2.py`);
 - `attention/<path>`: the attention core, forward and backward
-  (`models/attention.py::attention`; path `direct`, `flash`, `chunked`).
+  (`models/attention.py::attention`; path `fused`, `direct`, `flash`,
+  `chunked`);
+- `ssd`: the mamba2 SSD scan, forward and backward
+  (`models/mamba2.py::_mixer`, around `ssd_chunked`);
+- `shared`: one application of published Zamba2's shared block, from the
+  concat to its own linear, forward and backward
+  (`models/zamba2.py::_application`).
 """
 from __future__ import annotations
 
@@ -41,9 +52,6 @@ from torch._C import _profiler as _kineto
 from torch.autograd import profiler as _profiler
 
 PREFIX = "repro_torch/"
-
-# AccumulateGrad (a leaf's node) carries the largest sequence number
-_LEAF_SEQ = (1 << 64) - 1
 
 
 class _Null:
@@ -97,7 +105,8 @@ class Span:
         them)."""
         if self._seq0 is None:
             return
-        for node in _nodes_since(outs, self._seq0):
+        seq1 = torch._C._autograd._get_sequence_nr()
+        for node in _nodes_since(outs, self._seq0, seq1):
             _open_while_running(node, self.name)
 
 
@@ -113,9 +122,15 @@ def _grad_fns(x, out: list) -> None:
             _grad_fns(v, out)
 
 
-def _nodes_since(outs, seq0: int) -> list:
-    """The autograd nodes reachable from `outs` whose sequence number is at
-    least `seq0` (made on this thread since then); leaves' nodes apart."""
+def _nodes_since(outs, seq0: int, seq1: int) -> list:
+    """The autograd nodes reachable from `outs` whose sequence number lies
+    in [seq0, seq1): made on this thread since the range opened. The
+    counter is per thread, so the bound above matters where the range runs
+    on another thread than the graph it reads: remat's recompute runs on
+    the autograd engine's thread on the card, and its inputs' nodes, made
+    by the forward's thread, carry numbers that thread's count gave them.
+    A leaf's node (AccumulateGrad, the largest number) falls above any
+    bound."""
     todo: list = []
     _grad_fns(outs, todo)
     seen, nodes = set(), []
@@ -124,8 +139,7 @@ def _nodes_since(outs, seq0: int) -> list:
         if node is None or node in seen:
             continue
         seen.add(node)
-        seq = node._sequence_nr()
-        if seq < seq0 or seq == _LEAF_SEQ:
+        if not seq0 <= node._sequence_nr() < seq1:
             continue
         nodes.append(node)
         todo.extend(fn for fn, _ in node.next_functions)

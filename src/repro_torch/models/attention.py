@@ -49,18 +49,18 @@ def _softmax_value(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def direct_attention(q, k, v, *, causal: bool = True,
                      q_offset: Union[int, torch.Tensor] = 0,
-                     kv_len: Optional[Union[int, torch.Tensor]] = None
-                     ) -> torch.Tensor:
+                     kv_len: Optional[Union[int, torch.Tensor]] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Sq,H,dh), k/v (B,Skv,K,dh). Suitable for small S and for decode.
 
     kv_len: optional valid-KV length (positions >= kv_len are masked); a
     scalar for the whole batch or a (B,) tensor masking each row at its own
     length (continuous-batching decode). q_offset: global position of q[0]
-    for the causal mask."""
+    for the causal mask. scale: the scores' factor (None: dh ** -0.5)."""
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     G = H // K
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     qs = q.reshape(B, Sq, K, G, dh) * scale
     s = _gqa_scores(qs, k)                                   # (B,K,G,Sq,Skv)
     Skv = k.shape[1]
@@ -148,7 +148,8 @@ def _tri(chunk: int, device) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, chunk_q: int = 512,
-                      chunk_kv: Optional[int] = None) -> torch.Tensor:
+                      chunk_kv: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """The flash-attention algorithm over q blocks and, inside each, kv
     blocks with a running (max, denominator, accumulator): `flash_attention`'s
     forward loop. Peak memory is one (B,K,G,Tq,Tk) score block. Causal: the
@@ -162,8 +163,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, chunk_q: int = 512,
     if chunk_q != chunk_kv:
         raise ValueError("diagonal-block masking needs equal chunks")
     if q.shape[1] % chunk_q:
-        return direct_attention(q, k, v, causal=causal)
-    return _flash_fwd(q, k, v, causal, chunk_q)[0]
+        return direct_attention(q, k, v, causal=causal, scale=scale)
+    return _flash_fwd(q, k, v, causal, chunk_q, scale)[0]
 
 
 def _tri_pairs(nq: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -176,14 +177,15 @@ def _tri_pairs(nq: int) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.tensor([p[1] for p in pairs], dtype=torch.int32))
 
 
-def _flash_fwd(q, k, v, causal: bool, chunk: int):
+def _flash_fwd(q, k, v, causal: bool, chunk: int,
+               scale: Optional[float] = None):
     """-> (out in v's dtype, m, l), m and l (nq, B, K, G, chunk) f32: the
     final row max and softmax denominator of each q block."""
     B, S, H, dh = q.shape
     K = k.shape[2]
     G = H // K
     nq = S // chunk
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     qb = _blocks(q.reshape(B, S, K, G, dh), chunk)
     kb, vb = _blocks(k, chunk), _blocks(v, chunk)
     tri = _tri(chunk, q.device)
@@ -213,7 +215,8 @@ def _flash_fwd(q, k, v, causal: bool, chunk: int):
     return out, torch.stack(ms), torch.stack(ls)
 
 
-def _flash_bwd(q, k, v, out, m, l, do, causal: bool, chunk: int):
+def _flash_bwd(q, k, v, out, m, l, do, causal: bool, chunk: int,
+               scale: Optional[float] = None):
     """The JAX package's `_flash_bwd`: per block pair, p is recomputed from
     the saved (m, l); dq accumulates per q block, dk/dv per kv block (f32),
     with D = rowsum(do · o) taken against the output in v's dtype."""
@@ -221,7 +224,7 @@ def _flash_bwd(q, k, v, out, m, l, do, causal: bool, chunk: int):
     K = k.shape[2]
     G = H // K
     nq = S // chunk
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     f32 = torch.float32
     qb = _blocks(q.reshape(B, S, K, G, dh), chunk)
     kb, vb = _blocks(k, chunk), _blocks(v, chunk)
@@ -256,22 +259,22 @@ def _flash_bwd(q, k, v, out, m, l, do, causal: bool, chunk: int):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, chunk):
-        out, m, l = _flash_fwd(q, k, v, causal, chunk)
+    def forward(ctx, q, k, v, causal, chunk, scale):
+        out, m, l = _flash_fwd(q, k, v, causal, chunk, scale)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.causal, ctx.chunk = causal, chunk
+        ctx.causal, ctx.chunk, ctx.scale = causal, chunk, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, m, l = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, out, m, l, do, ctx.causal,
-                                ctx.chunk)
-        return dq, dk, dv, None, None
+                                ctx.chunk, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    chunk: int = 512) -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, chunk: int = 512,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Blocked attention with a recomputing backward (the JAX package's
     `custom_vjp` flash attention): the forward visits the causal block
     pairs only and saves (q, k, v, out, m, l); the backward recomputes each
@@ -279,28 +282,31 @@ def flash_attention(q, k, v, causal: bool = True,
     if q.shape[1] % chunk:
         raise ValueError(f"flash_attention needs S ({q.shape[1]}) to be a "
                          f"multiple of the chunk ({chunk})")
-    return _FlashAttention.apply(q, k, v, causal, chunk)
+    return _FlashAttention.apply(q, k, v, causal, chunk, scale)
 
 
 def attention(q, k, v, *, causal: bool = True, direct_threshold: int = 1024,
-              chunk: int = 512, flash: bool = True) -> torch.Tensor:
+              chunk: int = 512, flash: bool = True,
+              scale: Optional[float] = None) -> torch.Tensor:
     """Full-sequence attention with the JAX package's switch: direct up to
     `direct_threshold` rows (the fused kernel where it takes the inputs:
-    bf16 on the card), then flash when S is a multiple of `chunk`, else
-    chunked (which itself falls back to direct for such S). Under a
-    profiler, forward and backward lie in the range `attention/<path>`."""
+    bf16 on the card, at the default scale dh ** -0.5, the one it
+    computes), then flash when S is a multiple of `chunk`, else chunked
+    (which itself falls back to direct for such S). `scale` multiplies the
+    scores (None: dh ** -0.5). Under a profiler, forward and backward lie
+    in the range `attention/<path>`."""
     S = q.shape[1]
-    if S <= direct_threshold and fused_mod.takes(q, k, v):
+    if S <= direct_threshold and scale is None and fused_mod.takes(q, k, v):
         with span("attention/fused") as sp:
             out = fused_mod.fused_attention(q, k, v, causal)
     elif S <= direct_threshold:
         with span("attention/direct") as sp:
-            out = direct_attention(q, k, v, causal=causal)
+            out = direct_attention(q, k, v, causal=causal, scale=scale)
     elif flash and S % chunk == 0:
         with span("attention/flash") as sp:
-            out = flash_attention(q, k, v, causal, chunk)
+            out = flash_attention(q, k, v, causal, chunk, scale)
     else:
         with span("attention/chunked") as sp:
-            out = chunked_attention(q, k, v, causal=causal)
+            out = chunked_attention(q, k, v, causal=causal, scale=scale)
     sp.backward(out)
     return out

@@ -3,8 +3,10 @@ package's `models/mamba2.py`.
 
 The chunked algorithm serves training and full-sequence forwards
 (intra-chunk quadratic form, per-chunk states, then the inter-chunk
-recurrence, which JAX runs as a `lax.scan` and this module as a loop over
-chunks); the decode step carries an O(1) state. The SSD scan is not a
+recurrence, which JAX runs as a `lax.scan` over chunks and this module as
+one product with the chunks' decay matrix, the SSD paper's minimal form:
+a handful of launches in place of a few per chunk); the decode step
+carries an O(1) state. The SSD scan is not a
 Pallas kernel in the JAX package (XLA computes it), so it stays plain
 PyTorch here.
 
@@ -22,7 +24,7 @@ heads `wx`'s column shard over `model` gives it (all heads where `model`
 does not divide them). B and C are shared by every head, so they are
 gathered whole; the conv's per-channel taps and the per-head scalars are
 sliced to the local channels. No sharding strategy is needed for the
-scan's cumsum, segment sums and chunk loop.
+scan's cumsum, segment sums and chunk product.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.dist.dtensor import is_dtensor, local_shape_and_offset
 from repro_torch.models.common import dense_init, rms_norm
 
@@ -108,14 +111,13 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
     states = torch.einsum("bcqhn,bcqhp->bchpn",
                           Bh * decay_to_end[..., None], dtx)
 
-    # inter-chunk recurrence: the state entering each chunk
-    chunk_decay = torch.exp(torch.sum(dta, dim=2))     # (b, nc, H)
-    s = torch.zeros((b, H, P, N), dtype=ct, device=x.device)
-    prev = []
-    for c in range(nc):
-        prev.append(s)
-        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)             # (b, nc, H, P, N)
+    # inter-chunk recurrence, as one product: the state entering chunk z
+    # is Σ_{c<z} exp(Σ_{c<w<z} a_w)·states_c, a_w chunk w's log decay
+    chunk_log = F.pad(torch.sum(dta, dim=2).movedim(2, 1), (1, 0))
+    decay = torch.exp(_segsum(chunk_log))              # (b, H, nc+1, nc+1)
+    states = torch.cat([torch.zeros_like(states[:, :1]), states], dim=1)
+    entering = torch.einsum("bhzc,bchpn->bzhpn", decay, states)
+    prev_states, s = entering[:, :-1], entering[:, -1]  # (b, nc, H, P, N)
 
     # inter-chunk output
     in_decay = torch.exp(cum)
@@ -188,15 +190,30 @@ def _plain_linear(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return x @ p[name]
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+               eps: float, groups: int = 1) -> torch.Tensor:
+    """RMSNorm of y · SiLU(z) over the last dim, or over each of its
+    `groups` equal parts (Zamba2's grouped gated norm)."""
+    g = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    if groups == 1:
+        return rms_norm(g, w, eps)
+    shape = g.shape
+    return rms_norm(g.reshape(*shape[:-1], groups, shape[-1] // groups),
+                    w.reshape(groups, -1), eps).reshape(shape)
+
+
 def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                linear_fn=None) -> torch.Tensor:
+                linear_fn=None, add=None, norm_groups: int = 1
+                ) -> torch.Tensor:
     """One pre-norm mamba2 block over a sequence. x (B, S, d).
     `linear_fn(p, name, x)` lets the PEFT layer intercept the wz, wx and
     wo_ssm projections. softplus is torch's, which is the identity above
-    20 where JAX's is not (they differ by less than 3e-9 there)."""
+    20 where JAX's is not (they differ by less than 3e-9 there). `add`
+    (B, S, d) joins the input before the norm and not the residual (a
+    published Zamba2 hybrid layer); `norm_groups` groups the gated norm."""
     H = dims(cfg)[1]
     linear_fn = linear_fn or _plain_linear
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = rms_norm(x if add is None else x + add, p["norm"], cfg.norm_eps)
     z = linear_fn(p, "wz", h)
     xin = linear_fn(p, "wx", h)
     bc = h @ p["wbc"]
@@ -207,8 +224,7 @@ def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                               loc.heads(dt_raw), cfg, loc.n_heads))
     else:
         y = _mixer(p, xin, bc, dt_raw, cfg, H)
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["gnorm"],
-                 cfg.norm_eps)
+    y = gated_norm(y, z, p["gnorm"], cfg.norm_eps, norm_groups)
     return x + linear_fn(p, "wo_ssm", y)
 
 
@@ -228,9 +244,12 @@ def _mixer(p: Dict, xin, bc, dt_raw, cfg: ModelConfig, H: int):
     Bmat = bc[..., :G * ssm.state].reshape(B, S, G, ssm.state)
     Cmat = bc[..., G * ssm.state:].reshape(B, S, G, ssm.state)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, _ = ssd_chunked(xin.reshape(B, S, H, P), dt, A, Bmat, Cmat, p["Dp"],
-                       chunk=min(ssm.chunk, S))
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    # the scan, forward and backward, lies in the range `ssd`
+    with span("ssd") as sp:
+        y, _ = ssd_chunked(xin.reshape(B, S, H, P), dt, A, Bmat, Cmat,
+                           p["Dp"], chunk=min(ssm.chunk, S))
+        sp.backward(y)
     return y.reshape(B, S, d_inner)
 
 
@@ -336,13 +355,16 @@ def init_mamba_cache(cfg: ModelConfig, stack: int, batch: int, dtype,
 
 
 def mamba_decode_step(p: Dict, cache: Dict, x: torch.Tensor,
-                      cfg: ModelConfig, linear_fn=None):
+                      cfg: ModelConfig, linear_fn=None, add=None,
+                      norm_groups: int = 1):
     """One token. x (B, 1, d); cache {conv (B, w-1, C), ssm (B, H, P, N)}
     (one layer's slices, read only). Returns (y (B, 1, d), new cache); the
-    conv history keeps the cache's dtype."""
+    conv history keeps the cache's dtype. `add` and `norm_groups` as in
+    `mamba_block`."""
     H = dims(cfg)[1]
     linear_fn = linear_fn or _plain_linear
-    h = rms_norm(x, p["norm"], cfg.norm_eps)[:, 0]            # (B, d)
+    h = rms_norm(x if add is None else x + add, p["norm"],
+                 cfg.norm_eps)[:, 0]                          # (B, d)
     z = linear_fn(p, "wz", h)
     xin = linear_fn(p, "wx", h)
     bc = h @ p["wbc"]
@@ -361,8 +383,7 @@ def mamba_decode_step(p: Dict, cache: Dict, x: torch.Tensor,
                                            xin, bc, dt_raw, cfg, H)
         y = y.to(x.dtype)
         new = {"conv": new_conv, "ssm": state}
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(x.dtype), p["gnorm"],
-                 cfg.norm_eps)
+    y = gated_norm(y, z, p["gnorm"], cfg.norm_eps, norm_groups)
     out = x + linear_fn(p, "wo_ssm", y)[:, None, :]
     return out, new
 
@@ -393,7 +414,7 @@ def _decode_mixer(p: Dict, conv, ssm_state, xin, bc, dt_raw,
     Bh = torch.repeat_interleave(Bmat, rep, dim=1).to(torch.float32)
     Ch = torch.repeat_interleave(Cmat, rep, dim=1).to(torch.float32)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (B, H)
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(p["A_log"].to(torch.float32))
     decay = torch.exp(dt * A)
     xf = xin.to(torch.float32)
     state = (cache["ssm"] * decay[:, :, None, None]

@@ -65,7 +65,8 @@ def resolve_default_targets(peft: PEFTConfig, cfg: ModelConfig) -> PEFTConfig:
 
 def adapter_sites(cfg: ModelConfig) -> Tuple[AdapterSite, ...]:
     """Every adaptable 2-D weight site of the family; the hybrid's shared
-    q/v are stacked over its shared-block applications."""
+    q/v are stacked over its shared-block applications (their d_in 2·d in
+    published Zamba2, whose block reads the embeddings too)."""
     if cfg.family in ("ssm", "hybrid"):
         d_inner = cfg.ssm.expand * cfg.d_model
         mamba = (
@@ -75,10 +76,9 @@ def adapter_sites(cfg: ModelConfig) -> Tuple[AdapterSite, ...]:
         )
         if cfg.family == "ssm":
             return mamba
-        apps = zamba2.n_apps(cfg)
-        return (AdapterSite("shared/wq", cfg.d_model, cfg.attn_dim, apps),
-                AdapterSite("shared/wv", cfg.d_model, cfg.kv_dim, apps)) \
-            + mamba
+        apps, width = zamba2.n_apps(cfg), zamba2.shared_width(cfg)
+        return (AdapterSite("shared/wq", width, cfg.attn_dim, apps),
+                AdapterSite("shared/wv", width, cfg.kv_dim, apps)) + mamba
     return (
         AdapterSite("layers/wq", cfg.d_model, cfg.attn_dim, cfg.num_layers),
         AdapterSite("layers/wk", cfg.d_model, cfg.kv_dim, cfg.num_layers),

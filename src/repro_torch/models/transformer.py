@@ -83,7 +83,8 @@ def make_linear(apps: Dict[str, List[SiteApp]], constrain=None):
     config has no say there). `constrain` (the `Model.constrain` hook)
     sees each 2-D weight slice as `fsdp_gather/<name>`: under FSDP the
     slice stored `data`-sharded is gathered there, inside the layer
-    loop."""
+    loop. Under a profiler each application, forward and backward, lies
+    in the range `adapter`."""
 
     def linear(lp: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
         w = lp[name]
@@ -98,7 +99,10 @@ def make_linear(apps: Dict[str, List[SiteApp]], constrain=None):
                   for leaf in app.method.trainable_leaves(app.peft)}
             fn = app.method.bank_apply if app.banked \
                 else app.method.factored_apply
-            y = y + fn(x, tr, app.aux, d1, d2, app.peft).to(y.dtype)
+            with span("adapter") as sp:
+                out = fn(x, tr, app.aux, d1, d2, app.peft).to(y.dtype)
+                sp.backward(out)
+            y = y + out
         return y
 
     return linear
@@ -303,10 +307,22 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
     lockstep cache (every row at the int position `cache_pos`) it is the
     lockstep decode, writing the new rows IN PLACE. Per-slot caches decode
     through `verify_logits`."""
+    out, new_kv = _attn_out(lp, x, cfg, linear, positions, cache_kv=cache_kv,
+                           cache_pos=cache_pos)
+    return x + out, new_kv
+
+
+def _attn_out(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
+             positions, *, cache_kv=None, cache_pos: int = 0,
+             scale: Optional[float] = None):
+    """`_attn_block`'s attention output (after `wo`) without the residual,
+    and the (k, v) it returns; `scale` multiplies the scores (None:
+    head_dim ** -0.5)."""
     B = x.shape[0]
     q, k, v = _qkv(lp, x, cfg, linear, positions)
     if cache_kv is None:
-        att = local_attention(attn_mod.attention, q, k, v, causal=True)
+        att = local_attention(attn_mod.attention, q, k, v, causal=True,
+                              scale=scale)
         new_kv = (k, v)
     else:
         ck, cv = cache_kv
@@ -314,10 +330,10 @@ def _attn_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
         ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
         att = local_attention(attn_mod.direct_attention, q, ck, cv,
-                              causal=False, kv_len=cache_pos + 1)
+                              causal=False, kv_len=cache_pos + 1,
+                              scale=scale)
         new_kv = (ck, cv)
-    out = linear(lp, "wo", att.reshape(B, -1, cfg.attn_dim))
-    return x + out, new_kv
+    return linear(lp, "wo", att.reshape(B, -1, cfg.attn_dim)), new_kv
 
 
 def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
@@ -341,10 +357,13 @@ def _mlp_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, linear,
 
 
 def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, S, V), or (B, S, CB, V) with one head per codebook."""
+    """(B, S, V), or (B, S, CB, V) with one head per codebook; with tied
+    embeddings the head is the embedding's transpose."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.n_codebooks:
         return torch.einsum("bsd,cdv->bscv", x, params["lm_head"])
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
     return x @ params["lm_head"]
 
 

@@ -18,6 +18,31 @@ shared weights: RoPE, then `attention.attention` over the full sequence
 with `direct_attention(..., kv_len=pos + 1)`. `remat` checkpoints a whole
 group (the shared block and its mamba blocks), as JAX's
 `_remat(group_body)` does; the tail group runs unchecked, as in JAX.
+
+Zamba2 as published (`ModelConfig.zamba` a `Zamba2Published`; HF
+transformers' `Zamba2ForCausalLM` in `modeling_zamba2.py`): with h the
+residual stream, e the embeddings and b = j mod `num_mem_blocks` the block
+of application j (before hybrid layer i = `hybrid_layer_ids[j]`),
+
+    u   = RMSNorm_b(concat[h, e])                      (width 2·d)
+    a   = softmax(q kᵀ · (head_dim / 2) ** -0.5 + causal) v · Wo_b,
+          q, k, v = u · Wq_b, u · Wk_b, u · Wv_b, RoPE over head_dim
+    m   = RMSNorm'_b(a)
+    g   = m · Wg_b + (m · A_j) · B_j[:, :f]
+    up  = m · Wi_b + (m · A_j) · B_j[:, f:]
+    s_j = ((GELU_erf(g) ⊙ up) · Wo_mlp_b) · Lin_j
+    h  <- h + Mamba_i(RMSNorm_i(h + s_j))    (s_j only at layer i)
+
+and the mamba layers' gated norm grouped by `ssm.n_groups`; the logits
+take the embedding's transpose when the embeddings are tied. The block
+has no residual of its own. The shared sites `shared/wq` / `shared/wv`
+(d_in 2·d) are factored, one row per application, as above; the
+per-application LoRA (`apps/mlp_lora_a`, `apps/mlp_lora_b`) and `linear`
+(`apps/linear`) are base weights. Forward groups: the layers before the
+first hybrid layer, then each hybrid layer with its application and the
+layers up to the next; `remat` checkpoints every group. Decode keeps one
+dense KV cache per application. Under a profiler each application lies in
+the ranges `layer` and `shared`, each mamba layer in `layer`.
 """
 from __future__ import annotations
 
@@ -25,16 +50,17 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, PEFTConfig
+from repro_torch.configs.base import ModelConfig, PEFTConfig, Zamba2Published
 from repro_torch.core import adapter as adapter_api
 from repro_torch.core.adapter import torch_dtype
+from repro_torch.core.spans import span
 from repro_torch.models import mamba2
-from repro_torch.models.common import cross_entropy, dense_init
+from repro_torch.models.common import cross_entropy, dense_init, rms_norm
 from repro_torch.models.transformer import (SiteApp, _app_tag, _attn_block,
-                                            _effective, _greedy, _logits,
-                                            _lookup, _mlp_block, _positions,
-                                            _remat, activation_anchor,
-                                            make_linear)
+                                            _attn_out, _effective, _greedy,
+                                            _logits, _lookup, _mlp_block,
+                                            _positions, _remat,
+                                            activation_anchor, make_linear)
 
 
 def _split(cfg: ModelConfig) -> Tuple[int, int]:
@@ -42,14 +68,29 @@ def _split(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.num_layers // every, cfg.num_layers % every
 
 
+def published(cfg: ModelConfig) -> bool:
+    """Whether `cfg` is Zamba2 as published (module docstring)."""
+    return isinstance(cfg.zamba, Zamba2Published)
+
+
 def n_apps(cfg: ModelConfig) -> int:
+    if published(cfg):
+        return len(cfg.zamba.hybrid_layer_ids)
     n_full, tail = _split(cfg)
     return n_full + (1 if tail else 0)
+
+
+def shared_width(cfg: ModelConfig) -> int:
+    """The shared block's input width: the residual stream, beside it the
+    embeddings in the published block."""
+    return 2 * cfg.d_model if published(cfg) else cfg.d_model
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     dtype = torch_dtype(cfg.param_dtype)
     d = cfg.d_model
+    if published(cfg):
+        return _init_published(gen, cfg, device, dtype)
 
     def init(shape):
         return dense_init(gen, shape, dtype, device)
@@ -154,6 +195,9 @@ def forward(params: Dict, adapters: Dict, batch: Dict, cfg: ModelConfig,
             bank_profiles=None,
             constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), a zero aux loss)."""
+    if published(cfg):
+        return _published_forward(params, adapters, batch, cfg, peft, sites,
+                                   remat, bank, bank_profiles, constrain)
     x = _lookup(params["embed"], batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
@@ -206,6 +250,9 @@ def decode_logits(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
                   constrain=None) -> Tuple[torch.Tensor, Dict]:
     """One token per sequence, batch["tokens"] (B, 1) -> (logits (B, 1, V),
     cache at pos + 1); every cache is written in place."""
+    if published(cfg):
+        return _published_decode(params, adapters, cache, batch, cfg, peft,
+                                 sites, bank, bank_profiles, constrain)
     x = _lookup(params["embed"], batch["tokens"])             # (B, 1, d)
     pos = cache["pos"]
     positions = _positions(x.shape[0], 1, x.device, pos)
@@ -243,3 +290,169 @@ def decode_step(params: Dict, adapters: Dict, cache: Dict, batch: Dict,
     logits, cache = decode_logits(params, adapters, cache, batch, cfg, peft,
                                   sites, bank, bank_profiles, constrain)
     return _greedy(logits), cache
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 as published (module docstring)
+# ---------------------------------------------------------------------------
+
+def _init_published(gen: torch.Generator, cfg: ModelConfig, device,
+                    dtype) -> Dict:
+    """The blocks' weights stacked over `num_mem_blocks` under `shared`,
+    each application's LoRA and linear stacked over the applications under
+    `apps`; no `lm_head` with tied embeddings."""
+    z = cfg.zamba
+    d, w, f, M, A = (cfg.d_model, shared_width(cfg), cfg.d_ff,
+                     z.num_mem_blocks, n_apps(cfg))
+
+    def init(shape):
+        return dense_init(gen, shape, dtype, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    shared = {
+        "attn_norm": ones((M, w)),
+        "wq": init((M, w, cfg.attn_dim)),
+        "wk": init((M, w, cfg.kv_dim)),
+        "wv": init((M, w, cfg.kv_dim)),
+        "wo": init((M, cfg.attn_dim, d)),
+        "mlp_norm": ones((M, d)),
+        "wi": init((M, d, f)),
+        "wg": init((M, d, f)),
+        "wo_mlp": init((M, f, d)),
+    }
+    apps = {"mlp_lora_a": init((A, d, z.adapter_rank)),
+            "mlp_lora_b": init((A, z.adapter_rank, 2 * f)),
+            "linear": init((A, d, d))}
+    params = {
+        "embed": init((cfg.vocab, d)),
+        "layers": mamba2.init_mamba_params(gen, cfg, cfg.num_layers, dtype,
+                                           device),
+        "shared": shared,
+        "apps": apps,
+        "final_norm": ones((d,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init((d, cfg.vocab))
+    return params
+
+
+def _published_groups(cfg: ModelConfig) -> List[Tuple[Optional[int],
+                                                        List[int]]]:
+    """[(application or None, its group's layers)]: the layers before the
+    first hybrid layer (no application), then each hybrid layer with its
+    application and the layers up to the next one."""
+    ids = list(cfg.zamba.hybrid_layer_ids)
+    bounds = sorted({0, *ids, cfg.num_layers})
+    return [(ids.index(a) if a in ids else None, list(range(a, b)))
+            for a, b in zip(bounds, bounds[1:])]
+
+
+def _unstack(tree: Dict, n: int) -> List[Dict]:
+    cols = {k: v.unbind(0) for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _published_parts(params: Dict, adapters: Dict, batch: Dict,
+                     cfg: ModelConfig, peft: PEFTConfig, sites, bank,
+                     bank_profiles, constrain):
+    """(mamba layer views, their linear, block views, per-application
+    views (adapter rows, LoRA, linear), the shared block's linear)."""
+    mamba_adapters = {k: v for k, v in adapters.items()
+                      if k.startswith("layers/")}
+    layers, linear = _effective(params, mamba_adapters, sites, peft, batch,
+                                bank, bank_profiles, constrain)
+    rows, shared_apps = _shared_adapter_rows(adapters, peft)
+    A = n_apps(cfg)
+    apps = [{**r, **a} for r, a in zip(_unstack(rows, A),
+                                        _unstack(params["apps"], A))]
+    blocks = _unstack(params["shared"], cfg.zamba.num_mem_blocks)
+    return layers, linear, blocks, apps, make_linear(shared_apps)
+
+
+def _application(x, e, block: Dict, app: Dict, linear, cfg: ModelConfig,
+                 positions, cache_kv=None, cache_pos: int = 0):
+    """s_j of one application (module docstring) on `block`'s weights and
+    the application's own rows; with `cache_kv` (its (k, v) cache) the
+    lockstep decode, writing the new rows in place."""
+    with span("shared") as sp:
+        lp = {**block, **app}
+        u = torch.cat([x, e], dim=-1)
+        a, _ = _attn_out(lp, u, cfg, linear, positions, cache_kv=cache_kv,
+                        cache_pos=cache_pos,
+                        scale=(cfg.head_dim / 2) ** -0.5)
+        m = rms_norm(a, lp["mlp_norm"], cfg.norm_eps)
+        lo = (m @ lp["mlp_lora_a"]) @ lp["mlp_lora_b"]
+        g = linear(lp, "wg", m) + lo[..., :cfg.d_ff]
+        up = linear(lp, "wi", m) + lo[..., cfg.d_ff:]
+        hid = torch.nn.functional.gelu(g.to(torch.float32)).to(up.dtype) * up
+        s = linear(lp, "wo_mlp", hid) @ lp["linear"]
+        sp.backward(s)
+    return s
+
+
+def _published_forward(params: Dict, adapters: Dict, batch: Dict,
+                       cfg: ModelConfig, peft: PEFTConfig, sites, remat: str,
+                       bank, bank_profiles, constrain):
+    e = _lookup(params["embed"], batch["tokens"])
+    B, S = e.shape[0], e.shape[1]
+    positions = _positions(B, S, e.device)
+    layers, linear, blocks, apps, shared_linear = _published_parts(
+        params, adapters, batch, cfg, peft, sites, bank, bank_profiles,
+        constrain)
+    act = activation_anchor(constrain)
+    M, G = cfg.zamba.num_mem_blocks, cfg.ssm.n_groups
+
+    def group_body(x, e, j, group):
+        s = None
+        if j is not None:
+            # remat re-enters both ranges when it recomputes the group
+            with span("layer"):
+                s = _application(act(x), e, blocks[j % M], apps[j],
+                                 shared_linear, cfg, positions)
+        for lp in group:
+            with span("layer"):
+                x = act(mamba2.mamba_block(lp, act(x), cfg, linear_fn=linear,
+                                           add=s, norm_groups=G))
+            s = None
+        return x
+
+    body = _remat(group_body, remat)
+    x = act(e)
+    for j, ids in _published_groups(cfg):
+        x = body(x, e, j, [layers[i] for i in ids])
+    return (_logits(params, x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _published_decode(params: Dict, adapters: Dict, cache: Dict,
+                      batch: Dict, cfg: ModelConfig, peft: PEFTConfig, sites,
+                      bank, bank_profiles, constrain):
+    e = _lookup(params["embed"], batch["tokens"])             # (B, 1, d)
+    pos = cache["pos"]
+    positions = _positions(e.shape[0], 1, e.device, pos)
+    layers, linear, blocks, apps, shared_linear = _published_parts(
+        params, adapters, batch, cfg, peft, sites, bank, bank_profiles,
+        constrain)
+    conv_all, ssm_all = cache["conv"], cache["ssm"]
+    ck_all, cv_all = cache["attn_k"], cache["attn_v"]
+    act = activation_anchor(constrain)
+    M, G = cfg.zamba.num_mem_blocks, cfg.ssm.n_groups
+    x = e
+    for j, ids in _published_groups(cfg):
+        s = None
+        if j is not None:
+            s = _application(act(x), e, blocks[j % M], apps[j],
+                             shared_linear, cfg, positions,
+                             cache_kv=(ck_all[j], cv_all[j]), cache_pos=pos)
+        for li in ids:
+            x, new = mamba2.mamba_decode_step(
+                layers[li], {"conv": conv_all[li], "ssm": ssm_all[li]},
+                act(x), cfg, linear_fn=linear, add=s, norm_groups=G)
+            conv_all[li] = new["conv"]
+            ssm_all[li] = new["ssm"]
+            s = None
+    return _logits(params, act(x), cfg), {
+        "conv": conv_all, "ssm": ssm_all, "attn_k": ck_all,
+        "attn_v": cv_all, "pos": pos + 1}

@@ -4,7 +4,10 @@ dense model with remat full, on the CPU: nothing is recorded and
 `torch.profiler` each range appears where its work happens (the layer's
 range a second time for its recompute, attention's and the merge's again
 around their backward nodes); a profiled step trains bit for bit as an
-unprofiled one."""
+unprofiled one; a range opened on another thread than the graph it reads
+(remat's recompute on the card) keeps to its own nodes."""
+import threading
+
 import pytest
 import torch
 from torch.autograd import profiler as autograd_profiler
@@ -104,6 +107,30 @@ def test_ranges_where_the_work_happens():
     merge_nodes = in_backward("adapter")
     assert merge_nodes
     assert not any(_inside(e[1], merge_nodes) for e in att)
+
+
+def test_a_range_on_another_thread_keeps_to_its_own_nodes(monkeypatch):
+    """On the card remat recomputes on the autograd engine's thread, whose
+    sequence numbers are its own. A range opened there reads inputs whose
+    graph the forward's thread made, under larger numbers; it opens around
+    its own nodes only, not around that graph's."""
+    x = torch.randn(8, requires_grad=True)
+    h = x
+    for _ in range(50):             # the forward thread's count runs ahead
+        h = h * 1.01
+    hooked = []
+    monkeypatch.setattr(spans, "_open_while_running",
+                        lambda node, name: hooked.append(node.name()))
+
+    def recompute():
+        with spans.Span(spans.PREFIX + "shared") as sp:
+            out = torch.cat([h, h]).exp()
+            sp.backward(out)
+    worker = threading.Thread(target=recompute)
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive()
+    assert sorted(hooked) == ["CatBackward0", "ExpBackward0"]
 
 
 def test_merge_range_holds_the_dc_transform():
