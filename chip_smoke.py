@@ -294,20 +294,33 @@ no result line:
 19. ssm     — the pure-SSM and hybrid families, bf16 unless noted,
               FourierFT n = 1000, alpha = 300. (a) The SSD scan alone at
               mamba2-2.7b's geometry (H 80, P 64, N 128, G 1, chunk 256,
-              B 1, S 4096) in f32: `ssd_chunked` against
-              `ssd_recurrent_oracle` in float64 on the same inputs, y and
+              B 1, S 4096) and at zamba2-7b-instruct's (H 112, N 64, G 2),
+              x, B and C in bf16 (as the models run it) and in f32:
+              `ssd_chunked` and the kernel (`kernels/ssd_scan.py`,
+              through `mamba2.ssd_scan`'s route: 2 forward calls and 1
+              backward by its counters) each against
+              `ssd_recurrent_oracle` in float64 on the same values, y and
               the final state each within 1e-4 of its own largest |value|
-              (the CPU suite's 1e-4, whose tensors are of order 1), the
-              gradients w.r.t. x, dt, B and C against float64 autograd of
-              the scan at the same limit, the f32 oracle's reading printed
-              as the control; forward and forward+backward ms, peak memory
-              above the inputs and the bound (the chunked algorithm's
-              operations at the FP32 rate or its bytes at the HBM rate).
+              (the CPU suite's 1e-4, whose tensors are of order 1; a bf16
+              output first allowed the half ulp of its own rounding, 2^-8
+              of the value, as the card tests do), the gradients w.r.t.
+              x, dt, B and C against float64 autograd of the scan at the
+              same limit, the f32 oracle's reading printed as the
+              control; forward and forward+backward ms of both, peak
+              memory above the inputs and the bounds at the FP32 rate or
+              the HBM rate (the plain version's: the chunked algorithm's
+              operations, every (Q, Q) square whole; the kernel's: the
+              causal work of its own decomposition, chunks of 64 rows);
+              the kernels line's `ssd_scan` entry (bf16 at
+              zamba2-7b-instruct's geometry, and the calls of (b) and
+              (c)'s train steps).
               (b) mamba2-2.7b at full size (64 layers, d 2560, vocab
               50280) on its default targets, which resolve to wx/wo_ssm
               (K1/K2 at 2560x5120 and 5120x2560 over L 64), remat full: 6
               merged train steps at B 1 x S 2048 (losses finite, no
-              anomaly, c moved, K1 and K2 2 a step), the warm step the
+              anomaly, c moved, K1 and K2 2 a step, the SSD scan kernel
+              128 forward calls a step (each layer's forward and its
+              recompute) and 64 backward), the warm step the
               median of the last 5 with their range, the scan's share of
               it; the merge (K1 2) and lockstep Engine.generate
               of 4 prompts x 16 tokens through the recurrent prefill with
@@ -321,7 +334,9 @@ no result line:
               (flash once an application a step, once more for each of
               the 13 checkpointed groups' recompute; K1/K2 2 a step on the
               mamba sites (3584x7168, 7168x3584, radix 7), none on
-              shared/*); the merge leaves shared/* factored under
+              shared/*; the SSD scan kernel 81 + 78 forward calls a step
+              (the 78 layers of the full groups recomputed) and 81
+              backward); the merge leaves shared/* factored under
               fourierft and folds layers/*; generate as in (b); one
               decode_step alone at max_len 4096, pos 4095: wall and
               device time and the 14 direct attentions' share; on an f32
@@ -534,14 +549,16 @@ class PhaseError(RuntimeError):
 
 def zero_counts():
     """Sets every kernel wrapper's launch count to 0 (K3's by window width,
-    K1/K2/K4/K5's over a cluster of blocks too, the fused attention's
-    forward and backward)."""
+    K1/K2/K4/K5's over a cluster of blocks too, the fused attention's and
+    the SSD scan's forward and backward)."""
     from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
     from repro_torch.kernels import fused_attention as fak
     from repro_torch.kernels import paged_attention as pak
+    from repro_torch.kernels import ssd_scan as ssk
     fdk.launches = fdk.dc_launches = ddk.launches = ddk.dc_launches = 0
     fak.launches = fak.bwd_launches = 0
+    ssk.launches = ssk.bwd_launches = 0
     fdk.cluster_launches = fdk.cluster_dc_launches = 0
     ddk.cluster_launches = ddk.cluster_dc_launches = 0
     pak.launches, pak.launches_by_w = 0, {}
@@ -550,14 +567,17 @@ def zero_counts():
 def launch_counts() -> dict:
     """Each kernel's launches since the last `zero_counts()`; K1c, K2c,
     K4c and K5c count those of them over a cluster of two blocks, FA and
-    FAb the fused attention's forward and backward launches."""
+    FAb the fused attention's forward and backward launches, SSD and SSDb
+    the SSD scan's forward and backward calls."""
     from repro_torch.kernels import dct_deltaw as ddk
     from repro_torch.kernels import fourier_deltaw as fdk
     from repro_torch.kernels import fused_attention as fak
     from repro_torch.kernels import paged_attention as pak
+    from repro_torch.kernels import ssd_scan as ssk
     return {"K1": fdk.launches, "K2": fdk.dc_launches, "K3": pak.launches,
             "K4": ddk.launches, "K5": ddk.dc_launches,
             "FA": fak.launches, "FAb": fak.bwd_launches,
+            "SSD": ssk.launches, "SSDb": ssk.bwd_launches,
             "K1c": fdk.cluster_launches, "K2c": fdk.cluster_dc_launches,
             "K4c": ddk.cluster_launches, "K5c": ddk.cluster_dc_launches}
 
@@ -604,14 +624,18 @@ def c_moved(state, params) -> bool:
 
 
 def counted_train(tag: str, name: str, model, params, bs, want_flash: int,
-                  sync, sites: int = 2, cluster_sites: int = 0):
+                  sync, sites: int = 2, cluster_sites: int = 0,
+                  scan_calls=None):
     """`checked_steps` (lr 1e-2, warmup 1) with the kernels' launches and
     `flash_attention`'s calls counted: raises PhaseError, naming
     `tag` and `name`, unless c moved, the method's ΔW kernel and its VJP
     (K1/K2, K4/K5 for dct) each launched `sites` times a step (one per
     merged site), `cluster_sites` of them over a cluster of two blocks,
-    flash ran `want_flash` times, and the fused attention kernel (S <=
-    1024 only) did not launch where flash ran. The warm time is the
+    flash ran `want_flash` times, the fused attention kernel (S <=
+    1024 only) did not launch where flash ran, and, where `scan_calls`
+    (forward, backward) is given, the SSD scan kernel was called that
+    often a step (so no step ran `ssd_chunked` on the card in its place,
+    nor the kernel more often). The warm time is the
     median of the steps after the first, printed with their range.
     Returns (state, frozen, figures, launch counts)."""
     import torch
@@ -649,6 +673,12 @@ def counted_train(tag: str, name: str, model, params, bs, want_flash: int,
                          f"{got[kb]} ({got[kb + 'c']}); expected {len(bs)} "
                          f"steps x {sites} sites ({cluster_sites} over a "
                          "cluster)")
+    if scan_calls is not None and (got["SSD"], got["SSDb"]) != (
+            scan_calls[0] * len(bs), scan_calls[1] * len(bs)):
+        raise PhaseError(f"{tag} {name} train: the SSD scan kernel was "
+                         f"called {got['SSD']} forward, {got['SSDb']} "
+                         f"backward; expected {len(bs)} steps x "
+                         f"{scan_calls[0]} / {scan_calls[1]}")
     if flash_calls[0] != want_flash:
         raise PhaseError(f"{tag} {name} train: flash_attention ran "
                          f"{flash_calls[0]} times, expected {want_flash}")
@@ -667,7 +697,8 @@ def counted_train(tag: str, name: str, model, params, bs, want_flash: int,
           f"losses {[round(x, 4) for x in losses]} | {kf} {got[kf]}, {kb} "
           f"{got[kb]} launches ({got[kf + 'c']}, {got[kb + 'c']} over a "
           f"cluster), flash_attention {flash_calls[0]} calls, fused "
-          f"attention {got['FA']} + {got['FAb']} backward | "
+          f"attention {got['FA']} + {got['FAb']} backward, SSD scan "
+          f"{got['SSD']} + {got['SSDb']} backward | "
           f"cold {secs[0] * 1e3:.1f} ms, warm median {warm_ms:.1f} ms/step "
           f"of {len(warm)} ({warm[0]:.1f}-{warm[-1]:.1f}; "
           f"{fig['tokens_per_s']:.0f} tokens/s) | peak device memory "
@@ -2873,46 +2904,62 @@ def families_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
     return out
 
 
-def ssd_scan_phase(dev, geometry, timed_ms, sync) -> dict:
+def ssd_scan_phase(dev, geometry, dtype, timed_ms, sync) -> dict:
     """Phase 19a (module docstring): the SSD scan alone at `geometry`
-    (H, P, N, G, chunk, B, S), f32. Returns its readings, times, peak
-    memory and bound; raises PhaseError when a check fails."""
+    (H, P, N, G, chunk, B, S), x, B and C in `dtype` (bf16, as the models
+    run it, or f32; dt, A and D f32): the plain version (`ssd_chunked`)
+    and the kernel (`mamba2.ssd_scan`'s route on the card) each held to
+    the float64 oracle on the same values, timed, and their peak memory
+    and bounds. Returns the readings (the kernel's under "kernel_*");
+    raises PhaseError when a check fails."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import custom_ops
+    from repro_torch.kernels import ssd_scan as ssk
     from repro_torch.models import mamba2
     H, P, N, G, chunk, B, S = geometry
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
+    tdt = getattr(torch, dtype)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+    def randn(*shape, dt_=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt_)
 
-    x, B_, C_ = randn(B, S, H, P), randn(B, S, G, N), randn(B, S, G, N)
+    x = randn(B, S, H, P, dt_=tdt)
+    B_, C_ = randn(B, S, G, N, dt_=tdt), randn(B, S, G, N, dt_=tdt)
     dt = F.softplus(randn(B, S, H)) * 0.1
     A = -torch.exp(randn(H) * 0.5)
     D = torch.ones(H, device=dev)
-    cot = randn(B, S, H, P)
+    cot = randn(B, S, H, P, dt_=tdt)
     ins = (x, dt, A, B_, C_, D)
 
     def scan(*xs):
         return mamba2.ssd_chunked(*xs, chunk=chunk)
 
-    def grads(xs):
+    def kscan(*xs):
+        return mamba2.ssd_scan(*xs, chunk=chunk)
+
+    def grads(xs, fn=scan):
         xs = [t.detach().requires_grad_(True) for t in xs]
         with torch.enable_grad():
-            y, _ = scan(*xs)
+            y, _ = fn(*xs)
             return torch.autograd.grad((y * cot.to(y.dtype)).sum(),
                                        [xs[i] for i in (0, 1, 3, 4)])
 
     def rel(a, b):
         """max |a - b| over the largest |b| (each tensor against its own
-        size)."""
-        return float((a.double() - b).abs().max() / b.abs().max())
+        size); a bf16 `a` is first allowed the half ulp of its own
+        rounding, 2^-8 of |b| (the card tests' allowance)."""
+        err = (a.double() - b).abs()
+        if a.dtype == torch.bfloat16:
+            err = (err - 2.0 ** -8 * b.abs()).clamp_min(0.0)
+        return float(err.max() / b.abs().max())
 
     with torch.no_grad():
         y64, f64 = mamba2.ssd_recurrent_oracle(*(t.double() for t in ins))
         y32, f32 = scan(*ins)
-        yo, fo = mamba2.ssd_recurrent_oracle(*ins)         # the f32 control
+        # the control: the f32 oracle on the same values
+        yo, fo = mamba2.ssd_recurrent_oracle(*(t.float() for t in ins))
     rec = {"y": rel(y32, y64), "state": rel(f32, f64),
            "control_y": rel(yo, y64), "control_state": rel(fo, f64),
            "max_y": float(y64.abs().max()),
@@ -2920,55 +2967,110 @@ def ssd_scan_phase(dev, geometry, timed_ms, sync) -> dict:
     g32 = grads(ins)
     g64 = grads([t.double() for t in ins])
     rec["grad"] = [rel(a, b) for a, b in zip(g32, g64)]
-    del y64, f64, yo, fo, g32, g64
+    k0 = (ssk.launches, ssk.bwd_launches)
+    with torch.no_grad():
+        yk, fk = kscan(*ins)
+    gk = grads(ins, kscan)
+    sync()
+    if (ssk.launches - k0[0], ssk.bwd_launches - k0[1]) != (2, 1):
+        raise PhaseError(f"ssm scan H {H} {dtype}: the route launched the "
+                         "kernel "
+                         f"{ssk.launches - k0[0]} / {ssk.bwd_launches - k0[1]}"
+                         " times for 2 forwards and a backward")
+    rec["kernel_y"], rec["kernel_state"] = rel(yk, y64), rel(fk, f64)
+    rec["kernel_grad"] = [rel(a, b) for a, b in zip(gk, g64)]
+    del y64, f64, yo, fo, g32, g64, yk, fk, gk
     # the CPU suite holds the scan to atol 1e-4 on tensors whose largest
     # |value| is of order 1 (tests/test_torch_ssm.py); here each tensor is
     # held to 1e-4 of its own largest |value|
     limit = 1e-4
-    what = (f"y {rec['y']:.3e}, final state {rec['state']:.3e} of their "
+    what = (("" if dtype == "float32" else "not held in bf16: ")
+            + f"y {rec['y']:.3e}, final state {rec['state']:.3e} of their "
             f"largest |value| ({rec['max_y']:.1f}, {rec['max_state']:.1f}; "
             f"limit {limit:g}; the f32 oracle's own reading "
             f"{rec['control_y']:.3e}, {rec['control_state']:.3e}), "
             f"dx/ddt/dB/dC against float64 autograd "
             f"{[f'{g:.2e}' for g in rec['grad']]}")
-    if max(rec["y"], rec["state"], *rec["grad"]) > limit:
-        raise PhaseError(f"ssm scan H {H} P {P} N {N} S {S}: chunked "
-                         f"against the float64 oracle: {what}")
+    kwhat = (f"kernel: y {rec['kernel_y']:.3e}, final state "
+             f"{rec['kernel_state']:.3e}, dx/ddt/dB/dC "
+             f"{[f'{g:.2e}' for g in rec['kernel_grad']]}")
+    # the plain version is held in f32; on bf16 inputs its autograd rounds
+    # x's two gradient terms (the scan's and D·x's) to bf16 before it sums
+    # them, so dx reads near 1e-3 there: printed, not held
+    if dtype == "float32" and max(rec["y"], rec["state"], *rec["grad"]) \
+            > limit:
+        raise PhaseError(f"ssm scan H {H} P {P} N {N} S {S} {dtype}: "
+                         f"chunked against the float64 oracle: {what}")
+    if max(rec["kernel_y"], rec["kernel_state"], *rec["kernel_grad"]) \
+            > limit:
+        raise PhaseError(f"ssm scan H {H} P {P} N {N} S {S} {dtype}: the "
+                         f"kernel against the float64 oracle (limit "
+                         f"{limit:g}): {kwhat}")
     sync()
     before = torch.cuda.memory_allocated()
     for label, fn in (("fwd", lambda: scan(*ins)),
-                      ("fwd_bwd", lambda: grads(ins))):
+                      ("fwd_bwd", lambda: grads(ins)),
+                      ("kernel_fwd", lambda: kscan(*ins)),
+                      ("kernel_fwd_bwd", lambda: grads(ins, kscan))):
         torch.cuda.reset_peak_memory_stats()
-        with torch.set_grad_enabled(label == "fwd_bwd"):
+        with torch.set_grad_enabled(label.endswith("fwd_bwd")):
             fn()
         sync()
         rec[f"{label}_peak_gib"] = (torch.cuda.max_memory_allocated()
                                     - before) / 2 ** 30
-        rec[f"{label}_ms"] = timed_ms(fn, 3)
-    # the chunked algorithm's operations per (batch, chunk): C·Bᵀ scores
-    # (2Q²NG), the decay mask's exp and product (2HQ²), the diagonal
-    # output (2HQ²P), the chunk states and the off-diagonal output
-    # (2HQPN each); the backward takes twice the forward's. Bytes: each
-    # input read and each output written once (f32), plus the cotangent
-    # and the four gradients for forward+backward.
+        rec[f"{label}_ms"] = timed_ms(fn, 10 if label.startswith("kernel")
+                                      else 3)
+    # the plain version's bound: the chunked algorithm's operations per
+    # (batch, chunk) as it computes them, every (Q, Q) square whole: C·Bᵀ
+    # scores (2Q²NG), the decay mask's exp and product (2HQ²), the
+    # diagonal output (2HQ²P), the chunk states and the off-diagonal
+    # output (2HQPN each). The kernel's: the causal work of its own
+    # decomposition, the op's count (`custom_ops._ssd_ops`, the
+    # benchmark's `ssd_ops`) at the kernel's chunk `ssd_scan.tiling(S)`
+    # (64 rows): 9.46 GF a layer forward at zamba2-7b-instruct's 4096
+    # tokens, against 23.05 GF of the plain count and 15.2 GF of the
+    # causal count at the model's chunk of 256. The backward takes twice
+    # the forward's operations. Bytes: each input read and each output
+    # written once, plus the cotangent and the four gradients for
+    # forward+backward.
     Q, nc = chunk, S // chunk
     flops = B * nc * (2 * Q * Q * N * G + 2 * H * Q * Q
                       + 2 * H * Q * Q * P + 4 * H * Q * P * N)
-    in_bytes = 4.0 * (B * S * H * P + B * S * H + 2 * B * S * G * N + 2 * H)
-    out_bytes = 4.0 * (B * S * H * P + B * H * P * N)
+    kflops = custom_ops._ssd_ops(x, B_, ssk.tiling(S)[0])
+    e = x.element_size()
+    in_bytes = (e * (B * S * H * P + 2 * B * S * G * N)
+                + 4.0 * (B * S * H + 2 * H))
+    out_bytes = e * B * S * H * P + 4.0 * B * H * P * N
+    fb_bytes = 2 * in_bytes + out_bytes + e * B * S * H * P
     rec["bound_ms"], rec["bound_by"] = bound(flops, in_bytes + out_bytes,
                                              "float32")
     rec["fwd_bwd_bound_ms"], rec["fwd_bwd_bound_by"] = bound(
-        3 * flops, 2 * in_bytes + out_bytes + 4.0 * B * S * H * P, "float32")
+        3 * flops, fb_bytes, "float32")
+    rec["kernel_bound_ms"], rec["kernel_bound_by"] = bound(
+        kflops, in_bytes + out_bytes, "float32")
+    rec["kernel_fwd_bwd_bound_ms"], _ = bound(3 * kflops, fb_bytes,
+                                              "float32")
     rec["limit"] = limit
     print(f"[ssm] scan B {B} S {S} H {H} P {P} N {N} G {G} chunk {chunk}, "
-          f"f32: {what} | forward {rec['fwd_ms']:.3f} ms (bound "
+          f"{dtype}: {what} | forward {rec['fwd_ms']:.3f} ms (bound "
           f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}; "
           f"{rec['fwd_ms'] / rec['bound_ms']:.1f}x), forward+backward "
           f"{rec['fwd_bwd_ms']:.3f} ms (bound {rec['fwd_bwd_bound_ms']:.4f} "
           f"ms, {rec['fwd_bwd_ms'] / rec['fwd_bwd_bound_ms']:.1f}x) | peak "
           f"above the inputs: forward {rec['fwd_peak_gib']:.3f} GiB, "
           f"forward+backward {rec['fwd_bwd_peak_gib']:.3f} GiB")
+    print(f"[ssm] scan kernel H {H} N {N} G {G} S {S} {dtype}: {kwhat} | "
+          f"forward {rec['kernel_fwd_ms']:.3f} ms (bound "
+          f"{rec['kernel_bound_ms']:.4f} ms, {rec['kernel_bound_by']}, its "
+          f"causal work at chunks of {ssk.tiling(S)[0]}; "
+          f"{rec['kernel_fwd_ms'] / rec['kernel_bound_ms']:.1f}x; "
+          f"{rec['fwd_ms'] / rec['kernel_fwd_ms']:.1f}x faster than plain), "
+          f"forward+backward {rec['kernel_fwd_bwd_ms']:.3f} ms (bound "
+          f"{rec['kernel_fwd_bwd_bound_ms']:.4f} ms; "
+          f"{rec['kernel_fwd_bwd_ms'] / rec['kernel_fwd_bwd_bound_ms']:.1f}"
+          f"x, {rec['fwd_bwd_ms'] / rec['kernel_fwd_bwd_ms']:.1f}x) | peak "
+          f"above the inputs {rec['kernel_fwd_peak_gib']:.3f} / "
+          f"{rec['kernel_fwd_bwd_peak_gib']:.3f} GiB")
     del x, B_, C_, dt, A, D, cot, ins
     torch.cuda.empty_cache()
     return rec
@@ -2997,8 +3099,11 @@ def ssm_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
     t_phase = time.perf_counter()
     gib = 2 ** 30
 
-    # ---- a. the SSD scan alone ----------------------------------------------
-    out["scan"] = ssd_scan_phase(dev, sizes["scan"], timed_ms, sync)
+    # ---- a. the SSD scan alone, bf16 (as the models run it) and f32 ----
+    for key in ("scan", "scan_pack4k"):
+        out[key] = {dtype: ssd_scan_phase(dev, sizes[key], dtype, timed_ms,
+                                          sync)
+                    for dtype in ("bfloat16", "float32")}
 
     def describe(name, cfg, params, cut=""):
         d_inner, H, P, G = mamba2.dims(cfg)
@@ -3113,9 +3218,12 @@ def ssm_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
     params = model.init(0, dev)
     n_base = describe("mamba2", cfg, params)
     B, S_ = sizes["mamba"]
+    # remat="full" checkpoints each layer: its scan runs forward, again in
+    # the recompute, and backward
     state, frozen, fig, got = counted_train(
         "ssm", "mamba2", model, params,
-        synthetic_batches(dev, cfg, B, S_, TRAIN_STEPS_19), 0, sync)
+        synthetic_batches(dev, cfg, B, S_, TRAIN_STEPS_19), 0, sync,
+        scan_calls=(2 * cfg.num_layers, cfg.num_layers))
     out["launches"]["ssm_train"] = got
     fig["base_params"] = n_base
     # the scan's share of the warm step: its forward and its
@@ -3133,12 +3241,12 @@ def ssm_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
     def scan_fb():
         ts_ = [t.detach().requires_grad_(True) for t in xs]
         with torch.enable_grad():
-            y, _ = mamba2.ssd_chunked(*ts_, chunk=min(cfg.ssm.chunk, S_))
+            y, _ = mamba2.ssd_scan(*ts_, chunk=min(cfg.ssm.chunk, S_))
             return torch.autograd.grad(y.float().sum(), ts_[:2])
 
     with torch.no_grad():
         fig["scan_fwd_ms_per_layer"] = timed_ms(
-            lambda: mamba2.ssd_chunked(*xs, chunk=min(cfg.ssm.chunk, S_)), 3)
+            lambda: mamba2.ssd_scan(*xs, chunk=min(cfg.ssm.chunk, S_)), 3)
     fig["scan_fwd_bwd_ms_per_layer"] = timed_ms(scan_fb, 3)
     fig["scan_share"] = ((fig["scan_fwd_ms_per_layer"]
                           + fig["scan_fwd_bwd_ms_per_layer"])
@@ -3169,11 +3277,14 @@ def ssm_phase(dev, cfgs, sizes, timed_ms, sync) -> dict:
     B, S_ = sizes["zamba"]
     steps = TRAIN_STEPS_19
     # flash once per application a step, and once more for each checkpointed
-    # (full) group when the backward recomputes it
+    # (full) group when the backward recomputes it; the scan once a layer,
+    # again for each layer of a full group, and once a layer backward
     state, frozen, fig, got = counted_train(
         "ssm", "zamba2", model, params,
         synthetic_batches(dev, cfg, B, S_, steps),
-        steps * (apps + n_full), sync)
+        steps * (apps + n_full), sync,
+        scan_calls=(cfg.num_layers + n_full * cfg.zamba.shared_every,
+                    cfg.num_layers))
     out["launches"]["hybrid_train"] = got
     fig["base_params"] = n_base
     params = model.join(state["trainable"], frozen)
@@ -5438,7 +5549,9 @@ def main() -> int:
                   "zamba_f32": zamba_cfg.replace(
                       num_layers=zamba_cfg.zamba.shared_every + 1,
                       dtype="float32", param_dtype="float32")},
-            {"scan": (80, 64, 128, 1, 256, 1, 4096), "mamba": (1, 2048),
+            {"scan": (80, 64, 128, 1, 256, 1, 4096),
+             "scan_pack4k": (112, 64, 64, 2, 256, 1, 4096),
+             "mamba": (1, 2048),
              "zamba": (1, 2048), "decode_len": 4096},
             timed_ms, torch.cuda.synchronize)
     except PhaseError as e:
@@ -5641,6 +5754,44 @@ def main() -> int:
          "design": "FlashAttention-2 on mma.sync bf16 / f32 accumulate, "
                    "cp.async double-buffered K/V; backward a dq pass and a "
                    "dk/dv pass (no atomics), dS as bf16 hi + lo"},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/models/mamba2.py ssd_chunked (XLA; no TPU "
+                     "kernel)",
+         "launches": sl["ssm_train"]["SSD"] + sl["hybrid_train"]["SSD"],
+         "bwd_launches": sl["ssm_train"]["SSDb"]
+         + sl["hybrid_train"]["SSDb"],
+         "launches_by_path": {"ssm_train": sl["ssm_train"]["SSD"],
+                              "hybrid_train": sl["hybrid_train"]["SSD"]},
+         "bwd_launches_by_path": {
+             "ssm_train": sl["ssm_train"]["SSDb"],
+             "hybrid_train": sl["hybrid_train"]["SSDb"]},
+         "by_geometry": {
+             f"{name_} {dt_}": {k_: ssm[key_][dt_][k_] for k_ in (
+                 "kernel_y", "kernel_state", "kernel_grad", "kernel_fwd_ms",
+                 "kernel_fwd_bwd_ms", "fwd_ms", "fwd_bwd_ms",
+                 "kernel_bound_ms", "kernel_fwd_bwd_bound_ms", "bound_ms",
+                 "fwd_bwd_bound_ms", "kernel_fwd_peak_gib",
+                 "kernel_fwd_bwd_peak_gib")}
+             for name_, key_ in (("mamba2-2.7b", "scan"),
+                                 ("zamba2-7b-instruct", "scan_pack4k"))
+             for dt_ in ("bfloat16", "float32")},
+         "shape": "zamba2-7b-instruct, B 1, S 4096, bf16 x/B/C",
+         "ms": ssm["scan_pack4k"]["bfloat16"]["kernel_fwd_ms"],
+         "fb_ms": ssm["scan_pack4k"]["bfloat16"]["kernel_fwd_bwd_ms"],
+         "plain_ms": ssm["scan_pack4k"]["bfloat16"]["fwd_ms"],
+         "plain_fb_ms": ssm["scan_pack4k"]["bfloat16"]["fwd_bwd_ms"],
+         "bound_ms": ssm["scan_pack4k"]["bfloat16"]["kernel_bound_ms"],
+         "fb_bound_ms":
+             ssm["scan_pack4k"]["bfloat16"]["kernel_fwd_bwd_bound_ms"],
+         "plain_bound_ms": ssm["scan_pack4k"]["bfloat16"]["bound_ms"],
+         "plain_fb_bound_ms":
+             ssm["scan_pack4k"]["bfloat16"]["fwd_bwd_bound_ms"],
+         "library_ms": None,
+         "design": "f32 FFMA on the CUDA cores, 4 x 4 register blocks; "
+                   "states passed over chunks of 64 rows (the sequence "
+                   "padded with zero rows to a multiple); C·Bᵀ and its "
+                   "gradient shared by 8 heads a block; no atomics"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

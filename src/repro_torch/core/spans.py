@@ -40,7 +40,8 @@ benchmark (`perfbench/metrics/`):
   (`models/attention.py::attention`; path `fused`, `direct`, `flash`,
   `chunked`);
 - `ssd`: the mamba2 SSD scan, forward and backward
-  (`models/mamba2.py::_mixer`, around `ssd_chunked`);
+  (`models/mamba2.py::_mixer`, around `ssd_scan`: the kernel on the card,
+  `ssd_chunked` elsewhere);
 - `shared`: one application of published Zamba2's shared block, from the
   concat to its own linear, forward and backward
   (`models/zamba2.py::_application`).

@@ -72,6 +72,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "fused_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
+    "ssd_scan": {
+        # pointers (void* array: x, dt, A, B, C, D, y, final, cum, states),
+        # dims (int array: b, S, H, G, N, Q, heads a block, is_bf16), stream
+        "ssd_scan_fwd_launch": (_P, _P, _P),
+        # pointers (x, dt, A, B, C, D, dy, dfinal or null, cum, states, the
+        # scratch, dx, ddt, dB, dC), dims, stream
+        "ssd_scan_bwd_launch": (_P, _P, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,11 @@
-"""K1–K5 and the fused attention as `torch.library` custom ops, so fake
-tensors keep the kernel route.
+"""K1–K5, the fused attention and the SSD scan as `torch.library` custom
+ops, so fake tensors keep the kernel route.
 
 A fake tensor (`torch._subclasses.fake_tensor.FakeTensor`, the dry run's:
 shapes, dtypes and a device, no storage) cannot reach a kernel launch.
 Each wrapper (`fourier_deltaw.deltaw` / `dc`, `dct_deltaw.deltaw` / `dc`,
-`paged_attention.paged_attention`, `fused_attention.fused_attention`)
+`paged_attention.paged_attention`, `fused_attention.fused_attention`,
+`ssd_scan.ssd_scan`)
 therefore hands a fake input to its custom op `repro_torch::<name>`,
 whose fake implementation returns the output's shape, and whose real
 implementation is the wrapper's own launch
@@ -12,7 +13,10 @@ implementation is the wrapper's own launch
 Real tensors take the wrapper's route exactly as before: the launch is
 called directly, the counters count it, no dispatcher round trip. K1's op
 carries its autograd: the VJP through K2's op; the fused attention's op
-(out, lse) its backward through `fused_attention_bwd`.
+(out, lse) its backward through `fused_attention_bwd`. The SSD scan's ops
+(`ssd_scan` -> y, final, cum, entering states; `ssd_scan_bwd`) carry
+none: the wrapper's autograd Function calls them on fake tensors, so its
+backward is written once.
 
 `COSTS` prices one call of each op the way chip_smoke's bounds do (its
 `fft_ops` and the bytes each function must move), so `dist.opstats`
@@ -24,10 +28,12 @@ rows and the block table once, over the block table's whole capacity
 4·H·dh operations per (query row, visible column) forward and twice that
 backward (the required work, as the benchmark's `harness/flops.py`
 counts it: the backward's recompute and dS's hi/lo products are not), and
-its tensors once.
+its tensors once; the SSD scan the benchmark's `ssd_ops` and `ssd_bytes`
+of a layer (`perfbench/families/zamba2.py`) forward, and twice those
+operations backward with x, dy, dx, dt, ddt, B, C, dB and dC once.
 """
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -93,11 +99,45 @@ def _fused_bwd_cost(args, out) -> Tuple[float, float]:
     return 8.0 * H * dh * B * _visible_pairs(S, causal), float(nbytes)
 
 
+def _ssd_ops(x, B, chunk: int) -> float:
+    """The benchmark's `ssd_ops` of one layer: the causal C·Bᵀ scores (a
+    group's N a visible pair) and their product with dt·x (a head's P a
+    pair), a token's share of its chunk's state and of the state's output
+    (H·P·N each), 2 operations a multiply-add."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk, S)
+    pairs = b * (S // Q) * Q * (Q + 1) / 2.0
+    return 2.0 * pairs * (G * N + H * P) + 2.0 * b * S * 2 * H * P * N
+
+
+def _ssd_cost(args, out) -> Tuple[float, float]:
+    x, _, _, B, _, _, chunk = args[:7]
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    elt = x.element_size()
+    # the benchmark's `ssd_bytes`: x and y, dt (f32), B and C, each once
+    nbytes = b * S * (2 * elt * H * P + 4 * H + 2 * elt * G * N)
+    return _ssd_ops(x, B, chunk), float(nbytes)
+
+
+def _ssd_bwd_cost(args, out) -> Tuple[float, float]:
+    x, _, _, B = args[:4]
+    chunk = args[10]
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    elt = x.element_size()
+    # twice the forward's operations; x, dy and dx, dt and ddt, B, C, dB, dC
+    nbytes = b * S * (3 * elt * H * P + 8 * H + 4 * elt * G * N)
+    return 2.0 * _ssd_ops(x, B, chunk), float(nbytes)
+
+
 COSTS: Dict[str, Callable] = {
     "fourier_deltaw": _deltaw_cost, "fourier_dc": _dc_cost,
     "dct_deltaw": _deltaw_cost, "dct_dc": _dc_cost,
     "paged_attention": _paged_cost,
     "fused_attention": _fused_cost, "fused_attention_bwd": _fused_bwd_cost,
+    "ssd_scan": _ssd_cost, "ssd_scan_bwd": _ssd_bwd_cost,
 }
 
 
@@ -196,3 +236,44 @@ def define_fused_attention(fwd_launch: Callable, bwd_launch: Callable
         return dq, dk, dv, None
 
     fwd_op.register_autograd(backward, setup_context=setup)
+
+
+def define_ssd_scan(fwd_launch: Callable, bwd_launch: Callable,
+                    tiling: Callable) -> None:
+    """`ssd_scan` (x (b, S, H, P), dt (b, S, H), A (H,), B/C (b, S, G, N),
+    D (H,), chunk -> (y (b, S, H, P) in x's dtype, final (b, H, P, N), cum
+    (b, H, S'), the states entering the kernel's chunks (b, S' / q, H, P,
+    N), all three f32, with (q, S') = `tiling(S)`)) and `ssd_scan_bwd` (the
+    inputs, cum, states, dy, dfinal or None, chunk -> (dx, ddt, dA, dB,
+    dC, dD)), the first's VJP through the second. Real tensors take both
+    ops too: this autograd is the scan's only backward."""
+    T = torch.Tensor
+    f32 = torch.float32
+
+    @torch.library.custom_op(f"{NAMESPACE}::ssd_scan_bwd", mutates_args=())
+    def bwd_op(x: T, dt: T, A: T, B: T, C: T, D: T, cum: T, hst: T, dy: T,
+               dfinal: Optional[T], chunk: int
+               ) -> Tuple[T, T, T, T, T, T]:
+        return bwd_launch(x, dt, A, B, C, D, cum, hst, dy, dfinal, chunk)
+
+    @bwd_op.register_fake
+    def _(x, dt, A, B, C, D, cum, hst, dy, dfinal, chunk):
+        return (torch.empty_like(x), dt.new_empty(dt.shape, dtype=f32),
+                A.new_empty(A.shape, dtype=f32),
+                B.new_empty(B.shape, dtype=f32),
+                C.new_empty(C.shape, dtype=f32),
+                D.new_empty(D.shape, dtype=f32))
+
+    @torch.library.custom_op(f"{NAMESPACE}::ssd_scan", mutates_args=())
+    def fwd_op(x: T, dt: T, A: T, B: T, C: T, D: T, chunk: int
+               ) -> Tuple[T, T, T, T]:
+        return fwd_launch(x, dt, A, B, C, D, chunk)
+
+    @fwd_op.register_fake
+    def _(x, dt, A, B, C, D, chunk):
+        b, S, H, P = x.shape
+        N = B.shape[3]
+        q, Sp = tiling(S)
+        return (torch.empty_like(x), x.new_empty((b, H, P, N), dtype=f32),
+                x.new_empty((b, H, Sp), dtype=f32),
+                x.new_empty((b, Sp // q, H, P, N), dtype=f32))

@@ -6,9 +6,12 @@ The chunked algorithm serves training and full-sequence forwards
 recurrence, which JAX runs as a `lax.scan` over chunks and this module as
 one product with the chunks' decay matrix, the SSD paper's minimal form:
 a handful of launches in place of a few per chunk); the decode step
-carries an O(1) state. The SSD scan is not a
-Pallas kernel in the JAX package (XLA computes it), so it stays plain
-PyTorch here.
+carries an O(1) state. The SSD scan is not a Pallas kernel in the JAX
+package (XLA computes it). Here `ssd_chunked` is its plain PyTorch
+version, which the CPU, float64 tensors and the tests take; on the card
+`ssd_scan` routes bf16 and f32 tensors to the hand-written kernel
+(`kernels/ssd_scan.py`), the same f32 arithmetic with each chunk's
+(Q, Q) tiles kept out of device memory.
 
 Layout: x (B, S, H, P) with H = expand·d_model / head_dim, P = head_dim;
 separate projections wz/wx/wbc/wdt instead of one fused in_proj, as in the
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.spans import span
 from repro_torch.dist.dtensor import is_dtensor, local_shape_and_offset
+from repro_torch.kernels import ssd_scan as ssk
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -128,6 +132,17 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int):
     y = (y_diag + y_off).reshape(b, S, H, P)
     y = y + x.to(ct) * D.to(ct)[None, None, :, None]
     return y.to(x.dtype), s
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int):
+    """`ssd_chunked`'s signature and contract, by the route its inputs
+    take: CUDA tensors of bf16 or f32 launch the kernel
+    (`kernels/ssd_scan.py`, which raises on any other CUDA input but
+    float64, and on a shape it does not take); CPU and float64 tensors run
+    `ssd_chunked`."""
+    if ssk.takes(x, dt, A, B, C, D):
+        return ssk.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    return ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
 
 
 def ssd_recurrent_oracle(x, dt, A, B, C, D):
@@ -247,8 +262,8 @@ def _mixer(p: Dict, xin, bc, dt_raw, cfg: ModelConfig, H: int):
     A = -torch.exp(p["A_log"].to(torch.float32))
     # the scan, forward and backward, lies in the range `ssd`
     with span("ssd") as sp:
-        y, _ = ssd_chunked(xin.reshape(B, S, H, P), dt, A, Bmat, Cmat,
-                           p["Dp"], chunk=min(ssm.chunk, S))
+        y, _ = ssd_scan(xin.reshape(B, S, H, P), dt, A, Bmat, Cmat,
+                        p["Dp"], chunk=min(ssm.chunk, S))
         sp.backward(y)
     return y.reshape(B, S, d_inner)
 
